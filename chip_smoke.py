@@ -8,24 +8,34 @@ imports nothing of JAX.  Phases, one progress line each; any failure raises
 and the script exits non-zero:
 
 1. device: card name, power limit, kernel build time;
-2. each CUDA kernel (K1 fused decode, K4 pack) against its plain torch
-   version on the card, bitwise, over widths, ragged sizes and edge values;
+2. each CUDA kernel (K1 fused decode, K4 pack, and the rows kernels K2
+   decode, K3 unpack, K6 stats, K7 pack) against its plain torch version on
+   the card, bitwise, over widths, row counts, ragged sizes and edge values;
 3. the frozen wire: Trim v1.0 / v1.1 segments encoded from CUDA tensors and
    decoded on CUDA (generic and fused) match tests/fixtures/wire_digests.json;
-4. the main path at full size: one segment of 2^24 particles (a 256^3
+4. the segment path at full size: one segment of 2^24 particles (a 256^3
    N-body snapshot: lattice positions with Gaussian displacements,
    Gaussian velocities, shuffled lattice IDs) through compress_segment and
    decompress_segment on CUDA, with error bounds, exact IDs, fused ==
-   generic, launch counts, wall times, rates and peak memory; then each
-   kernel timed against its plain version at the main path's shapes.
+   generic, launch counts, wall times, rates and peak memory; then K1 and
+   K4 timed against their plain versions at that path's shapes;
+5. the snapshot path at full size: a 512^3 snapshot (2^27 particles, made
+   as in phase 4, plus masses) in 64 blocks through compress_snapshot and
+   decompress_snapshot(batched=True) on CUDA, with error bounds, exact IDs,
+   the first and last block equal to decompress_segment bitwise, launch
+   counts, wall times, rates and peak memory; then K2, K3, K6 and K7 timed
+   against their plain versions at that path's shapes.
 
-The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels with their launch counts, errors and times.
+The launch counts of each path are set to 0 just before the path runs and
+read just after.  The last line is {"ok": true, "device": {...}}; the line
+before it lists the kernels with their launch counts (K1 and K4 from phase
+4, the rows kernels from phase 5), errors and times.
 """
 
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import os
 import statistics
@@ -42,6 +52,8 @@ SIDE = 256                 # particles per box side: 2^24 in all
 BOX = 64.0                 # periodic box width
 POS_DELTA, VEL_DELTA = 1e-3, 1.0
 SEED = 42
+SNAP_SIDE, SNAP_BLOCKS = 512, 64   # phase 5: 2^27 particles, 2^21 a block
+MASS_DELTA = 1e-4
 
 
 def log(msg: str) -> None:
@@ -166,6 +178,80 @@ def check_pack_kernel(dev, g) -> float:
                 raise AssertionError(f"K4 != plain: from_f32 width={width}")
             cases += 1
     log(f"phase 2: K4 pack == plain bitwise in {cases} cases "
+        f"(max_abs_err {worst})")
+    return worst
+
+
+def u32_rows(rows: int, n: int, width: int, g, dev) -> torch.Tensor:
+    """(rows, n) u32 values below 2^width as int32 bits, each row starting
+    with 0 and 2^width - 1."""
+    from minnow_c_tpu_torch.ops import kernels
+    b = torch.randint(0, 1 << width, (rows, n), generator=g, device=dev,
+                      dtype=torch.int64)
+    b[:, :2] = torch.tensor([0, (1 << width) - 1], device=dev)
+    return kernels.i64_to_u32(b)
+
+
+def check_rows_kernels(dev, g) -> dict:
+    """K2, K3, K6 and K7 against their plain versions, bitwise, over widths
+    and row counts past the 65535 limit of a grid's y dimension."""
+    from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda
+    shapes = ((1, 32), (70_000, 32), (3, (1 << 20) + 32), (192, 4096))
+    worst = {"K2": 0.0, "K3": 0.0, "K6": 0.0, "K7": 0.0}
+    cases = 0
+
+    def same(name, got, want, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        if isinstance(got, tuple):
+            for a, b in zip(got, want):
+                same(name, a, b, what)
+            return
+        if not torch.equal(bits(got), bits(want)):
+            raise AssertionError(f"{name} != plain: {what}")
+        worst[name] = max(worst[name], max_abs_err(got, want))
+        cases += 1
+
+    for rows, n in shapes:
+        for width in (1, 7, 16, 24, 32):
+            vals = u32_rows(rows, n, 32, g, dev)
+            same("K7", encode_cuda.pack_rows_cuda(vals, width),
+                 encode_cuda.pack_rows_plain(vals, width),
+                 f"width={width} rows={rows} n={n}")
+            words = encode_cuda.pack_rows_plain(
+                u32_rows(rows, n, width, g, dev), width)
+            same("K3", decode_cuda.unpack_rows_cuda(words, width, n),
+                 decode_cuda.unpack_rows_plain(words, width, n),
+                 f"width={width} rows={rows} n={n}")
+            if width > 24:
+                continue
+            keys = torch.randint(0, 1 << 32, (rows, 2), generator=g,
+                                 device=dev)
+            for periodic in (False, True):
+                x0 = torch.full((rows,), -2.0 if periodic else 1.5,
+                                device=dev)
+                dx = torch.full((rows,), 68.0 if periodic else 32.0,
+                                device=dev)
+                same("K2", decode_cuda.decode_rows_cuda(
+                    words, keys, width, n, x0, dx, BOX, periodic),
+                    decode_cuda.decode_rows_plain(
+                        words, keys, x0, dx / 2.0 ** width, BOX, n, width,
+                        periodic),
+                    f"width={width} rows={rows} n={n} periodic={periodic}")
+        x = torch.rand(rows, n, generator=g, device=dev) * BOX
+        x[::5, 3] = float("nan")
+        if rows > 2:
+            x[1] = torch.where(x[1] < BOX / 2, 0.0, -0.0)
+            x[2, ::3] = -0.0
+            x[2] = -x[2]
+        box = torch.full((rows,), BOX, device=dev)
+        for periodic in (False, True):
+            same("K6", encode_cuda.stats_rows_cuda(
+                x, box, x[:, 0].contiguous(), periodic),
+                encode_cuda.stats_rows_plain(x, box, x[:, 0].contiguous(),
+                                             periodic),
+                f"rows={rows} n={n} periodic={periodic}")
+    log(f"phase 2: K2, K3, K6, K7 == plain bitwise in {cases} comparisons "
         f"(max_abs_err {worst})")
     return worst
 
@@ -363,6 +449,172 @@ def time_kernels(mt, seg, dev):
     return t, err1, err4
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the snapshot path at full size
+# ---------------------------------------------------------------------------
+
+def snapshot_fields(dev):
+    """A 512^3 snapshot made on the card as in phase 4, plus masses uniform
+    in [0.5, 2)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    n = SNAP_SIDE ** 3
+    ids = torch.randperm(n, generator=g, device=dev)
+    pos = torch.empty(3, n, device=dev)
+    for d in range(3):  # one lattice axis at a time bounds the int64 temps
+        lat = (ids // SNAP_SIDE ** d) % SNAP_SIDE
+        pos[d] = (lat.to(torch.float32) + 0.5) * (BOX / SNAP_SIDE) + \
+            0.5 * torch.randn(n, generator=g, device=dev)
+    pos = torch.remainder(pos, BOX)
+    pos = torch.where(pos >= BOX, pos - BOX, pos)
+    vel = 300.0 * torch.randn(3, n, generator=g, device=dev)
+    mass = 0.5 + 1.5 * torch.rand(n, generator=g, device=dev)
+    return pos, vel, ids, mass
+
+
+def reset_counts() -> None:
+    for fn in launch_counted().values():
+        fn.launches = 0
+
+
+def launch_counted():
+    from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda
+    return {"K1": decode_cuda.decode_cuda, "K2": decode_cuda.decode_rows_cuda,
+            "K3": decode_cuda.unpack_rows_cuda, "K4": encode_cuda.pack_cuda,
+            "K6": encode_cuda.stats_rows_cuda,
+            "K7": encode_cuda.pack_rows_cuda}
+
+
+def check_snapshot_path(mt, dev):
+    from minnow_c_tpu_torch.segment import io as seg_io
+    pos, vel, ids, mass = snapshot_fields(dev)
+    n = pos.shape[1]
+    nb = n // SNAP_BLOCKS
+    raw = n * (3 * 4 + 3 * 4 + 8 + 4)
+    spec = mt.SnapshotSpec(
+        pos=mt.PositionAccuracy(delta=POS_DELTA, width=BOX),
+        vel=mt.VelocityAccuracy(delta=VEL_DELTA),
+        ids=mt.IDAccuracy(width=SNAP_SIDE),
+        mass=mt.FloatAccuracy(delta=MASS_DELTA))
+    torch.cuda.synchronize()
+
+    reset_counts()
+    buf = io.BytesIO()
+    stats, t_enc, m_enc = timed(lambda: mt.compress_snapshot(
+        buf, pos, vel, ids, spec, SNAP_BLOCKS, seed=SEED, mass=mass))
+    blob = buf.getvalue()
+    out, t_dec, m_dec = timed(lambda: mt.decompress_snapshot(
+        io.BytesIO(blob), batched=True, device=dev))
+    launches = {k: fn.launches for k, fn in launch_counted().items()}
+
+    for name, t, m in (("compress_snapshot", t_enc, m_enc),
+                       ("decompress_snapshot(batched)", t_dec, m_dec)):
+        log(f"phase 5: {name}: {t:.4f} s wall, {raw / t / 1e9:.3f} GB/s of "
+            f"raw f32/u64 bytes, peak device memory {m / 2**30:.3f} GiB")
+    log(f"phase 5: {n} particles in {SNAP_BLOCKS} blocks, {raw} raw bytes "
+        f"-> {len(blob)} file bytes (ratio {raw / len(blob):.3f}); depths "
+        f"{ {k: v for k, v in stats.items() if k not in ('bytes',)} }")
+    log(f"phase 5: launches in the snapshot path: {launches}")
+
+    worst = {}
+    for name, got, want, delta in (("pos", out["pos"], pos, POS_DELTA),
+                                   ("vel", out["vel"], vel, VEL_DELTA),
+                                   ("mass", out["mass"], mass, MASS_DELTA)):
+        err = 0.0
+        for d in range(got.shape[0] if got.dim() == 2 else 1):
+            a = (got[d] if got.dim() == 2 else got).double()
+            b = (want[d] if want.dim() == 2 else want).double()
+            e = (a - b).abs()
+            if name == "pos":
+                e = torch.minimum(e, BOX - e)
+            err = max(err, e.max().item())
+        if not err <= delta:
+            raise AssertionError(f"phase 5: {name} error {err} > {delta}")
+        worst[name] = err
+    if not torch.equal(out["ids"], ids):
+        raise AssertionError("phase 5: IDs did not come back exactly")
+    log(f"phase 5: max errors {worst} within (pos {POS_DELTA}, vel "
+        f"{VEL_DELTA}, mass {MASS_DELTA}); IDs exact")
+
+    segs = [s for _, s in seg_io.iter_segments(io.BytesIO(blob))]
+    for b in (0, SNAP_BLOCKS - 1):
+        seg = mt.decompress_segment(segs[b], fused=True, device=dev)
+        sl = slice(b * nb, (b + 1) * nb)
+        for f, key in zip(seg.fields, ("pos", "vel", "ids", "mass")):
+            want = out[key][..., sl]
+            if not torch.equal(bits(f.data), bits(want)):
+                raise AssertionError(f"phase 5: batched {key} of block {b} "
+                                     "!= decompress_segment")
+    if len(blob) >= raw:
+        raise AssertionError("phase 5: file is not smaller than raw")
+    floor = {"K2": 7, "K3": 3, "K6": 3, "K7": 6}
+    if any(launches[k] < v for k, v in floor.items()):
+        raise AssertionError(f"snapshot path missed a kernel: {launches} "
+                             f"(want at least {floor})")
+    log(f"phase 5: blocks 0 and {SNAP_BLOCKS - 1} == decompress_segment "
+        "bitwise; file < "
+        f"raw; launches at least {floor}")
+    del out, buf, blob, segs
+    return (pos, vel, ids, stats), launches
+
+
+def time_rows_kernels(mt, data, dev):
+    """K2, K3, K6 and K7 against their plain versions at the snapshot
+    path's shapes: the 192 position rows of 2^21 (stats, pack), one
+    dimension's 64 rows (decode) and one ID dimension's 64 rows
+    (unpack)."""
+    from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
+    from minnow_c_tpu_torch.parallel import snapshot as snap
+    from minnow_c_tpu_torch.quant import engine
+    pos, _, ids, stats = data
+    B, nb = SNAP_BLOCKS, pos.shape[1] // SNAP_BLOCKS
+    rows = pos.reshape(3, B, nb).transpose(0, 1).reshape(3 * B, nb)
+    box = torch.full((3 * B,), BOX, device=dev)
+    anchor = rows[:, 0].contiguous()
+    depth = stats["pos_depth"]
+    x0, rng = snap._batched_stats_pos(rows.reshape(B, 3, nb), BOX)
+    bins = kernels.uniform_bin_index(
+        kernels.undo_periodic(rows, BOX), depth, x0.reshape(-1, 1),
+        rng.repeat_interleave(3)[:, None])
+    words = encode_cuda.pack_rows_cuda(bins, depth).reshape(B, 3, -1)[:, 0]
+    words = words.contiguous()
+    keys = torch.tensor([1, 2], device=dev).expand(B, 2)
+    x0d = x0[:, 0].contiguous()
+    dxd = rng.contiguous()
+    qd = engine.id_decompose(ids, SNAP_SIDE)[0][0].reshape(B, nb)
+    wid = stats["id_widths"][0]
+    id_words = encode_cuda.pack_rows_cuda(
+        kernels.i64_to_u32(qd - qd.amin(dim=1, keepdim=True)), wid)
+
+    fns = {
+        "K6": (lambda: encode_cuda.stats_rows_cuda(rows, box, anchor, True),
+               lambda: encode_cuda.stats_rows_plain(rows, box, anchor, True),
+               f"rows {3 * B}, n {nb}"),
+        "K7": (lambda: encode_cuda.pack_rows_cuda(bins, depth),
+               lambda: encode_cuda.pack_rows_plain(bins, depth),
+               f"rows {3 * B}, n {nb}, width {depth}"),
+        "K2": (lambda: decode_cuda.decode_rows_cuda(
+                   words, keys, depth, nb, x0d, dxd, BOX, True),
+               lambda: decode_cuda.decode_rows_plain(
+                   words, keys, x0d, dxd / 2.0 ** depth, BOX, nb, depth,
+                   True),
+               f"rows {B}, n {nb}, width {depth}"),
+        "K3": (lambda: decode_cuda.unpack_rows_cuda(id_words, wid, nb),
+               lambda: decode_cuda.unpack_rows_plain(id_words, wid, nb),
+               f"rows {B}, n {nb}, width {wid}"),
+    }
+    times, errs = {}, {}
+    for k, (fast, plain, shape) in fns.items():
+        errs[k] = max_abs_err(fast(), plain()) if k != "K6" else max(
+            max_abs_err(a, b) for a, b in zip(fast(), plain()))
+        if errs[k]:
+            raise AssertionError(f"{k} != plain at the snapshot's shapes")
+        times[k] = cuda_ms(fast)
+        times[k + " plain"] = cuda_ms(plain)
+        log(f"phase 5: {k} at {shape}: {times[k]:.4f} ms, plain torch "
+            f"{times[k + ' plain']:.4f} ms (CUDA events, median of 5)")
+    return times, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -386,9 +638,15 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(SEED)
     err1 = check_decode_kernel(dev, g)
     err4 = check_pack_kernel(dev, g)
+    rows_err = check_rows_kernels(dev, g)
     check_frozen_wire(mt, dev)
+    reset_counts()
     seg, launches = check_main_path(mt, dev)
     times, e1, e4 = time_kernels(mt, seg, dev)
+    del seg
+    data, snap_launches = check_snapshot_path(mt, dev)
+    rows_times, rows_e = time_rows_kernels(mt, data, dev)
+    del data
 
     kernels = [
         {"name": "decode_uniform (K1)", "route": "cuda",
@@ -402,6 +660,18 @@ def main() -> int:
          "launches": launches["K4"], "max_abs_err": max(err4, e4),
          "ms": times["K4"], "plain_ms": times["K4 plain"]},
     ]
+    for k, name, src, rep_ in (
+            ("K2", "decode_rows (K2)", "decode.cu", "decode_pallas.py:361"),
+            ("K3", "unpack_rows (K3)", "decode.cu", "decode_pallas.py:291"),
+            ("K6", "stats_rows (K6)", "stats.cu", "encode_pallas.py:501"),
+            ("K7", "pack_rows (K7)", "pack.cu", "encode_pallas.py:147")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"minnow_c_tpu_torch/csrc/{src}",
+            "replaces": f"minnow_c_tpu/ops/{rep_}",
+            "launches": snap_launches[k],
+            "max_abs_err": max(rows_err[k], rows_e[k]),
+            "ms": rows_times[k], "plain_ms": rows_times[k + " plain"]})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,14 +12,23 @@ Layer map (mirrors the JAX package):
                      (decode_cuda, encode_cuda), native entropy/checksum, RNG
   L2  quant/      -- per-field-type quantization engine (the lossy stage)
   L3  algos/      -- versioned algorithm registry + frozen codec modules
-  L4  segment/    -- segment API, wire format, stream reader/writer
+  L4  segment/    -- segment API, wire format, stream reader/writer, file I/O
+  L5  parallel/   -- snapshots: block-batched encode/decode of whole
+                     snapshots into chained segment files
 
 Ported so far: the Trim codec (v1.0, v1.1) at uniform depth with the linear
-map, for all five field types.  See ROADMAP.md for the rest.
+map, for all five field types, and the single-host snapshot writer and
+reader (compress_snapshot / decompress_snapshot) in the div scale mode.
+See ROADMAP.md for the rest.
 """
 
 from . import semver, types  # noqa: F401
-from . import algos, quant, segment  # noqa: F401
+from . import algos, parallel, quant, segment  # noqa: F401
+from .parallel.snapshot import (  # noqa: F401
+    SnapshotSpec,
+    compress_snapshot,
+    decompress_snapshot,
+)
 from .segment.api import (  # noqa: F401
     compress_segment,
     decompress_segment,

@@ -1,10 +1,17 @@
 // K4: uniform-width bitpack of one plane, from u32 bins or from a pre-scaled
 // f32 plane (delta * 2^width) that it first truncates and clamps.
+// K7: the same pack of R rows of n u32 bins each, every row its own stream.
 //
-// Replaces the Pallas kernel minnow_c_tpu/ops/encode_pallas.py:pack_pallas
-// (_pack_body, _scaled_to_bins).  Layout is util.c's: bit b of element i
-// lands at global bit i*width + b; spare bits of the last word are zero.
-// Output bits equal encode_cuda.pack_plain and the JAX package's pack.
+// K4 replaces the Pallas kernel minnow_c_tpu/ops/encode_pallas.py:pack_pallas
+// (_pack_body, _scaled_to_bins), K7 encode_pallas.py:pack_pallas_rows
+// (_pack_rows_kernel), which the snapshot writer packs every field with.
+// Layout is util.c's: bit b of element i lands at global bit i*width + b;
+// spare bits of the last word are zero.  Output bits equal
+// encode_cuda.pack_plain / pack_rows_plain and the JAX package's packs.
+//
+// K7 needs 32 | n.  Then every row packs into exactly (n / 32) * width words
+// and starts on a word boundary, so the rows pack is K4's pack of the
+// flattened R * n elements: K7 launches K4's device code over them.
 //
 // Bound on the card: memory.  Per element it reads 4 bytes and writes
 // width/8 bytes.
@@ -71,5 +78,16 @@ extern "C" int mnw_pack_uniform(const void* vals, int64_t n, int width,
     pack_uniform_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0,
                                  s>>>(vals, n, width, o, n_words);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mnw_pack_rows(const void* vals, int64_t rows, int64_t n,
+                             int width, void* out, void* stream) {
+  constexpr int kThreads = 256;
+  const int64_t n_words = rows * (n / 32) * width;
+  const int64_t blocks = (n_words + kThreads - 1) / kThreads;
+  pack_uniform_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      vals, rows * n, width, static_cast<uint32_t*>(out), n_words);
   return static_cast<int>(cudaGetLastError());
 }

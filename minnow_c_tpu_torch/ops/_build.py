@@ -25,27 +25,40 @@ def _stale(target: str, sources: List[str]) -> bool:
     return any(os.path.getmtime(s) > t for s in sources)
 
 
+def run_all(commands: List[List[str]]) -> str:
+    """Start every command at once, each in its own process, and wait for
+    all of them.  Returns their combined output; raises RuntimeError
+    naming the first command that failed."""
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in commands]
+    except OSError as e:
+        raise RuntimeError(f"build failed: {e}") from e
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(commands, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"build failed ({' '.join(cmd)}):\n{out}")
+    return "".join(outs)
+
+
 def build_locked(target: str, sources: List[str],
-                 command: Callable[[str], List[str]]) -> Optional[str]:
-    """Run ``command(tmp_path)`` to (re)build ``target`` if it is stale.
-    Returns the compiler's combined output when a build ran, else None;
-    raises RuntimeError when the build fails."""
+                 build: Callable[[str], str]) -> Optional[str]:
+    """Run ``build(tmp_path)`` to (re)build ``target`` if it is stale;
+    ``build`` writes the library to ``tmp_path`` and returns the compiler's
+    output.  Returns that output when a build ran, else None; raises
+    RuntimeError when the build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not _stale(target, sources):
             return None
         tmp = f"{target}.{os.getpid()}.tmp"
-        cmd = command(tmp)
         try:
-            r = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as e:
-            raise RuntimeError(f"build of {target} failed: {e}") from e
-        if r.returncode != 0:
+            log = build(tmp)
+        except RuntimeError:
             if os.path.exists(tmp):
                 os.remove(tmp)
-            raise RuntimeError(
-                f"build of {target} failed ({' '.join(cmd)}):\n"
-                f"{r.stdout}{r.stderr}")
+            raise
         os.replace(tmp, target)
-        return r.stdout + r.stderr
+        return log

@@ -7,12 +7,12 @@ global bit g lives in output word ``g // 32`` at position ``g % 32``; spare
 bits in the last word are zero.
 
 u32 arrays are int32 tensors holding the same bits (see ``kernels``).
-``uniform_pack`` goes through the pack kernel's wrapper
-(``encode_cuda.pack_cuda``), which launches the CUDA kernel for a CUDA
-tensor and runs its plain torch version for a CPU tensor.  ``uniform_unpack``
-is plain torch on every device; the fused decode kernel
-(``decode_cuda``) unpacks inside itself.  The per-element-width ``pack`` /
-``unpack`` of the Deltas mode are not ported yet.
+``uniform_pack`` and ``uniform_pack_rows`` go through the pack kernels'
+wrappers (``encode_cuda.pack_cuda`` / ``pack_rows_cuda``), which launch the
+CUDA kernel for a CUDA tensor and run its plain torch version for a CPU
+tensor.  ``uniform_unpack`` is plain torch on every device; the decode
+kernels (``decode_cuda``) unpack inside themselves.  The per-element-width
+``pack`` / ``unpack`` of the Deltas mode are not ported yet.
 """
 
 from __future__ import annotations
@@ -37,6 +37,17 @@ def uniform_pack(x: torch.Tensor, width: int) -> torch.Tensor:
     (util_U32UniformPack, util.c:311-355)."""
     from .encode_cuda import pack_cuda
     return pack_cuda(x, width)
+
+
+def uniform_pack_rows(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Pack each row of u32 tensor ``x`` of shape (rows, n) independently;
+    requires ``n % 32 == 0``.  Row r's stream is bit-identical to
+    ``uniform_pack(x[r], width)`` and fills exactly (n//32)*width words, so
+    the result is the dense (rows, (n//32)*width) matrix of per-row
+    streams.  Goes through the rows pack kernel's wrapper
+    (``encode_cuda.pack_rows_cuda``)."""
+    from .encode_cuda import pack_rows_cuda
+    return pack_rows_cuda(x, width)
 
 
 def uniform_unpack(x: torch.Tensor, width: int, n: int) -> torch.Tensor:

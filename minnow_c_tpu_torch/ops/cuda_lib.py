@@ -2,10 +2,11 @@
 
 The kernels are compiled by ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with ``ctypes``; the build runs
-at first use and again whenever a source is newer than the library.
-Compiled with ``-fmad=false``: the kernels name every rounding they want
-(``__fadd_rn``, ``__fmaf_rn``), and a multiply-add contracted anywhere else
-changes the frozen wire bits.
+at first use and again whenever a source is newer than the library.  Each
+source compiles in its own ``nvcc`` process, all started together, and one
+more links the objects.  Compiled with ``-fmad=false``: the kernels name
+every rounding they want (``__fadd_rn``, ``__fmaf_rn``), and a multiply-add
+contracted anywhere else changes the frozen wire bits.
 """
 
 from __future__ import annotations
@@ -16,13 +17,13 @@ import os
 import shutil
 import threading
 
-from ._build import BUILD_DIR, build_locked
+from ._build import BUILD_DIR, build_locked, run_all
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 LIB_PATH = os.path.join(BUILD_DIR, "libminnow_cuda.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
@@ -40,6 +41,20 @@ def _nvcc() -> str:
     return os.path.join("/usr/local/cuda", "bin", "nvcc")
 
 
+def _build(out: str, sources) -> str:
+    """Compile every source at once, then link them into ``out``."""
+    objs = [f"{out}.{os.path.basename(s)}.o" for s in sources]
+    try:
+        log = run_all([[_nvcc(), *NVCC_FLAGS, "-c", s, "-o", o]
+                       for s, o in zip(sources, objs)])
+        return log + run_all([[_nvcc(), *ARCH, "-shared", "-o", out,
+                               *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, building it if needed; raises
     RuntimeError when the build fails."""
@@ -51,8 +66,7 @@ def lib() -> ctypes.CDLL:
             return _lib
         sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
         log = build_locked(LIB_PATH, sources,
-                           lambda out: [_nvcc(), *NVCC_FLAGS, "-o", out,
-                                        *sources])
+                           lambda out: _build(out, sources))
         if log is not None:
             build_log = log
         l = ctypes.CDLL(LIB_PATH)
@@ -62,8 +76,18 @@ def lib() -> ctypes.CDLL:
         l.mnw_decode_uniform.restype = i32
         l.mnw_decode_uniform.argtypes = [p, i64, u32, u32, f32, f32, f32,
                                          i64, i32, i64, i32, p, p]
+        l.mnw_decode_rows.restype = i32
+        l.mnw_decode_rows.argtypes = [p, i64, i64, i32, p, p, p, f32, i32,
+                                      p, p]
+        l.mnw_unpack_rows.restype = i32
+        l.mnw_unpack_rows.argtypes = [p, i64, i64, i32, p, p]
         l.mnw_pack_uniform.restype = i32
         l.mnw_pack_uniform.argtypes = [p, i64, i32, i32, p, i64, p]
+        l.mnw_pack_rows.restype = i32
+        l.mnw_pack_rows.argtypes = [p, i64, i64, i32, p, p]
+        l.mnw_stats_rows.restype = i32
+        l.mnw_stats_rows.argtypes = [p, i64, i64, i64, p, p, i32, p, p, p,
+                                     p]
         l.mnw_cuda_error_string.restype = ctypes.c_char_p
         l.mnw_cuda_error_string.argtypes = [i32]
         _lib = l

@@ -1,14 +1,21 @@
-"""K1: the fused uniform decode kernel (``csrc/decode.cu``) and its plain
-torch version.
+"""The decode kernels (``csrc/decode.cu``) and their plain torch versions.
 
-Port of ``minnow_c_tpu/ops/decode_pallas.py:decode_pallas``: one pass that
-unpacks a plane at ``width`` bits, draws the Threefry-2x32-13 dither of
-``ops/rng.py``, undoes the bin index as ``x0 + dx_bin*(bin + u)`` (the
-multiply and add rounded once together, as the frozen decode wire has
-them), and optionally rewraps into the periodic box.
-``decode_cuda`` launches the CUDA kernel for a CUDA tensor and runs
-``decode_plain`` only for a CPU tensor; there is no fallback from one to
-the other.
+* K1 ``decode_cuda`` / ``decode_plain``, port of
+  ``minnow_c_tpu/ops/decode_pallas.py:decode_pallas``: one pass that
+  unpacks a plane at ``width`` bits, draws the Threefry-2x32-13 dither of
+  ``ops/rng.py``, undoes the bin index as ``x0 + dx_bin*(bin + u)`` (the
+  multiply and add rounded once together, as the frozen decode wire has
+  them), and optionally rewraps into the periodic box.
+* K2 ``decode_rows_cuda`` / ``decode_rows_plain``, port of
+  ``decode_pallas_rows``: K1 over R independent streams with per-row key,
+  x0 and range, the dither counter restarting at 0 in every row.
+* K3 ``unpack_rows_cuda`` / ``unpack_rows_plain``, port of
+  ``unpack_pallas_rows``: the bare unpack of R streams to u32 bins.
+
+The rows kernels need ``rows_kernel_eligible``: 32 | n, so no row ends
+inside a word.  Each ``*_cuda`` wrapper launches its CUDA kernel for a
+CUDA tensor and runs the plain version only for a CPU tensor; there is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -77,3 +84,121 @@ def decode_cuda(words: torch.Tensor, key, width: int, n: int, x0, dx,
 
 
 decode_cuda.launches = 0
+
+
+def rows_kernel_eligible(width: int, n: int) -> bool:
+    """Gate of the rows kernels (K2, K3): a positive width and a 32-aligned
+    element count, so that every row's stream ends on a word boundary
+    (``decode_pallas.rows_kernel_eligible``)."""
+    return width >= 1 and n >= 1 and n % 32 == 0
+
+
+def _check_rows(words: torch.Tensor, width: int, n: int, max_width: int,
+                what: str) -> None:
+    if not rows_kernel_eligible(width, n) or width > max_width:
+        raise ValueError(f"{what} needs 1 <= width <= {max_width} and "
+                         f"32 | n (width={width}, n={n})")
+    if words.dtype != torch.int32 or words.dim() != 2:
+        raise TypeError("words must be a 2-D int32 tensor of u32 bits")
+    if words.shape[1] != n // 32 * width:
+        raise ValueError(f"rows of {words.shape[1]} words do not hold "
+                         f"{n} elements of {width} bits")
+
+
+def unpack_rows_plain(words: torch.Tensor, width: int,
+                      n: int) -> torch.Tensor:
+    """Plain torch version of K3 on any device: (R, n*width/32) words ->
+    (R, n) u32 bins (int32).  With 32 | n every row starts on a word, so
+    the rows are one stream of R*n elements."""
+    rows = words.shape[0]
+    return bitpack.uniform_unpack(words.reshape(-1), width,
+                                  rows * n).reshape(rows, n)
+
+
+def unpack_rows_cuda(words: torch.Tensor, width: int,
+                     n: int) -> torch.Tensor:
+    """Unpack R independent streams of ``n`` elements at ``width`` bits
+    (1..32, 32 | n); row r equals ``uniform_unpack(words[r], width, n)``.
+    Semantics of the JAX package's ``unpack_pallas_rows``.  A CUDA tensor
+    launches K3 (counted in ``unpack_rows_cuda.launches``); a CPU tensor
+    runs ``unpack_rows_plain``."""
+    _check_rows(words, width, n, 32, "unpack_rows")
+    if words.device.type == "cpu":
+        return unpack_rows_plain(words, width, n)
+    if words.device.type != "cuda":
+        raise ValueError(f"no unpack for device {words.device}")
+    words = words.contiguous()
+    rows = words.shape[0]
+    out = torch.empty((rows, n), dtype=torch.int32, device=words.device)
+    if rows == 0:
+        return out
+    lib = cuda_lib.lib()
+    with torch.cuda.device(words.device):
+        rc = lib.mnw_unpack_rows(words.data_ptr(), rows, n, width,
+                                 out.data_ptr(),
+                                 torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(rc, "unpack_rows")
+    unpack_rows_cuda.launches += 1
+    return out
+
+
+unpack_rows_cuda.launches = 0
+
+
+def decode_rows_plain(words: torch.Tensor, keys: torch.Tensor,
+                      x0: torch.Tensor, dx_bin: torch.Tensor, box,
+                      n: int, width: int,
+                      periodic: bool = False) -> torch.Tensor:
+    """Plain torch version of K2 on any device: per row, unpack, the dither
+    of key ``keys[r]`` from counter 0, ``x0[r] + dx_bin[r]*(bin + u)``
+    rounded as ``kernels.undo_bins``, rewrap.  ``x0`` and ``dx_bin`` are
+    (R,) f32, ``dx_bin`` the bin width f32(dx) / 2^width."""
+    bins = unpack_rows_plain(words, width, n)
+    u = _rng.uniform_dither_rows(keys, n)
+    s = kernels.u32_to_i64(bins).to(torch.float32) + u
+    x = kernels.fma_f32(dx_bin[:, None], s, x0[:, None])
+    return kernels.periodic(x, box) if periodic else x
+
+
+def decode_rows_cuda(words: torch.Tensor, keys, width: int, n: int, x0, dx,
+                     box=0.0, periodic: bool = False) -> torch.Tensor:
+    """Fused decode of R independent streams: ``words`` (R, n*width/32)
+    int32 of u32 bits, ``keys`` (R, 2) dither keys (integers holding u32),
+    ``x0`` and ``dx`` (R,) per-row offset and full range; width 1..24,
+    32 | n.  Row r equals ``decode_cuda(words[r], keys[r], width, n, x0[r],
+    dx[r], box, periodic)``.  Semantics of the JAX package's
+    ``decode_pallas_rows``.  A CUDA tensor launches K2 (counted in
+    ``decode_rows_cuda.launches``); a CPU tensor runs
+    ``decode_rows_plain``."""
+    _check_rows(words, width, n, 24, "decode_rows")
+    dev = words.device
+    rows = words.shape[0]
+    keys = torch.as_tensor(keys, device=dev).reshape(rows, 2)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev).reshape(rows)
+    dx_bin = torch.as_tensor(dx, dtype=torch.float32, device=dev).reshape(
+        rows) / kernels.f32_scalar(2.0 ** width, dev)
+    if dev.type == "cpu":
+        return decode_rows_plain(words, keys, x0, dx_bin, box, n, width,
+                                 periodic)
+    if dev.type != "cuda":
+        raise ValueError(f"no decode for device {dev}")
+    words = words.contiguous()
+    keys = kernels.i64_to_u32(keys.to(torch.int64) & kernels.M32)
+    x0 = x0.contiguous()
+    dx_bin = dx_bin.contiguous()
+    out = torch.empty((rows, n), dtype=torch.float32, device=dev)
+    if rows == 0:
+        return out
+    lib = cuda_lib.lib()
+    with torch.cuda.device(dev):
+        rc = lib.mnw_decode_rows(
+            words.data_ptr(), rows, n, width, keys.data_ptr(),
+            x0.data_ptr(), dx_bin.data_ptr(), float(np.float32(box)),
+            int(periodic), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(rc, "decode_rows")
+    decode_rows_cuda.launches += 1
+    return out
+
+
+decode_rows_cuda.launches = 0

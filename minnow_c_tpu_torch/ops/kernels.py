@@ -57,10 +57,11 @@ def u64_periodic(x, L):
 def undo_periodic(x, L):
     """Shift a periodically wrapped cluster into one contiguous range: values
     more than L/2 from x[0] are unwrapped across the boundary
-    (util_UndoPeriodic, util.c:97-113)."""
+    (util_UndoPeriodic, util.c:97-113).  A 2-D ``x`` is a stack of
+    independent rows, each unwrapped around its own element 0."""
     L = f32_scalar(L, x.device)
     half = L / 2
-    x0 = x[0]
+    x0 = x[..., :1]
     x = torch.where(x - x0 >= half, x - L, x)
     return torch.where(x - x0 < -half, x + L, x)
 
@@ -146,8 +147,11 @@ def uniform_bin_index(x, level: int, x0, dx):
     Out-of-range values clamp to the first / last bin; a constant plane
     (dx == 0, delta = NaN) bins to 0.  ``delta * 2^level`` is an exact
     power-of-two scaling, so the clamp tests on it equal the reference's
-    tests on ``delta``."""
-    delta = exact_div(x - f32_scalar(x0, x.device), f32_scalar(dx, x.device))
+    tests on ``delta``.  ``x0`` and ``dx`` are scalars, or f32 tensors on
+    x's device that broadcast against it (one per row)."""
+    def f32(v):
+        return v if isinstance(v, torch.Tensor) else f32_scalar(v, x.device)
+    delta = exact_div(x - f32(x0), f32(dx))
     return scaled_to_bins(delta * float(1 << level), level).to(torch.int32)
 
 

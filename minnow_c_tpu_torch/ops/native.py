@@ -17,7 +17,7 @@ import threading
 
 import numpy as np
 
-from ._build import BUILD_DIR, build_locked
+from ._build import BUILD_DIR, build_locked, run_all
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "minnow_c_tpu", "native",
@@ -39,8 +39,8 @@ def lib() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        build_locked(_LIB_PATH, [_SRC],
-                     lambda out: ["g++", *_CXXFLAGS, "-o", out, _SRC])
+        build_locked(_LIB_PATH, [_SRC], lambda out: run_all(
+            [["g++", *_CXXFLAGS, "-o", out, _SRC]]))
         l = ctypes.CDLL(_LIB_PATH)
 
         l.mnw_checksum.restype = ctypes.c_uint32

@@ -248,14 +248,16 @@ def uniform_dither_np(key, shape, ctr0: int = 0) -> np.ndarray:
 _M32 = 0xFFFFFFFF
 
 
-def _threefry2x32_torch(k0: int, k1: int, c0: torch.Tensor, c1: int):
-    """``_threefry2x32`` on an int64 counter tensor holding u32 values;
-    ``k0``, ``k1`` and the second counter word ``c1`` are python ints.
-    Returns (x0, x1) as int64 tensors of u32 values."""
+def _threefry2x32_torch(k0, k1, c0: torch.Tensor, c1: int):
+    """``_threefry2x32`` on an int64 counter tensor holding u32 values; the
+    second counter word ``c1`` is a python int, and ``k0``, ``k1`` are
+    python ints or int64 tensors of u32 values that broadcast against
+    ``c0`` (one key per row).  Returns (x0, x1) as int64 tensors of u32
+    values."""
     k2 = (k0 ^ k1 ^ _TF_PARITY) & _M32
     ks = (k0, k1, k2)
     x0 = (c0 + k0) & _M32
-    x1 = torch.full_like(c0, (c1 + k1) & _M32)
+    x1 = torch.zeros_like(x0) + ((k1 + c1) & _M32)
     for r in range(_TF_ROUNDS):
         x0.add_(x1).bitwise_and_(_M32)
         rot = _TF_ROT[r % 8]
@@ -298,3 +300,16 @@ def uniform_dither(key, shape, ctr0: int = 0, device="cpu") -> torch.Tensor:
         n *= int(s)
     h = dither_u16(key, n, ctr0=ctr0, device=device)
     return (h.to(torch.float32) * (1.0 / (1 << 16))).reshape(shape)
+
+
+def uniform_dither_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """The dither of R independent streams of ``n`` elements as (R, n) f32:
+    row r uses key ``keys[r]`` (an (R, 2) integer tensor of u32 values)
+    and counters from 0, as the rows decode draws it."""
+    k = keys.to(torch.int64) & _M32
+    q = (n + 3) // 4
+    ctr = torch.arange(q, dtype=torch.int64, device=keys.device)[None, :]
+    a, b = _threefry2x32_torch(k[:, :1], k[:, 1:], ctr, 0)
+    h = torch.stack([a & 0xFFFF, a >> 16, b & 0xFFFF, b >> 16], dim=2)
+    h = h.reshape(k.shape[0], -1)[:, :n]
+    return h.to(torch.float32) * (1.0 / (1 << 16))

@@ -1,0 +1,726 @@
+"""Snapshot-scale compression in torch: block-batched encode and decode of
+whole particle snapshots on one device.
+
+Port of ``minnow_c_tpu/parallel/snapshot.py`` (the single-host writer and
+reader).  A snapshot is split into equal particle blocks; the positions,
+velocities and masses of all blocks are unwrapped, reduced to per-block
+stats, binned and bitpacked in batched device passes over (block, dim)
+rows; IDs are decomposed device-wide and packed per block.  Each block is
+then assembled on the host, with LZ4 and checksums, into a *standard*
+wire-format segment (Trim v1.0 layout), and the segments are written in
+file order with chained IOHeaders.  The files are byte-identical to the
+JAX package's writer, and either package reads the other's.
+
+Depth policy: one depth per field across all blocks; ranges stay per
+block.  Encode runs on the device of the given tensors (numpy input goes
+to ``device=``); decode returns tensors on ``device``.  The batched passes
+go through the rows kernels: K6 ``stats_rows`` (per-block stats), K7
+``pack_rows`` (every pack when 32 | nb), K2 ``decode_rows`` (float decode)
+and K3 ``unpack_rows`` (ID decode); with 32 ∤ nb the blocks pack and
+decode row by row through K4 and K1.
+
+Not ported yet: ``scale_mode="recip"`` (it runs the rows kernel K8),
+per-particle accuracies (Deltas mode) and the log10/symlog maps, which
+raise NotImplementedError; the streaming and multihost writers and the
+multihost reader.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import BinaryIO, List, Optional
+
+import numpy as np
+import torch
+
+from ..algos.algo_trim_v1_0 import VERSION as TRIM_VERSION
+from ..algos.blocks import FLAG_LZ4, decode_block, encode_block
+from ..ops import bitpack, entropy, kernels
+from ..ops import rng as _rng
+from ..ops.decode_cuda import (decode_cuda, decode_rows_cuda,
+                               rows_kernel_eligible, unpack_rows_cuda)
+from ..ops.encode_cuda import stats_rows_cuda
+from ..quant import engine
+from ..segment import format as wire
+from ..segment import io as seg_io
+from ..segment.api import decompress_segment
+from ..segment.stream import Reader, Writer
+from ..types import (AlgoCode, FieldCode, FloatAccuracy, IDAccuracy,
+                     PositionAccuracy, VelocityAccuracy)
+from ..utils import native_order
+from ..utils.profiling import phase
+
+NOT_PORTED_RECIP = (
+    "scale_mode='recip' on the snapshot path runs the rows kernel K8 "
+    "(encode_pallas_recip_rows), which is not ported to torch yet; it comes "
+    "with K5 in the next slice of the port (ROADMAP.md queue 2)")
+
+
+@dataclass(frozen=True)
+class SnapshotSpec:
+    """Accuracy requests for the standard snapshot fields.  ``mass`` is
+    an optional scalar per-particle float field (stored as UNSF) -- e.g.
+    the Gadget-2 per-particle MASS block."""
+
+    pos: Optional[PositionAccuracy] = None
+    vel: Optional[VelocityAccuracy] = None
+    ids: Optional[IDAccuracy] = None
+    mass: Optional[FloatAccuracy] = None
+
+
+def _nbytes(a) -> int:
+    return a.numel() * a.element_size() if isinstance(a, torch.Tensor) \
+        else np.asarray(a).nbytes
+
+
+def _host_u32(words: torch.Tensor) -> np.ndarray:
+    """int32 words of u32 bits -> host uint32 array."""
+    return words.cpu().numpy().view(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# Per-block stats (sharding._rows_stats_raw / _float_rows_stats)
+# ---------------------------------------------------------------------------
+
+def _rows_stats(rows: torch.Tensor, box):
+    """Per-row (min (R,), max (R,)) of (R, n) independent streams,
+    unwrapped around each row's element 0 in a box of ``box`` when it is
+    not None: one K6 launch."""
+    periodic = box is not None
+    boxes = torch.full((rows.shape[0],), float(np.float32(box or 0.0)),
+                       dtype=torch.float32, device=rows.device)
+    return stats_rows_cuda(rows, boxes, rows[:, 0].contiguous(), periodic)
+
+
+def _float_rows_stats(x: torch.Tensor, box):
+    """(B, 3, nb) -> x0 (B, 3), per-block shared range (B,) =
+    max over dims of (max - min)."""
+    b, d, nb = x.shape
+    mn, mx = _rows_stats(x.reshape(b * d, nb), box)
+    return mn.reshape(b, d), (mx - mn).reshape(b, d).amax(dim=1)
+
+
+def _batched_stats_pos(x: torch.Tensor, width: float):
+    """(B, 3, nb) -> per-block x0 (B, 3), per-block shared range (B,) of
+    the periodically unwrapped positions.  The unwrapped plane is not
+    kept: the pack phase recomputes it, bit-identically."""
+    return _float_rows_stats(x, width)
+
+
+def _batched_stats_vel(x: torch.Tensor, sym_log10_scaled: int = 0,
+                       threshold: float = 0.0):
+    """Velocity analog of ``_batched_stats_pos``: stats of the mapped
+    plane (the identity map; symlog raises NotImplementedError)."""
+    xm = engine.map_float(x, 2 if sym_log10_scaled else 0, threshold)
+    return _float_rows_stats(xm, None)
+
+
+def _batched_stats_scalar(x: torch.Tensor, mode: int = 0,
+                          threshold: float = 0.0):
+    """(B, nb) scalar float field -> per-block (x0 (B,), x1 (B,)) of the
+    mapped plane.  Raw min AND max: the UNSF decode derives its bin width
+    as f32(x1) - f32(x0), so the stored x1 must be the true max."""
+    return _rows_stats(engine.map_float(x, mode, threshold), None)
+
+
+# ---------------------------------------------------------------------------
+# Bin + pack
+# ---------------------------------------------------------------------------
+
+def _pack_bins_rows(bins: torch.Tensor, depth: int) -> torch.Tensor:
+    """(B, D, nb) u32 bins -> (B, D, words) packed streams."""
+    b, d, nb = bins.shape
+    rows = bins.reshape(b * d, nb)
+    if nb % 32 == 0:
+        words = bitpack.uniform_pack_rows(rows, depth)
+    else:
+        words = torch.stack([bitpack.uniform_pack(r, depth) for r in rows])
+    return words.reshape(b, d, -1)
+
+
+def _bin_pack_rows(xu: torch.Tensor, x0: torch.Tensor, rng_b: torch.Tensor,
+                   depth: int) -> torch.Tensor:
+    """(B, D, nb) mapped floats, x0 (B, D), shared range (B,) ->
+    (B, D, words): the div-mode bin map of every row, then the pack."""
+    b, d, nb = xu.shape
+    bins = kernels.uniform_bin_index(
+        xu.reshape(b * d, nb), depth, x0.reshape(b * d, 1),
+        rng_b.repeat_interleave(d)[:, None])
+    return _pack_bins_rows(bins.reshape(b, d, nb), depth)
+
+
+def _batched_bin_pack_pos(x: torch.Tensor, x0: torch.Tensor,
+                          rng_b: torch.Tensor, depth: int, width: float):
+    """(B, 3, nb) RAW positions -> (B, 3, words) packed bins at ``depth``;
+    recomputes the periodic unwrap of the stats pass."""
+    b, d, nb = x.shape
+    xu = kernels.undo_periodic(x.reshape(b * d, nb), width)
+    return _bin_pack_rows(xu.reshape(b, d, nb), x0, rng_b, depth)
+
+
+def _batched_bin_pack_vel(x: torch.Tensor, x0: torch.Tensor,
+                          rng_b: torch.Tensor, depth: int,
+                          sym_log10_scaled: int = 0,
+                          threshold: float = 0.0):
+    """Velocity analog: recomputes the map, then bins and packs."""
+    xm = engine.map_float(x, 2 if sym_log10_scaled else 0, threshold)
+    return _bin_pack_rows(xm, x0, rng_b, depth)
+
+
+def _batched_bin_pack_scalar(x: torch.Tensor, x0: torch.Tensor,
+                             rng_b: torch.Tensor, depth: int, mode: int = 0,
+                             threshold: float = 0.0):
+    """(B, nb) scalar floats -> (B, 1, words) packed bins (div map)."""
+    xm = engine.map_float(x, mode, threshold)
+    return _bin_pack_rows(xm[:, None, :], x0[:, None], rng_b, depth)
+
+
+def _batched_id_pack(rel: torch.Tensor, w: int) -> torch.Tensor:
+    """(B, nb) u32 relative ID coordinates -> (B, words); each block's
+    stream is padded on its own, so any (nb, width) is valid."""
+    return _pack_bins_rows(rel[:, None, :], w)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Field encoders: device passes -> per-block wire block lists
+# ---------------------------------------------------------------------------
+
+def _entropy(words_h: np.ndarray, accel: int, name: str) -> List[bytes]:
+    """LZ4 of every (block, dim) payload of (B, D, words) host words, in
+    block-major order."""
+    b, d = words_h.shape[:2]
+    payloads = [np.ascontiguousarray(words_h[i, j])
+                for i in range(b) for j in range(d)]
+    with phase(f"{name}.entropy", nbytes=words_h.nbytes):
+        return entropy.encode_blocks(payloads, accel)
+
+
+def _float_blocks(meta: Writer, words_h: np.ndarray, comp: List[bytes],
+                  b: int, depth: int, accel: int) -> List[bytes]:
+    """Block ``b``'s wire blocks: its meta, then one per dim."""
+    d = words_h.shape[1]
+    return [encode_block(meta.data, 0, True, accel)] + [
+        _wrap_precompressed(words_h[b, i], comp[b * d + i], depth)
+        for i in range(d)]
+
+
+def _encode_pos_batch(pos, B: int, nb: int, acc, seed: int, accel: int,
+                      device):
+    """Batched device encode of positions (3, B*nb) -> per-block wire
+    block lists (Trim v1.0 layout), the shared depth (from the observed
+    global range), and the per-block bounding boxes of the raw positions
+    (lo, hi), host (B, 3) each.  Numpy input goes to ``device``."""
+    with phase("pos.h2d+stats", nbytes=_nbytes(pos)):
+        pos = engine.as_tensor(pos, torch.float32, device)
+        xb = pos.reshape(3, B, nb).transpose(0, 1).contiguous()
+        x0, rng_b = _batched_stats_pos(xb, float(acc.width))
+        box = (xb.amin(dim=2), xb.amax(dim=2))
+        depth = engine.delta_to_depth(acc.delta, 0.0, float(rng_b.max()))
+    with phase("pos.binpack"):
+        words = _batched_bin_pack_pos(xb, x0, rng_b, depth, float(acc.width))
+    with phase("pos.gather"):
+        words_h = _host_u32(words)
+        x0_h = x0.cpu().numpy()
+        rng_h = rng_b.cpu().numpy()
+        box = tuple(t.cpu().numpy() for t in box)
+    comp = _entropy(words_h, accel, "pos")
+    out = []
+    for b in range(B):
+        meta = Writer()
+        for v in x0_h[b]:
+            meta.f32(float(v))
+        for v in x0_h[b] + rng_h[b]:
+            meta.f32(float(v))
+        meta.f32(acc.width)
+        meta.u8(depth).u8(0).u16(0)
+        meta.u64(seed)
+        out.append(_float_blocks(meta, words_h, comp, b, depth, accel))
+    return out, depth, box
+
+
+def _encode_vel_batch(vel, B: int, nb: int, acc, seed: int, accel: int,
+                      device):
+    sym = int(acc.sym_log10_scaled)
+    thr = float(acc.sym_log10_threshold)
+    with phase("vel.h2d+stats", nbytes=_nbytes(vel)):
+        vel = engine.as_tensor(vel, torch.float32, device)
+        xb = vel.reshape(3, B, nb).transpose(0, 1).contiguous()
+        x0, rng_b = _batched_stats_vel(xb, sym, thr)
+        depth = engine.delta_to_depth(acc.delta, 0.0, float(rng_b.max()))
+    with phase("vel.binpack"):
+        words = _batched_bin_pack_vel(xb, x0, rng_b, depth, sym, thr)
+    with phase("vel.gather"):
+        words_h = _host_u32(words)
+        x0_h = x0.cpu().numpy()
+        rng_h = rng_b.cpu().numpy()
+    comp = _entropy(words_h, accel, "vel")
+    out = []
+    for b in range(B):
+        meta = Writer()
+        for v in x0_h[b]:
+            meta.f32(float(v))
+        for v in x0_h[b] + rng_h[b]:
+            meta.f32(float(v))
+        meta.u8(depth).u8(0)
+        meta.u8(2 if sym else 0).u8(0)
+        meta.f32(thr)
+        meta.u64(seed)
+        out.append(_float_blocks(meta, words_h, comp, b, depth, accel))
+    return out, depth
+
+
+def _encode_scalar_float_batch(vals, B: int, nb: int, acc, seed: int,
+                               accel: int, device):
+    """Batched device encode of a scalar per-particle float field (n,) ->
+    per-block UNSF wire block lists (Trim v1.0 layout) + the shared
+    depth.  Used for Gadget-2 per-particle MASS and any other auxiliary
+    scalar field."""
+    mode = int(getattr(acc, "log10_scaled", 0))
+    threshold = float(getattr(acc, "sym_log10_threshold", 0.0))
+    xb = engine.as_tensor(vals, torch.float32, device).reshape(B, nb)
+    x0, x1 = _batched_stats_scalar(xb, mode, threshold)
+    x0_h = x0.cpu().numpy()
+    x1_h = x1.cpu().numpy()
+    rng_h = x1_h.astype(np.float32) - x0_h.astype(np.float32)  # (B,)
+    depth = engine.delta_to_depth(acc.delta, 0.0, float(rng_h.max()))
+    with phase("mass.binpack"):
+        words = _batched_bin_pack_scalar(
+            xb, x0, torch.from_numpy(rng_h).to(xb.device), depth, mode,
+            threshold)
+    with phase("mass.gather"):
+        words_h = _host_u32(words)  # (B, 1, wpb)
+    comp = _entropy(words_h, accel, "mass")
+    out = []
+    for b in range(B):
+        meta = Writer()
+        meta.f32(float(x0_h[b])).f32(float(x1_h[b]))
+        meta.u8(depth).u8(0)
+        meta.u8(mode).u8(0)
+        meta.f32(threshold)
+        meta.u64(seed)
+        out.append(_float_blocks(meta, words_h, comp, b, depth, accel))
+    return out, depth
+
+
+def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device):
+    """Lagrangian IDs (B*nb,) -> per-block PTID wire block lists + the
+    per-dim widths.  The decompose (grid split, unwrap, global minimum)
+    runs over the whole array; each block then subtracts its own minimum,
+    and every block of a dim packs at the dim's widest block range."""
+    with phase("ids.decompose", nbytes=_nbytes(ids)):
+        ids = engine.as_tensor(ids, torch.int64, device).reshape(-1)
+        qdims, x0g, _ = engine.id_decompose(ids, int(acc.width))
+        x0g = x0g.cpu().numpy().astype(np.uint64)  # global per-dim offset
+        qd = qdims.reshape(3, B, nb)
+    # The stored per-block origin includes the global decompose offset,
+    # so undoID's rewrap sees true unwrapped coordinates.
+    with phase("ids.pack"):
+        x0_rel = qd.amin(dim=2)                      # (3, B)
+        rel = qd - x0_rel[:, :, None]
+        relmax_b = rel.amax(dim=2).cpu().numpy()     # (3, B)
+        x0_blocks = x0_rel.cpu().numpy().astype(np.uint64) + x0g[:, None]
+        widths = [int(relmax_b[i].max()).bit_length() for i in range(3)]
+        packed = [_host_u32(_batched_id_pack(kernels.i64_to_u32(rel[i]),
+                                             max(widths[i], 1)))
+                  for i in range(3)]
+    payloads = [np.ascontiguousarray(packed[i][b])
+                for b in range(B) for i in range(3)]
+    with phase("ids.entropy"):
+        comp = entropy.encode_blocks(payloads, accel)
+    out = []
+    for b in range(B):
+        meta = Writer()
+        meta.u64(int(acc.width))
+        for i in range(3):
+            meta.u64(int(x0_blocks[i, b]))
+        for i in range(3):
+            meta.u64(int(x0_blocks[i, b]) + int(relmax_b[i, b]))
+        blocks = [encode_block(meta.data, 0, True, accel)]
+        for i in range(3):
+            blocks.append(_wrap_precompressed(
+                packed[i][b], comp[b * 3 + i], max(widths[i], 1)))
+        out.append(blocks)
+    return out, widths
+
+
+def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
+                      num_blocks: int, seed: int = 0, accel: int = 1,
+                      scale_mode: str = "div", mass=None,
+                      device="cpu") -> dict:
+    """Compress a snapshot into ``fp`` as ``num_blocks`` chained standard
+    segments.  Arrays (numpy, or tensors that stay on their device):
+    pos/vel (3, n) f32, ids (n,) u64 below 2^63, mass (n,) f32 (optional
+    scalar field, stored as UNSF; requires ``spec.mass``); n must divide
+    by num_blocks.  Numpy arrays go to ``device``.  Returns stats (bytes,
+    depths).
+
+    ``scale_mode``: 'div' (the C-exact division bin map) only; 'recip',
+    per-particle accuracies and the log maps raise NotImplementedError."""
+    if scale_mode not in ("div", "recip"):
+        raise ValueError(f"unknown scale_mode {scale_mode!r}")
+    if scale_mode == "recip":
+        raise NotImplementedError(NOT_PORTED_RECIP)
+    pos, vel, ids, mass = (native_order(a) for a in (pos, vel, ids, mass))
+    if mass is not None and spec.mass is None:
+        raise ValueError("mass array given without spec.mass accuracy")
+    for name, a in (("pos", pos), ("vel", vel), ("mass", mass)):
+        if a is not None and getattr(getattr(spec, name), "deltas",
+                                     None) is not None:
+            raise NotImplementedError(engine.NOT_PORTED_DELTAS)
+    given = [a for a in (pos, vel, ids, mass) if a is not None]
+    if not given:
+        raise ValueError("no fields given")
+    n = given[0].shape[-1]
+    if n % num_blocks:
+        raise ValueError(f"{n} particles do not divide into {num_blocks} "
+                         "blocks; pad the tail (client duty)")
+    nb = n // num_blocks
+    B = num_blocks
+    stats = {}
+    per_block_fields: List[List[wire.WireField]] = [[] for _ in range(B)]
+
+    def add_field(code, field_blocks):
+        for b in range(B):
+            per_block_fields[b].append(wire.WireField(
+                int(code), int(AlgoCode.TRIM), TRIM_VERSION,
+                field_blocks[b]))
+
+    geometry = None
+    if pos is not None:
+        field_blocks, depth, (lo, hi) = _encode_pos_batch(
+            pos, B, nb, spec.pos, seed, accel, device)
+        stats["pos_depth"] = depth
+        add_field(FieldCode.POSN, field_blocks)
+        # IOHeader Origin/Width (header_format.tex:206-218): per-block
+        # bounding box of the raw (wrapped) positions, for skip-ahead
+        # spatial queries.
+        geometry = [(tuple(float(lo[b, d]) for d in range(3)),
+                     tuple(float(hi[b, d] - lo[b, d]) for d in range(3)))
+                    for b in range(B)]
+    if vel is not None:
+        field_blocks, depth = _encode_vel_batch(
+            vel, B, nb, spec.vel, seed, accel, device)
+        stats["vel_depth"] = depth
+        add_field(FieldCode.VELC, field_blocks)
+    if ids is not None:
+        field_blocks, widths = _encode_id_batch(ids, B, nb, spec.ids, accel,
+                                                device)
+        stats["id_widths"] = widths
+        add_field(FieldCode.PTID, field_blocks)
+    if mass is not None:
+        field_blocks, depth = _encode_scalar_float_batch(
+            mass, B, nb, spec.mass, seed, accel, device)
+        stats["mass_depth"] = depth
+        add_field(FieldCode.UNSF, field_blocks)
+
+    # ---- serialize + chain -----------------------------------------------
+    with phase("serialize"):
+        segments = [wire.serialize(fields, nb)
+                    for fields in per_block_fields]
+    seg_io.write_segments(fp, segments, geometry)
+    stats["bytes"] = sum(len(s) for s in segments) + \
+        seg_io.IO_HEADER_BYTES * B
+    stats["num_blocks"] = B
+    return stats
+
+
+def _wrap_precompressed(raw_words: np.ndarray, comp: bytes,
+                        width: int) -> bytes:
+    """Build a block from an already-entropy-coded payload, choosing the
+    smaller representation (mirrors blocks.encode_block)."""
+    raw = np.ascontiguousarray(raw_words)
+    raw_bytes = raw.astype(raw.dtype.newbyteorder("<"), copy=False).tobytes()
+    if max(len(raw_bytes), len(comp)) > 0xFFFFFFFF:
+        raise ValueError(
+            f"block payload of {len(raw_bytes)} bytes exceeds the u32 "
+            "prelude length; use more blocks (spec table 1)")
+    if len(comp) < len(raw_bytes):
+        w = Writer()
+        w.u32(len(raw_bytes)).u32(len(comp)).u8(width).u8(FLAG_LZ4)
+        w.u16(0).u32(0)
+        w.raw(comp).align(8)
+        return w.data
+    w = Writer()
+    w.u32(len(raw_bytes)).u32(len(raw_bytes)).u8(width).u8(0).u16(0).u32(0)
+    w.raw(raw_bytes).align(8)
+    return w.data
+
+
+# ---------------------------------------------------------------------------
+# Reader
+# ---------------------------------------------------------------------------
+
+_FIELD_BY_NAME = {"pos": int(FieldCode.POSN), "vel": int(FieldCode.VELC),
+                  "ids": int(FieldCode.PTID),
+                  "mass": int(FieldCode.UNSF)}
+
+
+def _parse_want(fields):
+    """Normalize a field-selection argument ({"pos", ...} names or
+    FieldCodes) to a set of int codes; None = everything."""
+    if fields is None:
+        return None
+    want = set()
+    for f in fields:
+        if isinstance(f, (int, FieldCode)):  # accept FieldCode too,
+            want.add(int(f))  # matching decompress_segment(fields=...)
+        elif f in _FIELD_BY_NAME:
+            want.add(_FIELD_BY_NAME[f])
+        else:
+            raise ValueError(
+                f"unknown field selector {f!r}: expected one of "
+                f"{sorted(_FIELD_BY_NAME)} or a FieldCode")
+    return want
+
+
+def decompress_snapshot(fp: BinaryIO, batched: bool = True, box=None,
+                        periodic=None, fields=None, device="cpu") -> dict:
+    """Read a chained multi-segment snapshot back into concatenated field
+    tensors on ``device`` (ordered gather in file order): "pos" and "vel"
+    (3, n) f32, "ids" (n,) int64, "mass" (n,) f32.
+
+    ``batched=True`` decodes all blocks of each field in one device pass
+    when the file has the uniform structure the snapshot writer produces
+    (same fields, shared depth, Trim coding) -- bit-identical to the
+    per-segment path, which remains the path for any other file.
+
+    ``box=(origin, width)`` restricts the read to segments whose IOHeader
+    bounding box intersects the query box (skip-ahead spatial query,
+    header_format.tex:206-218); only particles from those segments are
+    returned.  ``periodic`` optionally gives the box length(s) for
+    wrap-aware intersection.
+
+    ``fields``: optional subset of {"pos", "vel", "ids", "mass"} (or
+    FieldCodes) to decode; the rest are skipped entirely and absent from
+    the result.  Selected fields are bit-identical to a full read."""
+    want = _parse_want(fields)
+    if box is not None:
+        origin, width = box
+        segments = [s for _, s in seg_io.iter_segments_intersecting(
+            fp, origin, width, periodic)]
+    else:
+        segments = [s for _, s in seg_io.iter_segments(fp)]
+    return _decode_segment_list(segments, batched, want, device)
+
+
+def _decode_segment_list(segments, batched: bool = True, want=None,
+                         device="cpu") -> dict:
+    """Decode a list of serialized segments into concatenated field
+    tensors on ``device``."""
+    device = torch.device(device)
+    if not segments:
+        return {}
+    if batched:
+        out = _decompress_snapshot_batched(segments, want, device)
+        if out is not None:
+            return out
+    parts = {FieldCode.POSN: [], FieldCode.VELC: [], FieldCode.PTID: [],
+             FieldCode.UNSF: []}
+    for seg_bytes in segments:
+        seg = decompress_segment(seg_bytes, fused=True, fields=want,
+                                 device=device)
+        for f in seg.fields:
+            if f is not None and f.hd.field_code in parts:
+                parts[f.hd.field_code].append(f.data)
+    out = {}
+    for name, code, dim in (("pos", FieldCode.POSN, 1),
+                            ("vel", FieldCode.VELC, 1),
+                            ("ids", FieldCode.PTID, 0),
+                            ("mass", FieldCode.UNSF, 0)):
+        if parts[code]:
+            out[name] = torch.cat(parts[code], dim=dim)
+    return out
+
+
+def _batched_float_decode(words: torch.Tensor, x0: np.ndarray,
+                          rng_b: np.ndarray, key, depth: int, nb: int,
+                          periodic: bool, box: float) -> torch.Tensor:
+    """(B, D, wpb) words -> (B, D, nb) floats; ``x0`` (B, D) and the bin
+    range ``rng_b`` (B,) are host f32.  Every row shares the dither key
+    and counters 0..nb, exactly what the per-segment decode does.  One K2
+    launch over all (block, dim) rows when 32 | nb, else K1 row by row."""
+    b, d = words.shape[:2]
+    if depth <= 24 and rows_kernel_eligible(depth, nb):
+        keys = torch.tensor(key, dtype=torch.int64,
+                            device=words.device).expand(b * d, 2)
+        out = decode_rows_cuda(
+            words.reshape(b * d, -1), keys, depth, nb, x0.reshape(b * d),
+            np.repeat(rng_b, d), box=(box if periodic else 0.0),
+            periodic=periodic)
+        return out.reshape(b, d, nb)
+    return torch.stack([torch.stack([
+        decode_cuda(words[i, j], key, depth, nb, x0[i, j], rng_b[i], box,
+                    periodic) for j in range(d)]) for i in range(b)])
+
+
+def _stacked_words(blocks_by_seg, block: int):
+    """The payload words of block ``block`` of every segment as host u32
+    rows, and their shared width; None when the widths differ."""
+    rows, widths = [], set()
+    for blocks in blocks_by_seg:
+        payload, w, _ = decode_block(blocks[block])
+        widths.add(w)
+        rows.append(np.frombuffer(payload.tobytes(), dtype="<u4"))
+    if len(widths) != 1:
+        return None
+    return np.stack(rows), widths.pop()
+
+
+def _to_device(words: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(
+        np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)).to(
+            device)
+
+
+def _decompress_snapshot_batched(segments, want=None,
+                                 device="cpu") -> Optional[dict]:
+    """Batched decode of a uniform snapshot file; None if the file doesn't
+    fit the writer's structure (the caller then decodes per segment)."""
+    try:
+        with phase("decode.parse"):
+            parsed = [wire.deserialize(s) for s in segments]
+    except ValueError:
+        return None
+    if not parsed:
+        return None
+    nb = parsed[0].particle_num
+    sig = [(f.field_code, f.algo_code, len(f.blocks))
+           for f in parsed[0].fields]
+    for p in parsed:
+        if p.particle_num != nb or \
+                [(f.field_code, f.algo_code, len(f.blocks))
+                 for f in p.fields] != sig:
+            return None
+        for f in p.fields:
+            if (f.algo_code != int(AlgoCode.TRIM) or
+                    any(b is None for b in f.blocks)):
+                return None
+
+    B = len(parsed)
+    out = {}
+    for fi, (code, _, _) in enumerate(sig):
+        if want is not None and code not in want:
+            continue
+        blocks_by_seg = [p.fields[fi].blocks for p in parsed]
+        if code in (int(FieldCode.POSN), int(FieldCode.VELC)):
+            is_pos = code == int(FieldCode.POSN)
+            metas = []
+            for b in range(B):
+                meta, _, _ = decode_block(blocks_by_seg[b][0])
+                r = Reader(meta.tobytes())
+                x0 = [r.f32() for _ in range(3)]
+                x1 = [r.f32() for _ in range(3)]
+                box = r.f32() if is_pos else 0.0
+                depth = r.u8()
+                if r.u8():
+                    return None  # per-particle depths: per segment
+                symlog, threshold = 0, 0.0
+                if not is_pos:
+                    symlog = r.u8()
+                    r.u8()
+                    threshold = r.f32()
+                else:
+                    r.u16()
+                seed = r.u64()
+                metas.append((x0, x1, box, depth, seed, symlog, threshold))
+            depth = metas[0][3]
+            seed = metas[0][4]
+            box = metas[0][2]
+            symlog, threshold = metas[0][5], metas[0][6]
+            if any(m[3] != depth or m[4] != seed or m[2] != box or
+                   m[5] != symlog or m[6] != threshold for m in metas):
+                return None
+            if depth < 1 or depth > 24:
+                return None  # foreign/corrupt depth: per-segment path
+            dims_h = [_stacked_words(blocks_by_seg, 1 + d) for d in range(3)]
+            if any(w is None or w[1] != depth for w in dims_h):
+                return None
+            x0_np = np.array([m[0] for m in metas], dtype=np.float32)
+            md_np = np.array(
+                [np.float32(np.max(np.float32(m[1]) - np.float32(m[0])))
+                 for m in metas], dtype=np.float64)
+            # canonical per-dim bin range: f32(x0 + maxDiff) - f32(x0)
+            dx_np = (np.float32(x0_np.astype(np.float64) + md_np[:, None]) -
+                     x0_np).astype(np.float32)  # (B, 3)
+            # the per-segment decode derives a key per dim; so does this
+            keys = [_rng.field_key(seed, fi, d) for d in range(3)]
+            name = "pos" if is_pos else "vel"
+            with phase(f"decode.{name}"):
+                dims = [_batched_float_decode(
+                    _to_device(dims_h[d][0], device)[:, None],
+                    x0_np[:, d:d + 1],
+                    dx_np[:, d], keys[d], depth, nb, is_pos,
+                    float(box))[:, 0] for d in range(3)]
+                data = engine.unmap_float(torch.stack(dims, dim=1), symlog,
+                                          float(threshold))  # (B, 3, nb)
+            out[name] = data.transpose(0, 1).reshape(3, B * nb)
+        elif code == int(FieldCode.UNSF):
+            metas = []
+            for b in range(B):
+                meta, _, _ = decode_block(blocks_by_seg[b][0])
+                r = Reader(meta.tobytes())
+                x0 = r.f32()
+                x1 = r.f32()
+                depth = r.u8()
+                if r.u8():
+                    return None  # per-particle depths: per segment
+                log10_scaled = r.u8()
+                r.u8()
+                threshold = r.f32()
+                seed = r.u64()
+                metas.append((x0, x1, depth, seed, log10_scaled,
+                              threshold))
+            depth, seed = metas[0][2], metas[0][3]
+            log10_scaled, threshold = metas[0][4], metas[0][5]
+            if any(m[2:] != metas[0][2:] for m in metas):
+                return None
+            if depth < 1 or depth > 24:
+                return None
+            stacked = _stacked_words(blocks_by_seg, 1)
+            if stacked is None or stacked[1] != depth:
+                return None
+            x0_np = np.array([m[0] for m in metas], dtype=np.float32)
+            # UNSF bin range is f32(x1) - f32(x0) directly (the scalar
+            # engine path), unlike the 3-dim fields' canonical
+            # f32(x0 + maxDiff) - f32(x0) form.
+            dx_np = (np.array([m[1] for m in metas], dtype=np.float32)
+                     - x0_np)
+            res = _batched_float_decode(
+                _to_device(stacked[0], device)[:, None], x0_np[:, None],
+                dx_np, _rng.field_key(seed, fi, 0), depth, nb, False, 0.0)
+            data = engine.unmap_float(res[:, 0], log10_scaled,
+                                      float(threshold))  # (B, nb)
+            out["mass"] = data.reshape(-1)
+        elif code == int(FieldCode.PTID):
+            metas = []
+            for b in range(B):
+                meta, _, _ = decode_block(blocks_by_seg[b][0])
+                r = Reader(meta.tobytes())
+                width = r.u64()
+                x0 = [r.u64() for _ in range(3)]
+                _ = [r.u64() for _ in range(3)]
+                metas.append((width, x0))
+            width = metas[0][0]
+            if any(m[0] != width for m in metas):
+                return None
+            dims = []
+            for d in range(3):
+                stacked = _stacked_words(blocks_by_seg, 1 + d)
+                if stacked is None:
+                    return None
+                words_d = _to_device(stacked[0], device)
+                wbits = stacked[1]
+                if rows_kernel_eligible(wbits, nb):
+                    bins = unpack_rows_cuda(words_d, wbits, nb)
+                else:
+                    bins = torch.stack([bitpack.uniform_unpack(r, wbits, nb)
+                                        for r in words_d])
+                x0d = torch.tensor([m[1][d] for m in metas],
+                                   dtype=torch.int64, device=device)
+                v = kernels.u32_to_i64(bins) + x0d[:, None]
+                dims.append(torch.where(v >= width, v - width, v))
+            ids = dims[0] + width * dims[1] + width * width * dims[2]
+            out["ids"] = ids.reshape(-1)
+        else:
+            return None
+    return out

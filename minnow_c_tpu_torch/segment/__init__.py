@@ -1,6 +1,6 @@
-"""L4 segment API, wire format and stream layer."""
+"""L4 segment API, wire format, stream layer, and file I/O."""
 
-from . import api, format, stream  # noqa: F401
+from . import api, format, io, stream  # noqa: F401
 from .api import (  # noqa: F401
     compress,
     compress_segment,

@@ -1,7 +1,9 @@
-"""Cross-cutting utilities: the MINNOW_DEBUG assert tier (utils.debug) and
-input byte-order normalization (native_order)."""
+"""Cross-cutting utilities: profiling, the MINNOW_DEBUG assert tier
+(utils.debug), and input byte-order normalization (native_order)."""
 
 import numpy as np
+
+from . import profiling  # noqa: F401
 
 
 def native_order(a):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels and its segment path on a CUDA card.
+"""The port's CUDA kernels, its segment path and its snapshot path on a
+CUDA card.
 
 Marked ``cuda``; every test skips without a card.  This file imports no
 JAX, so it also runs where JAX is missing:
@@ -10,12 +11,14 @@ Tolerance: bitwise equality throughout -- kernel against its plain torch
 version on the card, and CUDA against CPU for whole segments.
 """
 
+import io
+
 import numpy as np
 import pytest
 import torch
 
 import minnow_c_tpu_torch as mt
-from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda
+from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +97,144 @@ def test_segment_on_cuda_matches_cpu(dev, fused):
         assert a.data.is_cuda
         assert np.array_equal(a.data.cpu().numpy().view(np.uint8),
                               b.data.numpy().view(np.uint8))
+
+
+# ---------------------------------------------------------------------------
+# Rows kernels (K2, K3, K6, K7) against their plain versions
+# ---------------------------------------------------------------------------
+
+ROW_SHAPES = [(1, 32), (70_000, 32), (3, 65_568)]  # (rows, n)
+
+
+def _bins(dev, rows, n, width, seed):
+    """(rows, n) u32 values below 2^width (int32 bits), each row starting
+    with 0 and 2^width - 1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = torch.randint(0, 1 << width, (rows, n), generator=g, device=dev,
+                      dtype=torch.int64)
+    b[:, :2] = torch.tensor([0, (1 << width) - 1], device=dev)
+    return kernels.i64_to_u32(b)
+
+
+@pytest.mark.parametrize("rows, n", ROW_SHAPES)
+@pytest.mark.parametrize("width", [1, 7, 16, 24, 32])
+def test_unpack_rows_kernel_matches_plain(dev, width, rows, n):
+    words = encode_cuda.pack_rows_plain(_bins(dev, rows, n, width, width),
+                                        width)
+    got = decode_cuda.unpack_rows_cuda(words, width, n)
+    assert torch.equal(got, decode_cuda.unpack_rows_plain(words, width, n))
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("rows, n", ROW_SHAPES)
+@pytest.mark.parametrize("width", [1, 9, 24])
+def test_decode_rows_kernel_matches_plain(dev, width, rows, n, periodic):
+    words = encode_cuda.pack_rows_plain(_bins(dev, rows, n, width, n),
+                                        width)
+    g = torch.Generator(device=dev).manual_seed(rows)
+    keys = torch.randint(0, 1 << 32, (rows, 2), generator=g, device=dev)
+    x0 = torch.full((rows,), -2.0 if periodic else 1.5, device=dev)
+    dx = torch.full((rows,), 68.0 if periodic else 32.0, device=dev)
+    dx[::3] = 0.0
+    got = decode_cuda.decode_rows_cuda(words, keys, width, n, x0, dx, 64.0,
+                                       periodic)
+    want = decode_cuda.decode_rows_plain(words, keys, x0, dx / 2.0 ** width,
+                                         64.0, n, width, periodic)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows, n", ROW_SHAPES)
+@pytest.mark.parametrize("width", [0, 1, 7, 24, 32])
+def test_pack_rows_kernel_matches_plain(dev, width, rows, n):
+    vals = _bins(dev, rows, n, 32, width)  # full-range u32 values
+    got = encode_cuda.pack_rows_cuda(vals, width)
+    assert torch.equal(got, encode_cuda.pack_rows_plain(vals, width))
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("rows, n", ROW_SHAPES + [(5, 100_003)])
+def test_stats_rows_kernel_matches_plain(dev, rows, n, periodic):
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.rand(rows, n, generator=g, device=dev) * 64.0
+    x[::5, 7] = float("nan")
+    if rows > 2:
+        x[1] = torch.where(x[1] < 32, 0.0, -0.0)
+        x[2, ::3] = -0.0
+        x[2] = -x[2]
+    box = torch.full((rows,), 64.0, device=dev)
+    got = encode_cuda.stats_rows_cuda(x, box, x[:, 0].contiguous(), periodic)
+    want = encode_cuda.stats_rows_plain(x, box, x[:, 0].contiguous(),
+                                        periodic)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The snapshot path on CUDA
+# ---------------------------------------------------------------------------
+
+def _snapshot(n: int):
+    rng = np.random.default_rng(4)
+    pos = (np.cumsum(rng.normal(0, 0.05, (3, n)), axis=1) + 32.0).astype(
+        np.float32) % np.float32(64.0)
+    vel = rng.normal(0, 100, (3, n)).astype(np.float32)
+    ids = rng.permutation(1 << 18)[:n].astype(np.int64)
+    mass = rng.uniform(1, 3, n).astype(np.float32)
+    spec = mt.SnapshotSpec(pos=mt.PositionAccuracy(delta=1e-3, width=64.0),
+                           vel=mt.VelocityAccuracy(delta=0.5),
+                           ids=mt.IDAccuracy(width=64),
+                           mass=mt.FloatAccuracy(delta=1e-4))
+    return dict(pos=pos, vel=vel, ids=ids, mass=mass), spec
+
+
+@pytest.mark.parametrize("n, blocks", [(1 << 16, 8), (4000, 4)])
+def test_snapshot_on_cuda_matches_cpu(dev, n, blocks):
+    arrays, spec = _snapshot(n)
+    f_gpu, f_cpu = io.BytesIO(), io.BytesIO()
+    mt.compress_snapshot(f_gpu, spec=spec, num_blocks=blocks, seed=5,
+                         **{k: torch.from_numpy(v).to(dev)
+                            for k, v in arrays.items()})
+    mt.compress_snapshot(f_cpu, spec=spec, num_blocks=blocks, seed=5,
+                         **arrays)
+    assert f_gpu.getvalue() == f_cpu.getvalue()
+    for batched in (True, False):
+        got = mt.decompress_snapshot(io.BytesIO(f_gpu.getvalue()),
+                                     batched=batched, device=dev)
+        want = mt.decompress_snapshot(io.BytesIO(f_gpu.getvalue()),
+                                      batched=batched)
+        assert set(got) == set(want) == set(arrays)
+        for k in want:
+            assert got[k].is_cuda
+            assert np.array_equal(got[k].cpu().numpy().view(np.uint8),
+                                  want[k].numpy().view(np.uint8))
+
+
+def test_snapshot_on_cuda_never_reaches_a_plain_version(dev, monkeypatch):
+    """With every plain version made to raise, the CUDA snapshot path still
+    runs: it launches the kernels and never falls back."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version reached on the CUDA path")
+
+    for mod, name in ((decode_cuda, "decode_plain"),
+                      (decode_cuda, "decode_rows_plain"),
+                      (decode_cuda, "unpack_rows_plain"),
+                      (encode_cuda, "pack_plain"),
+                      (encode_cuda, "pack_rows_plain"),
+                      (encode_cuda, "stats_rows_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    arrays, spec = _snapshot(1 << 14)
+    before = (decode_cuda.decode_rows_cuda.launches,
+              decode_cuda.unpack_rows_cuda.launches,
+              encode_cuda.pack_rows_cuda.launches,
+              encode_cuda.stats_rows_cuda.launches)
+    f = io.BytesIO()
+    mt.compress_snapshot(f, spec=spec, num_blocks=4, seed=1,
+                         **{k: torch.from_numpy(v).to(dev)
+                            for k, v in arrays.items()})
+    out = mt.decompress_snapshot(io.BytesIO(f.getvalue()), device=dev)
+    after = (decode_cuda.decode_rows_cuda.launches,
+             decode_cuda.unpack_rows_cuda.launches,
+             encode_cuda.pack_rows_cuda.launches,
+             encode_cuda.stats_rows_cuda.launches)
+    assert all(a - b >= m for a, b, m in zip(after, before, (7, 3, 6, 3)))
+    assert torch.equal(out["ids"].cpu(), torch.from_numpy(arrays["ids"]))

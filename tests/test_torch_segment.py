@@ -197,7 +197,8 @@ def test_unported_modes_raise():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, minnow_c_tpu_torch; "
+    code = ("import sys, minnow_c_tpu_torch, "
+            "minnow_c_tpu_torch.parallel.snapshot; "
             "print('jax' in sys.modules, 'minnow_c_tpu' in sys.modules)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
@@ -206,8 +207,8 @@ def test_import_leaves_jax_out():
 
 
 COPIED = ["types.py", "semver.py", "segment/stream.py", "segment/format.py",
-          "ops/checksum.py", "ops/entropy.py", "algos/blocks.py",
-          "algos/registry.py", "utils/debug.py"]
+          "segment/io.py", "ops/checksum.py", "ops/entropy.py",
+          "algos/blocks.py", "algos/registry.py", "utils/debug.py"]
 
 
 @pytest.mark.parametrize("path", COPIED)
