@@ -8,11 +8,13 @@ imports nothing of JAX.  Phases, one progress line each; any failure raises
 and the script exits non-zero:
 
 1. device: card name, power limit, kernel build time;
-2. each CUDA kernel (K1 fused decode, K4 pack, and the rows kernels K2
-   decode, K3 unpack, K6 stats, K7 pack) against its plain torch version on
+2. each CUDA kernel (K1 fused decode, K4 pack, the rows kernels K2
+   decode, K3 unpack, K6 stats, K7 pack, and the delta kernels K9 scan, K10
+   chunked decode, K11 its float mode) against its plain torch version on
    the card, bitwise, over widths, row counts, ragged sizes and edge values;
-3. the frozen wire: Trim v1.0 / v1.1 segments encoded from CUDA tensors and
-   decoded on CUDA (generic and fused) match tests/fixtures/wire_digests.json;
+3. the frozen wire: Trim v1.0 / v1.1, Diff v1.0, Coil v1.0 / v1.1 and Octo
+   v1.0 / v1.1 segments encoded from CUDA tensors and decoded on CUDA
+   (generic and fused) match tests/fixtures/wire_digests.json;
 4. the segment path at full size: one segment of 2^24 particles (a 256^3
    N-body snapshot: lattice positions with Gaussian displacements,
    Gaussian velocities, shuffled lattice IDs) through compress_segment and
@@ -24,12 +26,19 @@ and the script exits non-zero:
    decompress_snapshot(batched=True) on CUDA, with error bounds, exact IDs,
    the first and last block equal to decompress_segment bitwise, launch
    counts, wall times, rates and peak memory; then K2, K3, K6 and K7 timed
-   against their plain versions at that path's shapes.
+   against their plain versions at that path's shapes;
+6. the delta path at full size: the 2^24-particle snapshot of phase 4 in
+   Lagrangian (ID) order through Diff v1.0, Coil v1.1 and Octo v1.1, each
+   compressed and decompressed (generic and fused) on CUDA, with error
+   bounds, exact IDs, fused == generic, ratios, wall times, rates, peak
+   memory and launch counts; then K9, K10 and K11 timed against their plain
+   versions at that path's shapes.
 
 The launch counts of each path are set to 0 just before the path runs and
 read just after.  The last line is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts (K1 and K4 from phase
-4, the rows kernels from phase 5), errors and times.
+4, the rows kernels from phase 5, the delta kernels from phase 6), errors
+and times.
 """
 
 from __future__ import annotations
@@ -256,11 +265,83 @@ def check_rows_kernels(dev, g) -> dict:
     return worst
 
 
+def chunked_stream(pattern, trim, seed, first=None):
+    """A chunked plane of 16384-element chunks whose chunk c holds zigzag
+    deltas below 2^pattern[c], made on the host with the port's chunk pack:
+    (body words as int32 bits (column-major), widths, n)."""
+    from minnow_c_tpu_torch.algos import chunked
+    from minnow_c_tpu_torch.ops import chunked_cuda
+    chunk = chunked_cuda.KERNEL_CHUNK
+    rng = np.random.default_rng(seed)
+    z = np.zeros(len(pattern) * chunk, np.uint32)
+    for c, w in enumerate(pattern):
+        if w:
+            z[c * chunk:(c + 1) * chunk] = rng.integers(
+                0, 1 << w, chunk, dtype=np.uint64)
+            z[c * chunk + 5] = (1 << w) - 1
+    n = z.size - trim
+    zc, widths = chunked.chunk_widths(z[:n], chunk)
+    natural = np.frombuffer(chunked.pack_chunks(zc, widths), dtype="<u4")
+    body = chunked_cuda.plane_to_cmajor(natural, widths, chunk)
+    return body.astype(np.uint32).view(np.int32), widths, n
+
+
+def check_delta_kernels(dev, g) -> dict:
+    """K9 over sizes with full-range values (the sums wrap); K10 and K11
+    over mixed widths, zero-width and width-32 chunks (deltas of magnitude
+    >= 2^30), ragged and whole last chunks, `first` near 2^32, depth 24,
+    periodic or not; bitwise against their plain versions."""
+    from minnow_c_tpu_torch.ops import chunked_cuda, scan_cuda
+    worst = {"K9": 0.0, "K10": 0.0, "K11": 0.0}
+    cases = 0
+
+    def same(name, got, want, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        if not torch.equal(bits(got), bits(want)):
+            raise AssertionError(f"{name} != plain: {what}")
+        worst[name] = max(worst[name], max_abs_err(got, want))
+        cases += 1
+
+    for n in (1, 97, 4097, (1 << 20) + 5, 1 << 24):
+        x = torch.randint(-(1 << 31), 1 << 31, (n,), generator=g,
+                          device=dev, dtype=torch.int64).to(torch.int32)
+        same("K9", scan_cuda.cumsum_u32(x), scan_cuda.cumsum_u32_plain(x),
+             f"n={n}")
+    chunk = chunked_cuda.KERNEL_CHUNK
+    for pattern, trim in (((7, 15, 7), 137), ((24,), 137),
+                          ((0, 9, 0, 3), 137), ((1, 32, 5), 137),
+                          ((0, 0), 5), ((4, 32, 32, 11), 0),
+                          ((11,) * 64, 1000)):
+        body, widths, n = chunked_stream(pattern, trim, len(pattern) + trim)
+        body = torch.from_numpy(body).to(dev)
+        for first in (0, (1 << 32) - 5):
+            for zigzag, prefix in ((True, True), (False, True),
+                                   (False, False)):
+                same("K10", chunked_cuda.decode_chunked_stream(
+                    body, widths, first, chunk, n, zigzag, prefix),
+                    chunked_cuda.decode_chunked_stream_plain(
+                        body, widths, first, chunk, n, zigzag, prefix),
+                    f"pattern={pattern} first={first} zigzag={zigzag} "
+                    f"prefix={prefix}")
+        for depth in (14, 24):
+            for periodic in (False, True):
+                x0, dx = (-2.0, 68.0) if periodic else (0.25, 63.0)
+                args = (body, widths, (1 << 24) - 3, chunk, n,
+                        (0xDEADBEEF, depth), depth, x0, dx, BOX, periodic)
+                same("K11", chunked_cuda.decode_chunked_stream_floats(*args),
+                     chunked_cuda.decode_chunked_stream_floats_plain(*args),
+                     f"pattern={pattern} depth={depth} periodic={periodic}")
+    log(f"phase 2: K9, K10, K11 == plain bitwise in {cases} comparisons "
+        f"(max_abs_err {worst})")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the frozen wire on CUDA
 # ---------------------------------------------------------------------------
 
-def reference_segment(mt, version: int, dev):
+def reference_segment(mt, algo: int, version: int, dev):
     """The freeze test's segment (tests/test_freeze.py:reference_segment),
     rebuilt here with numpy and moved to the card."""
     n, W = 4096, 64.0
@@ -273,7 +354,7 @@ def reference_segment(mt, version: int, dev):
     ui = (rng.integers(0, 1000, n) + 5_000_000).astype(np.int64)
 
     def field(code, data, acc):
-        hd = mt.FieldHeader(code, mt.AlgoCode.TRIM, version, n)
+        hd = mt.FieldHeader(code, algo, version, n)
         return mt.Field(hd=hd, data=torch.from_numpy(data).to(dev), acc=acc)
 
     F = mt.FieldCode
@@ -296,9 +377,14 @@ def decode_digest(seg) -> str:
 def check_frozen_wire(mt, dev) -> None:
     with open(FIXTURE) as f:
         want = json.load(f)
-    for name, version in (("trim", mt.semver.pack(1, 0, 0)),
-                          ("trim_v1_1", mt.semver.pack(1, 1, 0))):
-        blob = mt.compress_segment(reference_segment(mt, version, dev),
+    A = mt.AlgoCode
+    v10, v11 = mt.semver.pack(1, 0, 0), mt.semver.pack(1, 1, 0)
+    for name, algo, version in (
+            ("trim", A.TRIM, v10), ("trim_v1_1", A.TRIM, v11),
+            ("diff", A.DIFF, v10), ("coil", A.COIL, v10),
+            ("coil_v1_1", A.COIL, v11), ("octo", A.OCTO, v10),
+            ("octo_v1_1", A.OCTO, v11)):
+        blob = mt.compress_segment(reference_segment(mt, algo, version, dev),
                                    seed=777)
         enc = hashlib.sha256(blob).hexdigest()
         if enc != want[f"{name}_encode_sha256"] or \
@@ -477,11 +563,14 @@ def reset_counts() -> None:
 
 
 def launch_counted():
-    from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda
+    from minnow_c_tpu_torch.ops import (chunked_cuda, decode_cuda,
+                                        encode_cuda, scan_cuda)
     return {"K1": decode_cuda.decode_cuda, "K2": decode_cuda.decode_rows_cuda,
             "K3": decode_cuda.unpack_rows_cuda, "K4": encode_cuda.pack_cuda,
             "K6": encode_cuda.stats_rows_cuda,
-            "K7": encode_cuda.pack_rows_cuda}
+            "K7": encode_cuda.pack_rows_cuda, "K9": scan_cuda.cumsum_u32,
+            "K10": chunked_cuda.decode_chunked_stream,
+            "K11": chunked_cuda.decode_chunked_stream_floats}
 
 
 def check_snapshot_path(mt, dev):
@@ -615,6 +704,149 @@ def time_rows_kernels(mt, data, dev):
     return times, errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the delta path at full size
+# ---------------------------------------------------------------------------
+
+# codec, version, and the least launches each must make in one compress +
+# fused + generic decode of the three fields (9 planes; Octo: 3 Morton
+# planes)
+DELTA_CODECS = (("Diff v1.0", "DIFF", (1, 0, 0), {"K9": 18, "K3": 6}),
+                ("Coil v1.1", "COIL", (1, 1, 0), {"K10": 12, "K11": 6}),
+                ("Octo v1.1", "OCTO", (1, 1, 0), {"K10": 6}))
+
+
+def lagrangian_fields(mt, dev):
+    """Phase 4's snapshot in Lagrangian (ID) order: IDs 0..n-1, the order
+    in which neighbouring particles are close and the delta codecs pay
+    off."""
+    base = snapshot(mt, dev)
+    pos, vel, ids = (f.data for f in base.fields)
+    order = torch.argsort(ids)
+    return pos[:, order].contiguous(), vel[:, order].contiguous(), ids[order]
+
+
+def check_delta_path(mt, dev):
+    pos, vel, ids = lagrangian_fields(mt, dev)
+    n = ids.numel()
+    raw = n * (3 * 4 + 3 * 4 + 8)
+    if not torch.equal(ids, torch.arange(n, device=dev)):
+        raise AssertionError("phase 6: IDs are not in Lagrangian order")
+    launches = {}
+    F = mt.FieldCode
+    for label, algo, ver, floor in DELTA_CODECS:
+        def hd(code):
+            return mt.FieldHeader(code, getattr(mt.AlgoCode, algo),
+                                  mt.semver.pack(*ver), n)
+
+        seg = mt.Seg(fields=[
+            mt.Field(hd=hd(F.POSN), data=pos,
+                     acc=mt.PositionAccuracy(delta=POS_DELTA, width=BOX)),
+            mt.Field(hd=hd(F.VELC), data=vel,
+                     acc=mt.VelocityAccuracy(delta=VEL_DELTA)),
+            mt.Field(hd=hd(F.PTID), data=ids,
+                     acc=mt.IDAccuracy(width=SIDE))])
+        torch.cuda.synchronize()
+        reset_counts()
+        blob, t_enc, m_enc = timed(lambda: mt.compress_segment(seg,
+                                                               seed=SEED))
+        fused, t_fus, m_fus = timed(
+            lambda: mt.decompress_segment(blob, fused=True, device=dev))
+        generic, t_gen, m_gen = timed(
+            lambda: mt.decompress_segment(blob, fused=False, device=dev))
+        counts = {k: fn.launches for k, fn in launch_counted().items()}
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+        for name, t, m in (("encode", t_enc, m_enc),
+                           ("decode fused", t_fus, m_fus),
+                           ("decode generic", t_gen, m_gen)):
+            log(f"phase 6: {label} {name}: {t:.4f} s wall, "
+                f"{raw / t / 1e9:.3f} GB/s of raw f32/u64 bytes, peak "
+                f"device memory {m / 2**30:.3f} GiB")
+        log(f"phase 6: {label}: {n} particles, {raw} raw bytes -> "
+            f"{len(blob)} compressed bytes (ratio {raw / len(blob):.3f}); "
+            f"launches {counts}")
+        for out in (fused, generic):
+            d = (out.fields[0].data.double() - pos.double()).abs()
+            d = torch.minimum(d, BOX - d)
+            dv = (out.fields[1].data.double() - vel.double()).abs()
+            if d.max().item() > POS_DELTA or dv.max().item() > VEL_DELTA:
+                raise AssertionError(f"phase 6: {label} error bound broken: "
+                                     f"position {d.max().item()}, velocity "
+                                     f"{dv.max().item()}")
+            if not torch.equal(out.fields[2].data, ids):
+                raise AssertionError(f"phase 6: {label} IDs did not come "
+                                     "back exactly")
+        for a, b in zip(fused.fields, generic.fields):
+            if not torch.equal(bits(a.data), bits(b.data)):
+                raise AssertionError(f"phase 6: {label} fused != generic")
+        if len(blob) >= raw:
+            raise AssertionError(f"phase 6: {label} is not smaller than raw")
+        if any(counts[k] < v for k, v in floor.items()):
+            raise AssertionError(f"phase 6: {label} missed a kernel: "
+                                 f"{counts} (want at least {floor})")
+        log(f"phase 6: {label}: max position error {d.max().item():.6g} <= "
+            f"{POS_DELTA}, max velocity error {dv.max().item():.6g} <= "
+            f"{VEL_DELTA}, IDs exact, fused == generic bitwise, launches at "
+            f"least {floor}")
+        del seg, blob, fused, generic, d, dv
+    if not all(launches[k] > 0 for k in ("K9", "K10", "K11")):
+        raise AssertionError(f"phase 6 missed a delta kernel: {launches}")
+    return (pos, vel, ids), launches
+
+
+def time_delta_kernels(mt, data, dev):
+    """K9, K10 and K11 against their plain versions at the delta path's
+    shapes: one position plane of 2^24 bins (K9 over its deltas, as Diff
+    decodes it; K10 and K11 over its Coil v1.1 payload of 1024 chunks)."""
+    from minnow_c_tpu_torch.algos import algo_coil_v1_1 as c11
+    from minnow_c_tpu_torch.ops import chunked_cuda, kernels, scan_cuda
+    from minnow_c_tpu_torch.quant import engine
+    pos = data[0]
+    n = pos.shape[1]
+    hd = mt.FieldHeader(mt.FieldCode.POSN, mt.AlgoCode.COIL,
+                        mt.semver.pack(1, 1, 0), n)
+    qf = engine.quantize(mt.Field(hd=hd, data=pos, acc=mt.PositionAccuracy(
+        delta=POS_DELTA, width=BOX)), seed=SEED)
+    depth = qf.quant.depth
+    bins = qf.data[0].contiguous()
+    deltas = kernels.u32_unzigzag(kernels.u32_delta_zigzag(bins))
+    first, chunk, widths, body = c11._parse(
+        c11.CoilV1_1()._encode_plane(bins, depth)[0])
+    body = torch.from_numpy(body.astype(np.uint32).view(np.int32)).to(dev)
+    key, x0, dx = (1, 2), 0.25, 63.5
+    fargs = (body, widths, first, chunk, n, key, depth, x0, dx, BOX, True)
+    fns = {
+        "K9": (lambda: scan_cuda.cumsum_u32(deltas),
+               lambda: scan_cuda.cumsum_u32_plain(deltas), f"n {n}"),
+        "K10": (lambda: chunked_cuda.decode_chunked_stream(
+                    body, widths, first, chunk, n),
+                lambda: chunked_cuda.decode_chunked_stream_plain(
+                    body, widths, first, chunk, n),
+                f"{widths.size} chunks of {chunk}, widths "
+                f"{int(widths.min())}-{int(widths.max())} (mean "
+                f"{float(widths.mean()):.2f}), {body.numel()} words"),
+        "K11": (lambda: chunked_cuda.decode_chunked_stream_floats(*fargs),
+                lambda: chunked_cuda.decode_chunked_stream_floats_plain(
+                    *fargs), "the same plane, depth "
+                f"{depth}, periodic"),
+    }
+    if not torch.equal(fns["K9"][0](), bins) or \
+            not torch.equal(fns["K10"][0](), bins):
+        raise AssertionError("phase 6: K9 / K10 do not give the bins back")
+    times, errs = {}, {}
+    for k, (fast, plain, shape) in fns.items():
+        errs[k] = max_abs_err(fast(), plain())
+        if errs[k]:
+            raise AssertionError(f"{k} != plain at the delta path's shapes")
+        times[k] = cuda_ms(fast)
+        times[k + " plain"] = cuda_ms(plain)
+        log(f"phase 6: {k} at {shape}: {times[k]:.4f} ms, plain torch "
+            f"{times[k + ' plain']:.4f} ms (CUDA events, median of 5)")
+    return times, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -639,6 +871,7 @@ def main() -> int:
     err1 = check_decode_kernel(dev, g)
     err4 = check_pack_kernel(dev, g)
     rows_err = check_rows_kernels(dev, g)
+    delta_err = check_delta_kernels(dev, g)
     check_frozen_wire(mt, dev)
     reset_counts()
     seg, launches = check_main_path(mt, dev)
@@ -646,6 +879,9 @@ def main() -> int:
     del seg
     data, snap_launches = check_snapshot_path(mt, dev)
     rows_times, rows_e = time_rows_kernels(mt, data, dev)
+    del data
+    data, delta_launches = check_delta_path(mt, dev)
+    delta_times, delta_e = time_delta_kernels(mt, data, dev)
     del data
 
     kernels = [
@@ -672,6 +908,19 @@ def main() -> int:
             "launches": snap_launches[k],
             "max_abs_err": max(rows_err[k], rows_e[k]),
             "ms": rows_times[k], "plain_ms": rows_times[k + " plain"]})
+    for k, name, src, rep_ in (
+            ("K9", "cumsum_u32 (K9)", "scan.cu", "scan_pallas.py:106"),
+            ("K10", "chunked_decode (K10)", "chunked.cu",
+             "chunked_pallas.py:208"),
+            ("K11", "chunked_decode_floats (K11)", "chunked.cu",
+             "chunked_pallas.py:346")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"minnow_c_tpu_torch/csrc/{src}",
+            "replaces": f"minnow_c_tpu/ops/{rep_}",
+            "launches": delta_launches[k],
+            "max_abs_err": max(delta_err[k], delta_e[k]),
+            "ms": delta_times[k], "plain_ms": delta_times[k + " plain"]})
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,17 +9,19 @@ Hopper (``csrc/``), each beside a plain torch version that CPU tensors use.
 
 Layer map (mirrors the JAX package):
   L1  ops/        -- torch array ops, the CUDA kernels' wrappers
-                     (decode_cuda, encode_cuda), native entropy/checksum, RNG
+                     (decode_cuda, encode_cuda, scan_cuda, chunked_cuda),
+                     native entropy/checksum, RNG
   L2  quant/      -- per-field-type quantization engine (the lossy stage)
   L3  algos/      -- versioned algorithm registry + frozen codec modules
   L4  segment/    -- segment API, wire format, stream reader/writer, file I/O
   L5  parallel/   -- snapshots: block-batched encode/decode of whole
                      snapshots into chained segment files
 
-Ported so far: the Trim codec (v1.0, v1.1) at uniform depth with the linear
-map, for all five field types, and the single-host snapshot writer and
-reader (compress_snapshot / decompress_snapshot) in the div scale mode.
-See ROADMAP.md for the rest.
+Ported so far: the Trim codec (v1.0, v1.1) and the delta codecs Diff v1.0,
+Coil v1.0 / v1.1 and Octo v1.0 / v1.1, at uniform depth with the linear map,
+for all five field types, and the single-host snapshot writer and reader
+(compress_snapshot / decompress_snapshot) in the div scale mode.  See
+ROADMAP.md for the rest.
 """
 
 from . import semver, types  # noqa: F401

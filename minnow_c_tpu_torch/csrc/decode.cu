@@ -17,7 +17,7 @@
 //
 // Output bits equal the plain torch versions in ops/decode_cuda.py and the
 // JAX package's decode (the dither is part of the wire, so the cipher is
-// Threefry bit for bit).
+// Threefry bit for bit, dither.cuh).
 //
 // Bound on the card: memory.  Per element K1 and K2 read width/8 bytes of
 // packed words and write 4 bytes of f32; the 13 cipher rounds are shared by
@@ -27,48 +27,25 @@
 // Design: K1 and K2 run one thread per Threefry counter, i.e. 4 consecutive
 // elements per thread, through one __device__ function (decode_quad).  Each
 // element takes a 64-bit funnel window of two words (served from L1 for
-// neighbouring threads).  Every float step names its rounding (__fadd_rn,
-// __fmaf_rn), and the library is compiled with -fmad=false so that the
-// compiler contracts nothing else.  The rows kernels flatten (row, element)
-// onto a 1-D grid, so any row count fits the grid's x dimension; K2 splits
-// the flat index into row and counter, K3 needs no split at all, because
-// 32 | n starts every row's stream on a word boundary and the rows are one
-// contiguous stream.
+// neighbouring threads).  The dither and the undo of a bin are dither.cuh's,
+// shared with K11 (chunked.cu).  Every float step names its rounding
+// (__fadd_rn, __fmaf_rn), and the library is compiled with -fmad=false so
+// that the compiler contracts nothing else.  The rows kernels flatten (row,
+// element) onto a 1-D grid, so any row count fits the grid's x dimension; K2
+// splits the flat index into row and counter, K3 needs no split at all,
+// because 32 | n starts every row's stream on a word boundary and the rows
+// are one contiguous stream.
 // Left for later work: vectorised 16-byte loads/stores, staging the words of
 // a block in shared memory, and grid-stride loops over a persistent grid.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "dither.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// Threefry-2x32 with 13 rounds (minnow_c_tpu/ops/rng.py:_threefry2x32).
-__device__ __forceinline__ void threefry2x32_13(uint32_t k0, uint32_t k1,
-                                                uint32_t c0, uint32_t c1,
-                                                uint32_t& a, uint32_t& b) {
-  constexpr int kRot[8] = {13, 15, 26, 6, 17, 29, 16, 24};
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  uint32_t x0 = c0 + k0;
-  uint32_t x1 = c1 + k1;
-#pragma unroll
-  for (int r = 0; r < 13; ++r) {
-    x0 += x1;
-    x1 = rotl32(x1, kRot[r % 8]) ^ x0;
-    if (r % 4 == 3) {
-      const int j = r / 4 + 1;
-      x0 += ks[j % 3];
-      x1 += ks[(j + 1) % 3] + static_cast<uint32_t>(j);
-    }
-  }
-  a = x0;
-  b = x1;
-}
 
 // Decodes elements e0 .. e0+3 (those below n) of one stream: words holds its
 // n_words packed u32 words, out its n floats, and the four elements share
@@ -77,9 +54,8 @@ __device__ __forceinline__ void decode_quad(
     const uint32_t* __restrict__ words, int64_t n_words, uint32_t k0,
     uint32_t k1, uint32_t ctr, int64_t e0, int64_t n, int width, float x0,
     float dx_bin, float box, int periodic, float* __restrict__ out) {
-  uint32_t a, b;
-  threefry2x32_13(k0, k1, ctr, 0u, a, b);
-  const uint32_t grain[4] = {a & 0xFFFFu, a >> 16, b & 0xFFFFu, b >> 16};
+  float u[4];
+  mnw::dither_quad(k0, k1, ctr, u);
   const uint32_t mask = (1u << width) - 1u;  // width <= 24
 #pragma unroll
   for (int l = 0; l < 4; ++l) {
@@ -90,15 +66,7 @@ __device__ __forceinline__ void decode_quad(
     uint64_t window = words[j];
     if (j + 1 < n_words) window |= static_cast<uint64_t>(words[j + 1]) << 32;
     const uint32_t bin = static_cast<uint32_t>(window >> (start & 31)) & mask;
-    const float u = __fmul_rn(static_cast<float>(grain[l]), 1.0f / 65536.0f);
-    // bin + u rounds on its own; the multiply and the add round once
-    // together, as in the frozen decode digests (see ops/kernels.undo_bins).
-    float x = __fmaf_rn(dx_bin, __fadd_rn(static_cast<float>(bin), u), x0);
-    if (periodic) {
-      if (x >= box) x = __fsub_rn(x, box);
-      if (x < 0.0f) x = __fadd_rn(x, box);
-    }
-    out[e] = x;
+    out[e] = mnw::undo_bin(bin, u[l], x0, dx_bin, box, periodic);
   }
 }
 

@@ -65,7 +65,8 @@ def lib() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-        log = build_locked(LIB_PATH, sources,
+        headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+        log = build_locked(LIB_PATH, sources + headers,
                            lambda out: _build(out, sources))
         if log is not None:
             build_log = log
@@ -88,6 +89,12 @@ def lib() -> ctypes.CDLL:
         l.mnw_stats_rows.restype = i32
         l.mnw_stats_rows.argtypes = [p, i64, i64, i64, p, p, i32, p, p, p,
                                      p]
+        l.mnw_cumsum_u32.restype = i32
+        l.mnw_cumsum_u32.argtypes = [p, i64, p, p, p]
+        l.mnw_chunked_decode.restype = i32
+        l.mnw_chunked_decode.argtypes = [p, p, p, i64, i32, i64, i32, i32,
+                                         u32, p, i32, u32, u32, f32, f32, f32,
+                                         i32, p, p]
         l.mnw_cuda_error_string.restype = ctypes.c_char_p
         l.mnw_cuda_error_string.argtypes = [i32]
         _lib = l

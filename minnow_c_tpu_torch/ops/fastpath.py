@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from . import bitpack, kernels
+from . import rng as _rng
 from .decode_cuda import decode_plain
 from .encode_cuda import pack_cuda
 
@@ -33,6 +34,19 @@ def fast_uniform_decode(words, key, level: int, n: int, x0, dx,
     return decode_plain(words, k0, k1, x0, bin_width,
                         periodic_width if periodic else 0.0, n, level,
                         ctr0, periodic)
+
+
+def undo_uniform(bins, key, level: int, x0, dx, periodic_width=None):
+    """u32 bins -> dithered floats: the decode without its unpack, as the
+    JAX package's delta decodes run it after their prefix sum
+    (``_diff_plane_fused``, ``_coil11_undo_tail``).  The dither of ``key``
+    from counter 0, ``x0 + dx/2^level*(bin + u)`` rounded as
+    ``kernels.undo_bins``, the optional rewrap; any device."""
+    u = _rng.uniform_dither(key, (bins.shape[0],), device=bins.device)
+    x = kernels.undo_bins(bins, x0, np.float32(dx) / np.float32(2.0 ** level),
+                          u)
+    return x if periodic_width is None else kernels.periodic(x,
+                                                             periodic_width)
 
 
 def fast_uniform_encode(x: torch.Tensor, level: int, periodic_width=None,

@@ -167,3 +167,35 @@ def uniform_bin_index_recip(x, level: int, x0, dx):
     recip = f32_scalar(exact_recip(dx), dev)
     scaled = ((x - f32_scalar(x0, dev)) * recip) * float(1 << level)
     return scaled_to_bins(scaled, level).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Delta + zigzag coding of bin indices (the delta codecs' building block)
+# ---------------------------------------------------------------------------
+
+def u32_delta_zigzag(bins: torch.Tensor) -> torch.Tensor:
+    """Difference each element against its predecessor (element 0 keeps its
+    value), then zigzag-map the signed deltas to unsigned,
+    ``z = (d << 1) ^ (d >> 31)`` in int32 wrap arithmetic, as the JAX
+    package's ``kernels.u32_delta_zigzag``.  Runs on int64 masked to 32
+    bits: d is the u32 difference, ``d << 1`` drops its top bit and
+    ``d >> 31`` (arithmetic) is all ones exactly when that bit is set."""
+    s = u32_to_i64(bins)
+    d = (s - torch.cat([s.new_zeros(1), s[:-1]])) & M32
+    return i64_to_u32(((d << 1) & M32) ^ ((d >> 31) * M32))
+
+
+def u32_unzigzag(z: torch.Tensor) -> torch.Tensor:
+    """Inverse zigzag map, z -> signed delta mod 2^32 (u32 bits in int32),
+    with a LOGICAL right shift: ``(z >> 1) ^ -(z & 1)`` on the u32 value.
+    The int32 spelling sign-extends for z >= 2^31 and decodes every
+    |delta| >= 2^30 off by 2^31."""
+    v = u32_to_i64(z)
+    return i64_to_u32((v >> 1) ^ ((v & 1) * M32))
+
+
+def u32_undo_delta_zigzag(z: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``u32_delta_zigzag``: unzigzag, then the u32 prefix sum
+    (K9 on a CUDA tensor, its plain version on the CPU)."""
+    from .scan_cuda import cumsum_u32_auto
+    return cumsum_u32_auto(u32_unzigzag(z))

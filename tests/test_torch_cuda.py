@@ -1,5 +1,5 @@
-"""The port's CUDA kernels, its segment path and its snapshot path on a
-CUDA card.
+"""The port's CUDA kernels, its segment path, its snapshot path and its
+delta codecs on a CUDA card.
 
 Marked ``cuda``; every test skips without a card.  This file imports no
 JAX, so it also runs where JAX is missing:
@@ -18,7 +18,9 @@ import pytest
 import torch
 
 import minnow_c_tpu_torch as mt
-from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
+from minnow_c_tpu_torch.algos import algo_coil_v1_1, chunked
+from minnow_c_tpu_torch.ops import (chunked_cuda, decode_cuda, encode_cuda,
+                                    kernels, scan_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -238,3 +240,170 @@ def test_snapshot_on_cuda_never_reaches_a_plain_version(dev, monkeypatch):
              encode_cuda.stats_rows_cuda.launches)
     assert all(a - b >= m for a, b, m in zip(after, before, (7, 3, 6, 3)))
     assert torch.equal(out["ids"].cpu(), torch.from_numpy(arrays["ids"]))
+
+
+# ---------------------------------------------------------------------------
+# The delta codecs: K9 scan, K10 chunked decode, K11 its float mode
+# ---------------------------------------------------------------------------
+
+CHUNK = chunked_cuda.KERNEL_CHUNK
+# (per-chunk widths of the zigzag deltas, elements cut from the last chunk):
+# mixed widths, one chunk, zero-width chunks, a width-32 chunk (deltas of
+# magnitude >= 2^30), and a plane that ends on a chunk boundary
+PATTERNS = [((7, 15, 7), 137), ((24,), 137), ((0, 9, 0, 3), 137),
+            ((1, 32, 5), 137), ((0, 0), 5), ((4, 32, 32, 11), 0)]
+
+
+def chunked_stream(pattern, trim, seed):
+    """A chunked plane of zigzag deltas whose chunk c holds values below
+    2^pattern[c] (host arrays): (body words (int32 bits, column-major),
+    widths, n)."""
+    rng = np.random.default_rng(seed)
+    z = np.zeros(len(pattern) * CHUNK, np.uint32)
+    for c, w in enumerate(pattern):
+        if w:
+            z[c * CHUNK:(c + 1) * CHUNK] = rng.integers(0, 1 << w, CHUNK,
+                                                        dtype=np.uint64)
+            z[c * CHUNK + 5] = (1 << w) - 1
+    n = z.size - trim
+    zc, widths = chunked.chunk_widths(z[:n], CHUNK)
+    natural = np.frombuffer(chunked.pack_chunks(zc, widths), dtype="<u4")
+    body = chunked_cuda.plane_to_cmajor(natural, widths, CHUNK)
+    return body.astype(np.uint32).view(np.int32), widths, n
+
+
+@pytest.mark.parametrize("n", [1, 97, 4096, 4097, 16387, (1 << 20) + 5])
+def test_scan_kernel_matches_plain(dev, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randint(-(1 << 31), 1 << 31, (n,), generator=g, device=dev,
+                      dtype=torch.int64).to(torch.int32)  # sums wrap
+    assert torch.equal(scan_cuda.cumsum_u32(x), scan_cuda.cumsum_u32_plain(x))
+    assert torch.equal(scan_cuda.cumsum_u32_auto(x),
+                       scan_cuda.cumsum_u32_plain(x))
+
+
+@pytest.mark.parametrize("first", [0, 12345, (1 << 32) - 5])
+@pytest.mark.parametrize("pattern, trim", PATTERNS)
+def test_chunked_kernel_matches_plain(dev, pattern, trim, first):
+    body, widths, n = chunked_stream(pattern, trim, len(pattern) + trim)
+    body = torch.from_numpy(body).to(dev)
+    for zigzag, prefix in ((True, True), (False, True), (False, False)):
+        got = chunked_cuda.decode_chunked_stream(body, widths, first, CHUNK,
+                                                 n, zigzag, prefix)
+        want = chunked_cuda.decode_chunked_stream_plain(
+            body, widths, first, CHUNK, n, zigzag, prefix)
+        assert got.device == body.device and torch.equal(got, want), \
+            (zigzag, prefix)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("pattern, trim", PATTERNS[:4])
+@pytest.mark.parametrize("depth", [14, 24])
+def test_chunked_floats_kernel_matches_plain(dev, pattern, trim, depth,
+                                             periodic):
+    body, widths, n = chunked_stream(pattern, trim, depth)
+    body = torch.from_numpy(body).to(dev)
+    x0, dx = (-2.0, 68.0) if periodic else (0.25, 63.0)
+    args = (body, widths, (1 << 24) - 3, CHUNK, n, (0xDEADBEEF, 7), depth,
+            x0, dx, 64.0, periodic)
+    got = chunked_cuda.decode_chunked_stream_floats(*args)
+    want = chunked_cuda.decode_chunked_stream_floats_plain(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_chunked_kernels_refuse_malformed_streams(dev):
+    body = torch.zeros(4096, dtype=torch.int32, device=dev)
+    before = (chunked_cuda.decode_chunked_stream.launches,
+              chunked_cuda.decode_chunked_stream_floats.launches)
+    with pytest.raises(ValueError, match="> 32"):
+        chunked_cuda.decode_chunked_stream(body, np.array([33], np.uint8), 0,
+                                           CHUNK, 10)
+    with pytest.raises(ValueError, match="shorter"):
+        chunked_cuda.decode_chunked_stream_floats(
+            body, np.array([9], np.uint8), 0, CHUNK, 10, (1, 2), 12, 0.0,
+            1.0, 0.0, False)
+    assert before == (chunked_cuda.decode_chunked_stream.launches,
+                      chunked_cuda.decode_chunked_stream_floats.launches)
+
+
+DELTA_CODECS = {"diff": (mt.AlgoCode.DIFF, (1, 0, 0)),
+                "coil": (mt.AlgoCode.COIL, (1, 0, 0)),
+                "coil_v1_1": (mt.AlgoCode.COIL, (1, 1, 0)),
+                "octo": (mt.AlgoCode.OCTO, (1, 0, 0)),
+                "octo_v1_1": (mt.AlgoCode.OCTO, (1, 1, 0))}
+
+
+def _delta_segment(name, n, device):
+    """Five field types in a coherent (random-walk) order; UNSI spans more
+    than 2^31, so its zigzag deltas pass 2^30."""
+    algo, ver = DELTA_CODECS[name]
+    rng = np.random.default_rng(11)
+    pos = (np.cumsum(rng.normal(0, 0.05, (3, n)), axis=1) + 32.0).astype(
+        np.float32) % np.float32(64.0)
+    vel = rng.normal(0, 100, (3, n)).astype(np.float32)
+    ids = np.arange(n, dtype=np.int64) + 7
+    uf = rng.uniform(1, 10, n).astype(np.float32)
+    ui = rng.integers(0, 3 << 30, n).astype(np.int64)
+    F = mt.FieldCode
+
+    def field(code, data, acc):
+        hd = mt.FieldHeader(code, algo, mt.semver.pack(*ver), n)
+        return mt.Field(hd=hd, data=torch.from_numpy(data).to(device),
+                        acc=acc)
+
+    return mt.Seg(fields=[
+        field(F.POSN, pos, mt.PositionAccuracy(delta=1e-3, width=64.0)),
+        field(F.VELC, vel, mt.VelocityAccuracy(delta=0.25)),
+        field(F.PTID, ids, mt.IDAccuracy(width=64)),
+        field(F.UNSF, uf, mt.FloatAccuracy(delta=1e-3)),
+        field(F.UNSI, ui, mt.IntAccuracy()),
+    ])
+
+
+@pytest.mark.parametrize("n", [5000, 40000])
+@pytest.mark.parametrize("name", sorted(DELTA_CODECS))
+def test_delta_segment_on_cuda_matches_cpu(dev, monkeypatch, name, n):
+    """n = 40000 with BIG_PLANE at 30000: Coil v1.1 and Octo v1.1 take the
+    16384-element chunks, so K10 and K11 decode them on the card."""
+    monkeypatch.setattr(algo_coil_v1_1, "BIG_PLANE", 30000)
+    blob = mt.compress_segment(_delta_segment(name, n, dev), seed=3)
+    assert blob == mt.compress_segment(_delta_segment(name, n, "cpu"),
+                                       seed=3)
+    for fused in (False, True):
+        got = mt.decompress_segment(blob, fused=fused, device=dev)
+        want = mt.decompress_segment(blob, fused=fused)
+        for a, b in zip(got.fields, want.fields):
+            assert a.data.device.type == dev.type
+            assert np.array_equal(a.data.cpu().numpy().view(np.uint8),
+                                  b.data.numpy().view(np.uint8))
+
+
+def test_delta_path_on_cuda_never_reaches_a_plain_version(dev, monkeypatch):
+    """With every plain version made to raise, the CUDA delta codecs still
+    round-trip: they launch K9, K10 and K11 and never fall back."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version reached on the CUDA path")
+
+    for mod, name in ((scan_cuda, "cumsum_u32_plain"),
+                      (chunked_cuda, "decode_chunked_stream_plain"),
+                      (chunked_cuda, "decode_chunked_stream_floats_plain"),
+                      (decode_cuda, "decode_plain"),
+                      (decode_cuda, "unpack_rows_plain"),
+                      (encode_cuda, "pack_plain"),
+                      (encode_cuda, "pack_rows_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(algo_coil_v1_1, "BIG_PLANE", 30000)
+    counted = (scan_cuda.cumsum_u32, chunked_cuda.decode_chunked_stream,
+               chunked_cuda.decode_chunked_stream_floats)
+    before = [fn.launches for fn in counted]
+    n = 40000
+    for name in ("diff", "coil", "coil_v1_1", "octo_v1_1"):
+        seg = _delta_segment(name, n, dev)
+        blob = mt.compress_segment(seg, seed=1)
+        for fused in (False, True):
+            out = mt.decompress_segment(blob, fused=fused, device=dev)
+            assert torch.equal(out.fields[2].data, seg.fields[2].data)
+            assert torch.equal(out.fields[4].data, seg.fields[4].data)
+            err = (out.fields[0].data - seg.fields[0].data).abs()
+            assert float(torch.minimum(err, 64.0 - err).max()) <= 1e-3
+    assert all(fn.launches > b for fn, b in zip(counted, before))
