@@ -9,9 +9,12 @@ and the script exits non-zero:
 
 1. device: card name, power limit, kernel build time;
 2. each CUDA kernel (K1 fused decode, K4 pack, the rows kernels K2
-   decode, K3 unpack, K6 stats, K7 pack, and the delta kernels K9 scan, K10
-   chunked decode, K11 its float mode) against its plain torch version on
-   the card, bitwise, over widths, row counts, ragged sizes and edge values;
+   decode, K3 unpack, K6 stats, K7 pack, the delta kernels K9 scan, K10
+   chunked decode, K11 its float mode, and the recip-mode encodes K5, K8 and
+   K12) against its plain torch version on the card, bitwise, over widths,
+   row counts, ragged sizes and edge values, subnormals included (they
+   flush to zeros of their sign, as on XLA); K4's kernel at 2 * 16384 bins
+   as the counterpart of K13 (pack_pallas_tiles);
 3. the frozen wire: Trim v1.0 / v1.1, Diff v1.0, Coil v1.0 / v1.1 and Octo
    v1.0 / v1.1 segments encoded from CUDA tensors and decoded on CUDA
    (generic and fused) match tests/fixtures/wire_digests.json;
@@ -32,13 +35,25 @@ and the script exits non-zero:
    compressed and decompressed (generic and fused) on CUDA, with error
    bounds, exact IDs, fused == generic, ratios, wall times, rates, peak
    memory and launch counts; then K9, K10 and K11 timed against their plain
-   versions at that path's shapes.
+   versions at that path's shapes;
+7. the recip scale mode at full size: (a) phase 5's snapshot through
+   compress_snapshot(scale_mode="recip") (K8) and the batched read, with
+   error bounds, exact IDs and a file size within 0.1% of phase 5's;
+   (b) its first 16 blocks through compress_snapshot_streaming at (a)'s
+   depths, decoding to (a)'s values bitwise; (c) a 250^3 Gadget-2 file
+   through the CLI (compress --scale-mode recip, info, verify, decompress:
+   2 blocks of 7,812,500, so K5 per row, K4 and K1); (d) phase 4's
+   position planes through fast_uniform_encode(scale_mode="recip") (K5);
+   (e) K5, K8 and K12 timed against their plain versions, and K12's
+   one-pass encode of phase 5's position blocks against the split CUDA
+   path (K6, the host's recip, K8).
 
 The launch counts of each path are set to 0 just before the path runs and
 read just after.  The last line is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts (K1 and K4 from phase
-4, the rows kernels from phase 5, the delta kernels from phase 6), errors
-and times.
+4, the rows kernels from phase 5, the delta kernels from phase 6, K5 from
+phase 7(c), K8 from 7(a), K12 from its one-pass run in 7(e), K13 as K4's
+kernel), errors and times.
 """
 
 from __future__ import annotations
@@ -50,6 +65,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -63,6 +79,8 @@ POS_DELTA, VEL_DELTA = 1e-3, 1.0
 SEED = 42
 SNAP_SIDE, SNAP_BLOCKS = 512, 64   # phase 5: 2^27 particles, 2^21 a block
 MASS_DELTA = 1e-4
+STREAM_BLOCKS = 16         # phase 7(b): the first 16 of phase 5's blocks
+CLI_SIDE = 250             # phase 7(c): 15,625,000 particles
 
 
 def log(msg: str) -> None:
@@ -109,7 +127,7 @@ def cuda_ms(fn, reps: int = 5) -> float:
 # ---------------------------------------------------------------------------
 
 def check_decode_kernel(dev, g) -> float:
-    from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda
+    from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
     worst = 0.0
     cases = 0
     for width in (1, 7, 11, 16, 23, 24):
@@ -121,16 +139,19 @@ def check_decode_kernel(dev, g) -> float:
             bins[4:8] = top
             bins[-3:] = top
             words = encode_cuda.pack_plain(bins.to(torch.int32), width)
-            for periodic in (False, True):
-                # periodic: values span [-2, 66) so both rewraps happen
-                x0, dx = (-2.0, 68.0) if periodic else (1.5, 32.0)
+            # periodic: values span [-2, 66) so both rewraps happen; the
+            # third case has a subnormal x0 and bin width (flushed to 0),
+            # the fourth subnormal sums near 0 at width 1 (flushed to 0)
+            for periodic, x0, dx in ((False, 1.5, 32.0), (True, -2.0, 68.0),
+                                     (False, 1e-40, 1e-36),
+                                     (False, -2e-38, 4e-38)):
                 for elem0 in (0, 1 << 14):
                     key = (0x12345678 + width, 0x9ABCDEF0 + n)
                     got = decode_cuda.decode_cuda(words, key, width, n, x0,
                                                   dx, BOX, periodic, elem0)
                     want = decode_cuda.decode_plain(
-                        words, *key, x0, np.float32(dx) / np.float32(
-                            2.0 ** width), BOX, n, width, elem0, periodic)
+                        words, *key, x0, kernels.bin_width(dx, width), BOX,
+                        n, width, elem0, periodic)
                     torch.cuda.synchronize()
                     worst = max(worst, max_abs_err(got, want))
                     if not torch.equal(bits(got), bits(want)):
@@ -204,7 +225,7 @@ def u32_rows(rows: int, n: int, width: int, g, dev) -> torch.Tensor:
 def check_rows_kernels(dev, g) -> dict:
     """K2, K3, K6 and K7 against their plain versions, bitwise, over widths
     and row counts past the 65535 limit of a grid's y dimension."""
-    from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda
+    from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
     shapes = ((1, 32), (70_000, 32), (3, (1 << 20) + 32), (192, 4096))
     worst = {"K2": 0.0, "K3": 0.0, "K6": 0.0, "K7": 0.0}
     cases = 0
@@ -241,14 +262,21 @@ def check_rows_kernels(dev, g) -> dict:
                                 device=dev)
                 dx = torch.full((rows,), 68.0 if periodic else 32.0,
                                 device=dev)
+                if not periodic:    # subnormal x0, bin width or sums
+                    x0[::2] = 1e-40
+                    dx[::2] = 1e-36
+                    x0[1::4] = -2e-38
+                    dx[1::4] = 4e-38
                 same("K2", decode_cuda.decode_rows_cuda(
                     words, keys, width, n, x0, dx, BOX, periodic),
                     decode_cuda.decode_rows_plain(
-                        words, keys, x0, dx / 2.0 ** width, BOX, n, width,
-                        periodic),
+                        words, keys, x0, kernels.bin_width(dx, width), BOX,
+                        n, width, periodic),
                     f"width={width} rows={rows} n={n} periodic={periodic}")
         x = torch.rand(rows, n, generator=g, device=dev) * BOX
         x[::5, 3] = float("nan")
+        x[:, 5::7] = 1e-40
+        x[:, 6::11] = -1e-40
         if rows > 2:
             x[1] = torch.where(x[1] < BOX / 2, 0.0, -0.0)
             x[2, ::3] = -0.0
@@ -262,6 +290,146 @@ def check_rows_kernels(dev, g) -> dict:
                 f"rows={rows} n={n} periodic={periodic}")
     log(f"phase 2: K2, K3, K6, K7 == plain bitwise in {cases} comparisons "
         f"(max_abs_err {worst})")
+    return worst
+
+
+def recip_plane(n: int, g, dev, periodic: bool) -> torch.Tensor:
+    """Raw floats in the box with the recip map's hazards: the unwrap's
+    edges (anchor +- half and one ulp either side, the box edges), with
+    the anchor (element 0) at a box edge, subnormals and signed zeros;
+    shifted below 0 when not periodic."""
+    x = torch.rand(n, generator=g, device=dev) * BOX
+    a = float(np.nextafter(np.float32(BOX), np.float32(0)))
+    h = BOX / 2
+    edges = torch.tensor([a, a - h, a + h,
+                          float(np.nextafter(np.float32(a - h),
+                                             np.float32(0))),
+                          float(np.nextafter(np.float32(a - h),
+                                             np.float32(BOX))),
+                          0.0, -0.0, 1e-40, -1e-40, BOX], device=dev)
+    k = min(n, edges.numel())
+    x[:k] = edges[:k]
+    x[k::97] = 1e-40
+    return x if periodic else x - 20.0
+
+
+def check_recip_kernels(dev, g) -> dict:
+    """K5 over widths 1-24 and ragged n (1, < 32, 32 does not divide n);
+    K8 over row counts past 65535 and rows with a constant plane (recip
+    inf), a subnormal x0 and the unwrap's edges; K12 over block counts
+    past the co-resident grid, with a constant block; bitwise against
+    their plain versions."""
+    from minnow_c_tpu_torch.ops import encode_cuda, kernels
+    worst = {"K5": 0.0, "K8": 0.0, "K12": 0.0}
+    cases = 0
+
+    def same(name, got, want, what):
+        nonlocal cases
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            if not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"{name} != plain: {what}")
+            worst[name] = max(worst[name], max_abs_err(a, b))
+        cases += 1
+
+    for n in (1, 17, 33, (1 << 20) + 37):
+        for periodic in (False, True):
+            x = recip_plane(n, g, dev, periodic)
+            u = kernels.undo_periodic(x, BOX) if periodic else x
+            x0, x1 = kernels.minmax(u)
+            recip = kernels.exact_recip((x1 - x0).item())
+            for width in range(1, 25):
+                args = (width, x0.item(), recip, BOX if periodic else 0.0,
+                        x[0].item(), periodic)
+                same("K5", encode_cuda.encode_recip_cuda(x, *args),
+                     encode_cuda.encode_recip_plain(x, *args),
+                     f"width={width} n={n} periodic={periodic}")
+        const = torch.full((n,), 7.5, device=dev)
+        same("K5", encode_cuda.encode_recip_cuda(const, 12, 7.5, np.inf, 0.0,
+                                                 7.5, False),
+             torch.zeros_like(encode_cuda.encode_recip_plain(
+                 const, 12, 7.5, np.inf, 0.0, 7.5, False)),
+             f"constant plane n={n}")
+    # normal values whose differences from x0 are subnormal (flushed)
+    tiny = 1.2e-38 + torch.rand(4096, generator=g, device=dev) * 1e-37
+    t0, t1 = kernels.minmax(tiny)
+    t_recip = kernels.exact_recip((t1 - t0).item())
+    for width in (6, 16, 24):
+        args = (width, t0.item(), t_recip, 0.0, tiny[0].item(), False)
+        same("K5", encode_cuda.encode_recip_cuda(tiny, *args),
+             encode_cuda.encode_recip_plain(tiny, *args),
+             f"subnormal differences width={width}")
+        rows = tiny.reshape(2, 2048)
+        r_args = (width, t0.expand(2).contiguous(),
+                  torch.full((2,), float(t_recip), device=dev),
+                  torch.zeros(2, device=dev), rows[:, 0].contiguous(), False)
+        same("K8", encode_cuda.encode_recip_rows_cuda(rows, *r_args),
+             encode_cuda.encode_recip_rows_plain(rows, *r_args),
+             f"subnormal differences width={width}")
+    for rows, n in ((1, 32), (70_000, 32), (3, (1 << 20) + 32), (192, 4096)):
+        for periodic in (False, True):
+            x = torch.rand(rows, n, generator=g, device=dev) * BOX
+            x[0] = recip_plane(n, g, dev, periodic)
+            x0 = torch.rand(rows, generator=g, device=dev) * 4.0
+            recip = 1.0 / (40.0 + 20.0 * torch.rand(rows, generator=g,
+                                                    device=dev))
+            if rows > 2:
+                x[1] = 7.5
+                x0[1] = 7.5
+                recip[1] = float("inf")
+                x0[2] = 1e-40
+            box = torch.full((rows,), BOX, device=dev)
+            for width in (1, 7, 16, 24):
+                args = (width, x0, recip, box, x[:, 0].contiguous(), periodic)
+                same("K8", encode_cuda.encode_recip_rows_cuda(x, *args),
+                     encode_cuda.encode_recip_rows_plain(x, *args),
+                     f"width={width} rows={rows} n={n} periodic={periodic}")
+    for blocks, dims, n in ((1, 1, 32), (3, 3, 2048), (4096, 3, 64),
+                            (64, 3, 1 << 16)):
+        for periodic in (False, True):
+            x = torch.rand(blocks, dims, n, generator=g, device=dev) * BOX
+            x[0, 0] = recip_plane(n, g, dev, periodic)
+            if blocks > 1:
+                x[1] = 3.25
+            anchors = x[:, :, 0].contiguous()
+            box = BOX if periodic else 0.0
+            for width in (1, 14, 24):
+                same("K12", encode_cuda.encode_recip_fused_blocks_cuda(
+                    x, box, anchors, width, periodic),
+                    encode_cuda.encode_recip_fused_blocks_plain(
+                        x, box, anchors, width, periodic),
+                    f"width={width} blocks={blocks} dims={dims} n={n} "
+                    f"periodic={periodic}")
+    tiny = torch.rand(3, 3, 4096, generator=g, device=dev) * 3e-38
+    for width in (1, 12):   # a box of 3e-38: subnormal unwraps
+        anchors = tiny[:, :, 0].contiguous()
+        same("K12", encode_cuda.encode_recip_fused_blocks_cuda(
+            tiny, 3e-38, anchors, width, True),
+            encode_cuda.encode_recip_fused_blocks_plain(
+                tiny, 3e-38, anchors, width, True),
+            f"box 3e-38 width={width}")
+    log(f"phase 2: K5, K8, K12 == plain bitwise in {cases} comparisons "
+        f"(max_abs_err {worst})")
+    return worst
+
+
+def check_tiles_pack(dev, g) -> float:
+    """K13 (pack_pallas_tiles) computes K4's function: K4's kernel at
+    2 * 16384 bins against pack_plain, bitwise."""
+    from minnow_c_tpu_torch.ops import encode_cuda
+    worst = 0.0
+    for width in (1, 7, 14, 17, 24, 31):
+        bins = u32_rows(1, 2 * 16384, width, g, dev)[0]
+        got = encode_cuda.pack_cuda(bins, width)
+        want = encode_cuda.pack_plain(bins, width)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K13 (K4's kernel) != plain: width={width}")
+        worst = max(worst, max_abs_err(got, want))
+    log(f"phase 2: K13 as K4's kernel == plain bitwise at 2*16384 bins, "
+        f"widths 1, 7, 14, 17, 24, 31 (max_abs_err {worst})")
     return worst
 
 
@@ -325,8 +493,9 @@ def check_delta_kernels(dev, g) -> dict:
                     f"pattern={pattern} first={first} zigzag={zigzag} "
                     f"prefix={prefix}")
         for depth in (14, 24):
-            for periodic in (False, True):
-                x0, dx = (-2.0, 68.0) if periodic else (0.25, 63.0)
+            for periodic, x0, dx in ((False, 0.25, 63.0), (True, -2.0, 68.0),
+                                     (False, 1e-40, 1e-36),
+                                     (False, -2e-38, 4e-38)):
                 args = (body, widths, (1 << 24) - 3, chunk, n,
                         (0xDEADBEEF, depth), depth, x0, dx, BOX, periodic)
                 same("K11", chunked_cuda.decode_chunked_stream_floats(*args),
@@ -567,10 +736,46 @@ def launch_counted():
                                         encode_cuda, scan_cuda)
     return {"K1": decode_cuda.decode_cuda, "K2": decode_cuda.decode_rows_cuda,
             "K3": decode_cuda.unpack_rows_cuda, "K4": encode_cuda.pack_cuda,
+            "K5": encode_cuda.encode_recip_cuda,
             "K6": encode_cuda.stats_rows_cuda,
-            "K7": encode_cuda.pack_rows_cuda, "K9": scan_cuda.cumsum_u32,
+            "K7": encode_cuda.pack_rows_cuda,
+            "K8": encode_cuda.encode_recip_rows_cuda,
+            "K12": encode_cuda.encode_recip_fused_blocks_cuda,
+            "K9": scan_cuda.cumsum_u32,
             "K10": chunked_cuda.decode_chunked_stream,
             "K11": chunked_cuda.decode_chunked_stream_floats}
+
+
+def snap_spec(mt):
+    return mt.SnapshotSpec(
+        pos=mt.PositionAccuracy(delta=POS_DELTA, width=BOX),
+        vel=mt.VelocityAccuracy(delta=VEL_DELTA),
+        ids=mt.IDAccuracy(width=SNAP_SIDE),
+        mass=mt.FloatAccuracy(delta=MASS_DELTA))
+
+
+def field_errors(label: str, out: dict, want: dict) -> dict:
+    """Largest error of each float field of ``out`` against ``want``
+    (periodic distance for positions), checked against its delta; IDs
+    exact."""
+    worst = {}
+    for name, delta in (("pos", POS_DELTA), ("vel", VEL_DELTA),
+                        ("mass", MASS_DELTA)):
+        got, ref = out[name], want[name]
+        err = 0.0
+        for d in range(got.shape[0] if got.dim() == 2 else 1):
+            a = (got[d] if got.dim() == 2 else got).double()
+            b = (ref[d] if ref.dim() == 2 else ref).double()
+            e = (a - b).abs()
+            if name == "pos":
+                e = torch.minimum(e, BOX - e)
+            err = max(err, e.max().item())
+        if not err <= delta:
+            raise AssertionError(f"{label}: {name} error {err} > {delta}")
+        worst[name] = err
+    if not torch.equal(out["ids"], want["ids"]):
+        raise AssertionError(f"{label}: IDs did not come back exactly")
+    return worst
 
 
 def check_snapshot_path(mt, dev):
@@ -579,11 +784,7 @@ def check_snapshot_path(mt, dev):
     n = pos.shape[1]
     nb = n // SNAP_BLOCKS
     raw = n * (3 * 4 + 3 * 4 + 8 + 4)
-    spec = mt.SnapshotSpec(
-        pos=mt.PositionAccuracy(delta=POS_DELTA, width=BOX),
-        vel=mt.VelocityAccuracy(delta=VEL_DELTA),
-        ids=mt.IDAccuracy(width=SNAP_SIDE),
-        mass=mt.FloatAccuracy(delta=MASS_DELTA))
+    spec = snap_spec(mt)
     torch.cuda.synchronize()
 
     reset_counts()
@@ -604,23 +805,8 @@ def check_snapshot_path(mt, dev):
         f"{ {k: v for k, v in stats.items() if k not in ('bytes',)} }")
     log(f"phase 5: launches in the snapshot path: {launches}")
 
-    worst = {}
-    for name, got, want, delta in (("pos", out["pos"], pos, POS_DELTA),
-                                   ("vel", out["vel"], vel, VEL_DELTA),
-                                   ("mass", out["mass"], mass, MASS_DELTA)):
-        err = 0.0
-        for d in range(got.shape[0] if got.dim() == 2 else 1):
-            a = (got[d] if got.dim() == 2 else got).double()
-            b = (want[d] if want.dim() == 2 else want).double()
-            e = (a - b).abs()
-            if name == "pos":
-                e = torch.minimum(e, BOX - e)
-            err = max(err, e.max().item())
-        if not err <= delta:
-            raise AssertionError(f"phase 5: {name} error {err} > {delta}")
-        worst[name] = err
-    if not torch.equal(out["ids"], ids):
-        raise AssertionError("phase 5: IDs did not come back exactly")
+    worst = field_errors("phase 5", out, dict(pos=pos, vel=vel, ids=ids,
+                                              mass=mass))
     log(f"phase 5: max errors {worst} within (pos {POS_DELTA}, vel "
         f"{VEL_DELTA}, mass {MASS_DELTA}); IDs exact")
 
@@ -643,7 +829,7 @@ def check_snapshot_path(mt, dev):
         "bitwise; file < "
         f"raw; launches at least {floor}")
     del out, buf, blob, segs
-    return (pos, vel, ids, stats), launches
+    return (pos, vel, ids, mass, stats), launches
 
 
 def time_rows_kernels(mt, data, dev):
@@ -654,7 +840,7 @@ def time_rows_kernels(mt, data, dev):
     from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
     from minnow_c_tpu_torch.parallel import snapshot as snap
     from minnow_c_tpu_torch.quant import engine
-    pos, _, ids, stats = data
+    pos, _, ids, _, stats = data
     B, nb = SNAP_BLOCKS, pos.shape[1] // SNAP_BLOCKS
     rows = pos.reshape(3, B, nb).transpose(0, 1).reshape(3 * B, nb)
     box = torch.full((3 * B,), BOX, device=dev)
@@ -847,13 +1033,356 @@ def time_delta_kernels(mt, data, dev):
     return times, errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the recip scale mode at full size
+# ---------------------------------------------------------------------------
+
+def report(label: str, raw: int, *runs) -> None:
+    for name, t, m in runs:
+        log(f"{label}: {name}: {t:.4f} s wall, {raw / t / 1e9:.3f} GB/s of "
+            f"raw f32/u64 bytes, peak device memory {m / 2**30:.3f} GiB")
+
+
+def check_recip_snapshot(mt, data, dev):
+    """(a) Phase 5's snapshot in the recip mode: K6 stats, then one K8
+    launch per float field over its 64 * D rows."""
+    pos, vel, ids, mass, div_stats = data
+    n = pos.shape[1]
+    nb = n // SNAP_BLOCKS
+    raw = n * (3 * 4 + 3 * 4 + 8 + 4)
+    torch.cuda.synchronize()
+    reset_counts()
+    buf = io.BytesIO()
+    stats, t_enc, m_enc = timed(lambda: mt.compress_snapshot(
+        buf, pos, vel, ids, snap_spec(mt), SNAP_BLOCKS, seed=SEED,
+        scale_mode="recip", mass=mass))
+    blob = buf.getvalue()
+    out, t_dec, m_dec = timed(lambda: mt.decompress_snapshot(
+        io.BytesIO(blob), batched=True, device=dev))
+    launches = {k: fn.launches for k, fn in launch_counted().items()}
+    report("phase 7(a)", raw, ("compress_snapshot(recip)", t_enc, m_enc),
+           ("decompress_snapshot(batched)", t_dec, m_dec))
+    div_bytes = div_stats["bytes"]
+    log(f"phase 7(a): {len(blob)} file bytes (ratio {raw / len(blob):.3f}); "
+        f"phase 5's div file {div_bytes} bytes; depths "
+        f"{ {k: v for k, v in stats.items() if k != 'bytes'} }")
+    log(f"phase 7(a): launches in the recip snapshot path: {launches}")
+    worst = field_errors("phase 7(a)", out, dict(pos=pos, vel=vel, ids=ids,
+                                                 mass=mass))
+    if abs(len(blob) - div_bytes) > max(64, div_bytes // 1000):
+        raise AssertionError(f"phase 7(a): recip file {len(blob)} bytes vs "
+                             f"div {div_bytes}")
+    floor = {"K6": 3, "K7": 3, "K8": 3, "K2": 7, "K3": 3}
+    if any(launches[k] < v for k, v in floor.items()):
+        raise AssertionError(f"phase 7(a) missed a kernel: {launches} "
+                             f"(want at least {floor})")
+    log(f"phase 7(a): max errors {worst}; IDs exact; file within "
+        f"max(64, bytes // 1000) of the div file; launches at least {floor}")
+    keep = {k: v[..., :STREAM_BLOCKS * nb].clone() for k, v in out.items()}
+    return stats, keep, blob, launches
+
+
+def check_streaming(mt, data, stats_a, keep, blob_a, dev):
+    """(b) The first STREAM_BLOCKS blocks through the streaming writer at
+    (a)'s depths: the same decoded values, bitwise."""
+    from minnow_c_tpu_torch.segment import io as seg_io
+    pos, vel, ids, mass, _ = data
+    nb = pos.shape[1] // SNAP_BLOCKS
+    n = STREAM_BLOCKS * nb
+    raw = n * (3 * 4 + 3 * 4 + 8 + 4)
+    depths = {k: stats_a[f"{k}_depth"] for k in ("pos", "vel", "mass")}
+
+    def blocks():
+        for b in range(STREAM_BLOCKS):
+            sl = slice(b * nb, (b + 1) * nb)
+            yield {"pos": pos[:, sl], "vel": vel[:, sl], "ids": ids[sl],
+                   "mass": mass[sl]}
+
+    torch.cuda.synchronize()
+    reset_counts()
+    buf = io.BytesIO()
+    _, t_enc, m_enc = timed(lambda: mt.compress_snapshot_streaming(
+        buf, blocks(), snap_spec(mt), seed=SEED, depths=depths,
+        scale_mode="recip"))
+    out, t_dec, m_dec = timed(lambda: mt.decompress_snapshot(
+        io.BytesIO(buf.getvalue()), batched=True, device=dev))
+    launches = {k: fn.launches for k, fn in launch_counted().items()}
+    report("phase 7(b)", raw, ("compress_snapshot_streaming", t_enc, m_enc),
+           ("decompress_snapshot", t_dec, m_dec))
+    log(f"phase 7(b): launches in the streaming path: {launches}")
+    for k in ("pos", "vel", "mass"):
+        if not torch.equal(bits(out[k]), bits(keep[k])):
+            raise AssertionError(f"phase 7(b): streaming {k} != (a)'s decode")
+    if not torch.equal(out["ids"], ids[:n]):
+        raise AssertionError("phase 7(b): IDs did not come back exactly")
+    if launches["K8"] < 3 * STREAM_BLOCKS:
+        raise AssertionError(f"phase 7(b) missed K8: {launches}")
+    segs = [sg for _, sg in seg_io.iter_segments(io.BytesIO(buf.getvalue()))]
+    segs_a = [sg for _, sg in seg_io.iter_segments(io.BytesIO(blob_a))]
+    same = sum(a == b for a, b in zip(segs, segs_a))
+    log(f"phase 7(b): {STREAM_BLOCKS} blocks at depths {depths}: pos, vel, "
+        f"mass == (a)'s decode bitwise, IDs exact; {same} of "
+        f"{STREAM_BLOCKS} segments byte-identical to (a)'s")
+    return launches
+
+
+def cli_snapshot(dev):
+    """A CLI_SIDE^3 snapshot made on the card as phase 4's, as host arrays:
+    positions, velocities, IDs (u64)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    n = CLI_SIDE ** 3
+    ids = torch.randperm(n, generator=g, device=dev)
+    pos = torch.empty(3, n, device=dev)
+    for d in range(3):
+        lat = (ids // CLI_SIDE ** d) % CLI_SIDE
+        pos[d] = (lat.to(torch.float32) + 0.5) * (BOX / CLI_SIDE) + \
+            0.5 * torch.randn(n, generator=g, device=dev)
+    pos = torch.remainder(pos, BOX)
+    pos = torch.where(pos >= BOX, pos - BOX, pos)
+    vel = 300.0 * torch.randn(3, n, generator=g, device=dev)
+    return (pos.cpu().numpy(), vel.cpu().numpy(),
+            ids.cpu().numpy().astype(np.uint64))
+
+
+def check_cli(dev):
+    """(c) A Gadget-2 file through the CLI on the card: compress (recip),
+    info, verify, decompress; read back with read_snapshot."""
+    from minnow_c_tpu_torch import __main__ as cli
+    from minnow_c_tpu_torch.drivers import gadget2
+    pos, vel, ids = cli_snapshot(dev)
+    n = ids.size
+    hdr = gadget2.Gadget2Header(
+        npart=(0, n, 0, 0, 0, 0), mass=(0.0, 1.0, 0.0, 0.0, 0.0, 0.0),
+        time=1.0, redshift=0.0, box_size=BOX, omega0=0.3, omega_lambda=0.7,
+        hubble_param=0.7)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst, back = (os.path.join(tmp, f)
+                          for f in ("snap.g2", "snap.g2.min", "back.g2"))
+        with open(src, "wb") as f:
+            gadget2.write_snapshot(f, hdr, pos, vel, ids)
+        raw = os.path.getsize(src)
+        torch.cuda.synchronize()
+        reset_counts()
+        walls = {}
+        for name, argv in (
+                ("compress", ["compress", src, dst, "--scale-mode", "recip",
+                              "--device", dev.type]),
+                ("info", ["info", dst]), ("verify", ["verify", dst]),
+                ("decompress", ["decompress", dst, back, "--device",
+                                dev.type])):
+            t = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t
+            if rc != 0:
+                raise AssertionError(f"phase 7(c): {name} exited {rc}")
+        launches = {k: fn.launches for k, fn in launch_counted().items()}
+        size = os.path.getsize(dst)
+        with open(back, "rb") as f:
+            _, p2, v2, i2 = gadget2.read_snapshot(f)
+    e = np.abs(p2.astype(np.float64) - pos)
+    ep = float(np.minimum(e, BOX - e).max())
+    ev = float(np.abs(v2.astype(np.float64) - vel).max())
+    log(f"phase 7(c): {n} particles, Gadget-2 file {raw} bytes -> {size} "
+        f"bytes (ratio {raw / size:.3f}); walls "
+        f"{ {k: round(v, 4) for k, v in walls.items()} } s; compress "
+        f"{raw / walls['compress'] / 1e9:.3f} GB/s, decompress "
+        f"{raw / walls['decompress'] / 1e9:.3f} GB/s of the Gadget-2 file")
+    log(f"phase 7(c): launches in the CLI path: {launches}")
+    if ep > POS_DELTA or ev > VEL_DELTA or not np.array_equal(i2, ids):
+        raise AssertionError(f"phase 7(c): position error {ep}, velocity "
+                             f"error {ev}, or IDs not exact")
+    floor = {"K5": 12, "K4": 6, "K1": 12}
+    if any(launches[k] < v for k, v in floor.items()):
+        raise AssertionError(f"phase 7(c) missed a kernel: {launches} "
+                             f"(want at least {floor})")
+    log(f"phase 7(c): max position error {ep:.6g} <= {POS_DELTA}, velocity "
+        f"{ev:.6g} <= {VEL_DELTA}, IDs exact; launches at least {floor}")
+    return launches, check_cli_kernels(pos, ids, p2, dev)
+
+
+def check_cli_kernels(pos, ids, p2, dev, blocks: int = 2) -> dict:
+    """(c) K5, K4 and K1 against their plain versions, bitwise, at the CLI
+    path's ragged row length: block 0 of the snapshot (``blocks`` blocks,
+    as ``gadget2.compress`` picks them), with x0, recip, anchor, depths, dither key and bin
+    width derived as the writer and the reader derive them.  K1's decode
+    of K5's words must also equal the CLI's decoded x positions of the
+    block."""
+    from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
+    from minnow_c_tpu_torch.ops import rng as _rng
+    from minnow_c_tpu_torch.parallel import snapshot as snap
+    from minnow_c_tpu_torch.quant import engine
+    nb = ids.size // blocks
+    xb = torch.from_numpy(pos).to(dev).reshape(3, blocks, nb).transpose(
+        0, 1).contiguous()
+    x0, rng_b = snap._batched_stats_pos(xb, BOX)
+    depth = engine.delta_to_depth(POS_DELTA, 0.0, float(rng_b.max()))
+    x0_h, rng_h = x0.cpu().numpy(), rng_b.cpu().numpy()
+    row = xb[0, 0]
+    args = (depth, x0_h[0, 0], kernels.exact_recip(rng_h[0]), BOX,
+            row[0].item(), True)
+    errs = {}
+    words = encode_cuda.encode_recip_cuda(row, *args)
+    errs["K5"] = max_abs_err(words, encode_cuda.encode_recip_plain(row,
+                                                                   *args))
+    # the reader's bin range: f32(x0 + max over dims of (x1 - x0)) - x0
+    x1 = x0_h[0] + rng_h[0]
+    md = np.float32(np.max(x1 - x0_h[0]))
+    dx = np.float32(np.float64(x0_h[0, 0]) + md) - x0_h[0, 0]
+    key = _rng.field_key(0, 0, 0)          # the CLI's seed 0, field 0, dim 0
+    got = decode_cuda.decode_cuda(words, key, depth, nb, x0_h[0, 0], dx, BOX,
+                                  True)
+    want = decode_cuda.decode_plain(words, *key, np.float32(x0_h[0, 0]),
+                                    kernels.bin_width(dx, depth),
+                                    np.float32(BOX), nb, depth, 0, True)
+    errs["K1"] = max_abs_err(got, want)
+    cli_row = torch.from_numpy(np.ascontiguousarray(p2[0, :nb])).to(dev)
+    if not torch.equal(bits(got), bits(cli_row)):
+        raise AssertionError("phase 7(c): K1's decode of K5's words != the "
+                             "CLI's decoded positions")
+    qdims, _, _ = engine.id_decompose(
+        torch.from_numpy(ids.astype(np.int64)).to(dev),
+        int(np.ceil((float(ids.max()) + 1) ** (1 / 3))))   # gadget2's grid
+    qd = qdims[0].reshape(blocks, nb)
+    rel = qd - qd.amin(dim=1, keepdim=True)
+    width = max(int(rel.max()).bit_length(), 1)
+    id_row = kernels.i64_to_u32(rel[0])
+    errs["K4"] = max_abs_err(encode_cuda.pack_cuda(id_row, width),
+                             encode_cuda.pack_plain(id_row, width))
+    if any(errs.values()):
+        raise AssertionError(f"phase 7(c): a kernel != its plain version at "
+                             f"n {nb}: {errs}")
+    log(f"phase 7(c): at n {nb} (32 does not divide it): K5 at {depth} bits, "
+        f"K1's decode of its words and K4 on the x ID row at {width} bits == "
+        f"their plain versions bitwise; K1's decode == the CLI's decoded x "
+        f"positions of block 0")
+    return errs
+
+
+def check_fast_recip(mt, dev):
+    """(d) Phase 4's three position planes through
+    fast_uniform_encode(scale_mode="recip"): one K5 launch each, words ==
+    the plain version's, decode within the position bound; then (e) K5
+    timed against its plain version on the first plane."""
+    from minnow_c_tpu_torch.ops import encode_cuda, fastpath, kernels
+    from minnow_c_tpu_torch.quant import engine
+    pos = snapshot(mt, dev).fields[0].data
+    n = pos.shape[1]
+    level = engine.delta_to_depth(POS_DELTA, 0.0, BOX)
+    torch.cuda.synchronize()
+    reset_counts()
+    enc = [fastpath.fast_uniform_encode(pos[d], level, periodic_width=BOX,
+                                        scale_mode="recip")
+           for d in range(3)]
+    torch.cuda.synchronize()
+    launches = encode_cuda.encode_recip_cuda.launches
+    if launches != 3:
+        raise AssertionError(f"phase 7(d): {launches} K5 launches, want 3")
+    worst = 0.0
+    for d, (words, x0, r) in enumerate(enc):
+        x = pos[d]
+        args = (level, x0.item(), kernels.exact_recip(r.item()), BOX,
+                x[0].item(), True)
+        if not torch.equal(words, encode_cuda.encode_recip_plain(x, *args)):
+            raise AssertionError(f"phase 7(d): plane {d} K5 != plain")
+        y = fastpath.fast_uniform_decode(words, (SEED, d), level, n,
+                                         x0.item(), r.item(), BOX)
+        e = (y.double() - x.double()).abs()
+        worst = max(worst, torch.minimum(e, BOX - e).max().item())
+    if worst > POS_DELTA:
+        raise AssertionError(f"phase 7(d): position error {worst}")
+    log(f"phase 7(d): 3 planes of {n} at {level} bits: K5 == plain bitwise, "
+        f"max position error {worst:.6g} <= {POS_DELTA}; 3 K5 launches")
+    x = pos[0]
+    words, x0, r = enc[0]
+    args = (level, x0.item(), kernels.exact_recip(r.item()), BOX,
+            x[0].item(), True)
+    t = {"K5": cuda_ms(lambda: encode_cuda.encode_recip_cuda(x, *args)),
+         "K5 plain": cuda_ms(lambda: encode_cuda.encode_recip_plain(x,
+                                                                    *args))}
+    log(f"phase 7(e): K5 at width {level}, n {n}: {t['K5']:.4f} ms, plain "
+        f"torch {t['K5 plain']:.4f} ms (CUDA events, median of 5)")
+    return t
+
+
+def time_recip_rows(mt, data, dev):
+    """(e) K8 and K12 at phase 5's position rows (64 blocks x 3 dims of
+    2^21) against their plain versions; K12's one-pass encode (its launch
+    counted) against the split CUDA path: K6, the host's exact recip, K8."""
+    from minnow_c_tpu_torch.ops import encode_cuda, kernels
+    pos = data[0]
+    B, nb = SNAP_BLOCKS, pos.shape[1] // SNAP_BLOCKS
+    width = 16
+    x3 = pos.reshape(3, B, nb).transpose(0, 1).contiguous()   # (B, 3, nb)
+    rows = x3.reshape(3 * B, nb)
+    box = torch.full((3 * B,), BOX, device=dev)
+    anchors = rows[:, 0].contiguous()
+
+    def split():
+        mn, mx = encode_cuda.stats_rows_cuda(rows, box, anchors, True)
+        rng = kernels.ftz(mx - mn).reshape(B, 3).amax(dim=1)
+        recip = torch.from_numpy(kernels.exact_recip(
+            rng.cpu().numpy())).to(dev).repeat_interleave(3)
+        words = encode_cuda.encode_recip_rows_cuda(rows, width, mn, recip,
+                                                   box, anchors, True)
+        return words.reshape(B, 3, -1), mn.reshape(B, 3), mx.reshape(B, 3)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    fused = encode_cuda.encode_recip_fused_blocks_cuda(
+        x3, BOX, anchors.reshape(B, 3), width, True)
+    torch.cuda.synchronize()
+    k12_launches = encode_cuda.encode_recip_fused_blocks_cuda.launches
+    ref = split()
+    for a, b in zip(fused, ref):
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError("phase 7(e): K12 != the split CUDA path")
+    log(f"phase 7(e): K12's one-pass encode of phase 5's position blocks "
+        f"({B}, 3, {nb}) == the split CUDA path (K6, host recip, K8) "
+        f"bitwise; {k12_launches} K12 launch")
+    x0 = ref[1].reshape(-1)
+    recip = torch.from_numpy(kernels.exact_recip(kernels.ftz(
+        ref[2] - ref[1]).amax(dim=1).cpu().numpy())).to(
+            dev).repeat_interleave(3)
+    k8_args = (width, x0, recip, box, anchors, True)
+    k12_args = (BOX, anchors.reshape(B, 3), width, True)
+    fns = {
+        "K8": (lambda: encode_cuda.encode_recip_rows_cuda(rows, *k8_args),
+               lambda: encode_cuda.encode_recip_rows_plain(rows, *k8_args),
+               f"rows {3 * B}, n {nb}, width {width}"),
+        "K12": (lambda: encode_cuda.encode_recip_fused_blocks_cuda(
+                    x3, *k12_args),
+                lambda: encode_cuda.encode_recip_fused_blocks_plain(
+                    x3, *k12_args),
+                f"blocks ({B}, 3, {nb}), width {width}"),
+    }
+    times, errs = {}, {}
+    for k, (fast, plain, shape) in fns.items():
+        got, want = fast(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else \
+            ((got,), (want,))
+        errs[k] = max(max_abs_err(a, b) for a, b in zip(got, want))
+        if errs[k]:
+            raise AssertionError(f"{k} != plain at the snapshot's shapes")
+        del got, want
+        times[k] = cuda_ms(fast)
+        times[k + " plain"] = cuda_ms(plain)
+        log(f"phase 7(e): {k} at {shape}: {times[k]:.4f} ms, plain torch "
+            f"{times[k + ' plain']:.4f} ms (CUDA events, median of 5)")
+    times["K12 split"] = cuda_ms(split)
+    log(f"phase 7(e): one-pass K12 {times['K12']:.4f} ms vs the split CUDA "
+        f"path (K6, host recip, K8) {times['K12 split']:.4f} ms (CUDA "
+        "events, median of 5)")
+    return times, errs, k12_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
     import minnow_c_tpu_torch as mt
-    from minnow_c_tpu_torch.ops import cuda_lib
+    from minnow_c_tpu_torch.ops import cuda_lib, encode_cuda
 
     dev = torch.device("cuda")
     card = nvidia_smi()
@@ -872,28 +1401,46 @@ def main() -> int:
     err4 = check_pack_kernel(dev, g)
     rows_err = check_rows_kernels(dev, g)
     delta_err = check_delta_kernels(dev, g)
+    recip_err = check_recip_kernels(dev, g)
+    err13 = check_tiles_pack(dev, g)
     check_frozen_wire(mt, dev)
     reset_counts()
     seg, launches = check_main_path(mt, dev)
     times, e1, e4 = time_kernels(mt, seg, dev)
     del seg
-    data, snap_launches = check_snapshot_path(mt, dev)
-    rows_times, rows_e = time_rows_kernels(mt, data, dev)
-    del data
+    snap_data, snap_launches = check_snapshot_path(mt, dev)
+    rows_times, rows_e = time_rows_kernels(mt, snap_data, dev)
+    # phase 7's parts on phase 5's snapshot run while it is on the card
+    stats_a, keep, blob_a, recip_launches = check_recip_snapshot(
+        mt, snap_data, dev)
+    check_streaming(mt, snap_data, stats_a, keep, blob_a, dev)
+    del keep, blob_a
+    recip_times, recip_e, k12_launches = time_recip_rows(mt, snap_data, dev)
+    del snap_data
     data, delta_launches = check_delta_path(mt, dev)
     delta_times, delta_e = time_delta_kernels(mt, data, dev)
     del data
+    cli_launches, cli_e = check_cli(dev)
+    k5_times = check_fast_recip(mt, dev)
+    bins13 = u32_rows(1, 2 * 16384, 17, g, dev)[0]
+    t13 = {"K13": cuda_ms(lambda: encode_cuda.pack_cuda(bins13, 17)),
+           "K13 plain": cuda_ms(lambda: encode_cuda.pack_plain(bins13, 17))}
+    log(f"phase 7(e): K13 as K4's kernel at width 17, n {2 * 16384}: "
+        f"{t13['K13']:.4f} ms, plain torch {t13['K13 plain']:.4f} ms (CUDA "
+        "events, median of 5)")
 
     kernels = [
         {"name": "decode_uniform (K1)", "route": "cuda",
          "source": "minnow_c_tpu_torch/csrc/decode.cu",
          "replaces": "minnow_c_tpu/ops/decode_pallas.py:183",
-         "launches": launches["K1"], "max_abs_err": max(err1, e1),
+         "launches": launches["K1"],
+         "max_abs_err": max(err1, e1, cli_e["K1"]),
          "ms": times["K1"], "plain_ms": times["K1 plain"]},
         {"name": "pack_uniform (K4)", "route": "cuda",
          "source": "minnow_c_tpu_torch/csrc/pack.cu",
          "replaces": "minnow_c_tpu/ops/encode_pallas.py:103",
-         "launches": launches["K4"], "max_abs_err": max(err4, e4),
+         "launches": launches["K4"],
+         "max_abs_err": max(err4, e4, cli_e["K4"]),
          "ms": times["K4"], "plain_ms": times["K4 plain"]},
     ]
     for k, name, src, rep_ in (
@@ -921,6 +1468,32 @@ def main() -> int:
             "launches": delta_launches[k],
             "max_abs_err": max(delta_err[k], delta_e[k]),
             "ms": delta_times[k], "plain_ms": delta_times[k + " plain"]})
+    kernels += [
+        {"name": "encode_recip (K5)", "route": "cuda",
+         "source": "minnow_c_tpu_torch/csrc/encode_recip.cu",
+         "replaces": "minnow_c_tpu/ops/encode_pallas.py:368",
+         "launches": cli_launches["K5"],
+         "max_abs_err": max(recip_err["K5"], cli_e["K5"]),
+         "ms": k5_times["K5"], "plain_ms": k5_times["K5 plain"]},
+        {"name": "encode_recip_rows (K8)", "route": "cuda",
+         "source": "minnow_c_tpu_torch/csrc/encode_recip.cu",
+         "replaces": "minnow_c_tpu/ops/encode_pallas.py:395",
+         "launches": recip_launches["K8"],
+         "max_abs_err": max(recip_err["K8"], recip_e["K8"]),
+         "ms": recip_times["K8"], "plain_ms": recip_times["K8 plain"]},
+        {"name": "encode_recip_fused_blocks (K12)", "route": "cuda",
+         "source": "minnow_c_tpu_torch/csrc/encode_recip.cu",
+         "replaces": "minnow_c_tpu/ops/encode_pallas.py:637",
+         "launches": k12_launches,
+         "max_abs_err": max(recip_err["K12"], recip_e["K12"]),
+         "ms": recip_times["K12"], "plain_ms": recip_times["K12 plain"]},
+        {"name": "pack_pallas_tiles (K13) as pack_uniform (K4)",
+         "route": "cuda", "source": "minnow_c_tpu_torch/csrc/pack.cu",
+         "replaces": "minnow_c_tpu/ops/pack_pallas.py:76",
+         "launches": launches["K4"], "max_abs_err": err13,
+         "ms": t13["K13"], "plain_ms": t13["K13 plain"]},
+    ]
+    kernels.sort(key=lambda k: int(k["name"].split("(K")[1].split(")")[0]))
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,12 +16,15 @@ Layer map (mirrors the JAX package):
   L4  segment/    -- segment API, wire format, stream reader/writer, file I/O
   L5  parallel/   -- snapshots: block-batched encode/decode of whole
                      snapshots into chained segment files
+  L6  drivers/    -- the Gadget-2 driver; ``python -m minnow_c_tpu_torch``
+                     is the CLI (__main__.py)
 
 Ported so far: the Trim codec (v1.0, v1.1) and the delta codecs Diff v1.0,
 Coil v1.0 / v1.1 and Octo v1.0 / v1.1, at uniform depth with the linear map,
-for all five field types, and the single-host snapshot writer and reader
-(compress_snapshot / decompress_snapshot) in the div scale mode.  See
-ROADMAP.md for the rest.
+for all five field types; the single-host snapshot writer and reader
+(compress_snapshot / decompress_snapshot) and the streaming writer
+(compress_snapshot_streaming), in the div and recip scale modes; the
+Gadget-2 driver and the CLI.  See ROADMAP.md for the rest.
 """
 
 from . import semver, types  # noqa: F401
@@ -29,6 +32,7 @@ from . import algos, parallel, quant, segment  # noqa: F401
 from .parallel.snapshot import (  # noqa: F401
     SnapshotSpec,
     compress_snapshot,
+    compress_snapshot_streaming,
     decompress_snapshot,
 )
 from .segment.api import (  # noqa: F401

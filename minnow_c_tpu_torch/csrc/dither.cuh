@@ -58,7 +58,8 @@ __device__ __forceinline__ void dither_quad(uint32_t k0, uint32_t k1,
 // add round once together, as in the frozen decode digests (see
 // ops/kernels.undo_bins); then the optional periodic rewrap
 // (kernels.periodic).  The u32 bin converts to f32 directly (exact below
-// 2^24).
+// 2^24).  The library builds with -ftz=true, so every operand and result
+// that would be subnormal is a zero of its sign, as on XLA.
 __device__ __forceinline__ float undo_bin(uint32_t bin, float u, float x0,
                                           float dx_bin, float box,
                                           int periodic) {

@@ -17,8 +17,9 @@
 // width/8 bytes.
 //
 // Design: one thread per output word.  The thread ORs in the at most
-// ceil(32/width)+1 elements whose bits overlap its word, so no atomics are
-// needed and the result is deterministic.  Neighbouring threads read
+// ceil(32/width)+1 elements whose bits overlap its word (bins.cuh:
+// pack_word, shared with the recip encodes), so no atomics are needed and
+// the result is deterministic.  Neighbouring threads read
 // neighbouring elements, which L1 serves.  Left for later work: for small
 // widths each element is read by two threads, and a block could instead
 // stage 32*width elements in shared memory and emit width words at once.
@@ -26,16 +27,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "bins.cuh"
 
-// C cast semantics on the pre-scaled plane: NaN -> 0 (tested before any
-// cast, never by cast), < 0 -> 0, >= 2^width -> 2^width - 1, else trunc.
-__device__ __forceinline__ uint32_t scaled_to_bin(float s, int width,
-                                                  uint32_t top) {
-  if (isnan(s) || s < 0.0f) return 0u;
-  if (s >= static_cast<float>(1u << width)) return top;
-  return static_cast<uint32_t>(s);
-}
+namespace {
 
 template <bool kFromF32>
 __global__ void pack_uniform_kernel(const void* __restrict__ vals, int64_t n,
@@ -45,21 +39,13 @@ __global__ void pack_uniform_kernel(const void* __restrict__ vals, int64_t n,
                     threadIdx.x;
   if (q >= n_words) return;
   const uint32_t mask = width == 32 ? 0xFFFFFFFFu : (1u << width) - 1u;
-  const int64_t bit0 = q * 32;
-  int64_t i_end = (bit0 + 32 + width - 1) / width;  // first element at or
-  if (i_end > n) i_end = n;                          // past bit0 + 32
-  uint32_t word = 0;
-  for (int64_t i = bit0 / width; i < i_end; ++i) {
-    uint32_t v;
+  out[q] = mnw::pack_word(q, n, width, [&](int64_t i) {
     if (kFromF32) {
-      v = scaled_to_bin(static_cast<const float*>(vals)[i], width, mask);
-    } else {
-      v = static_cast<const uint32_t*>(vals)[i] & mask;
+      return mnw::scaled_to_bin(static_cast<const float*>(vals)[i], width,
+                                mask);
     }
-    const int64_t sh = i * width - bit0;  // in (-width, 32)
-    word |= sh >= 0 ? (v << sh) : (v >> -sh);
-  }
-  out[q] = word;
+    return static_cast<const uint32_t*>(vals)[i] & mask;
+  });
 }
 
 }  // namespace

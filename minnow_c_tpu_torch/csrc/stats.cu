@@ -7,9 +7,10 @@
 // The unwrap is kernels.undo_periodic op for op: half = box * 0.5;
 // x - a >= half -> x - box; then x - a < -half -> x + box.
 // Output bits equal encode_cuda.stats_rows_plain and the JAX package's
-// jnp.min / jnp.max: NaN propagates (as the canonical quiet NaN), and -0.0
-// counts below +0.0 (IEEE minimum / maximum), so the result does not depend
-// on the order of the reduction.
+// jnp.min / jnp.max on XLA (minmax.cuh): subnormals read as zeros of their
+// sign, NaN propagates (as the canonical quiet NaN), and -0.0 counts below
+// +0.0 (IEEE minimum / maximum), so the result does not depend on the order
+// of the reduction.  The reduction and the unwrap are shared with K12.
 //
 // Bound on the card: memory.  Each element is read once (4 bytes); the
 // output is 8 bytes per row.
@@ -26,25 +27,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "minmax.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr uint32_t kQuietNaN = 0x7FC00000u;
-
-__device__ __forceinline__ float min_op(float a, float b) {
-  if (isnan(a) || isnan(b)) return __uint_as_float(kQuietNaN);
-  if (a < b) return a;
-  if (b < a) return b;
-  // Equal: identical bits, or +-0.0, where the sign bit of either wins.
-  return __uint_as_float(__float_as_uint(a) | __float_as_uint(b));
-}
-
-__device__ __forceinline__ float max_op(float a, float b) {
-  if (isnan(a) || isnan(b)) return __uint_as_float(kQuietNaN);
-  if (a > b) return a;
-  if (b > a) return b;
-  return __uint_as_float(__float_as_uint(a) & __float_as_uint(b));
-}
 
 __global__ void stats_rows_partial(const float* __restrict__ x, int64_t n,
                                    int64_t slices, int64_t slice_len,
@@ -56,43 +43,16 @@ __global__ void stats_rows_partial(const float* __restrict__ x, int64_t n,
   const int64_t r = blk / slices;
   const int64_t lo = (blk - r * slices) * slice_len;
   const int64_t hi = lo + slice_len < n ? lo + slice_len : n;
-  const float* row = x + r * n;
   float bx = 0.0f, a = 0.0f, half = 0.0f;
   if (periodic) {
     bx = box[r];
     a = anchor[r];
-    half = __fmul_rn(bx, 0.5f);
+    half = mnw::half_box(bx);
   }
-  float mn = __uint_as_float(0x7F800000u);   // +inf
-  float mx = __uint_as_float(0xFF800000u);   // -inf
-  for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
-    float v = row[i];
-    if (periodic) {
-      if (__fsub_rn(v, a) >= half) v = __fsub_rn(v, bx);
-      if (__fsub_rn(v, a) < -half) v = __fadd_rn(v, bx);
-    }
-    mn = min_op(mn, v);
-    mx = max_op(mx, v);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    mn = min_op(mn, __shfl_down_sync(0xFFFFFFFFu, mn, off));
-    mx = max_op(mx, __shfl_down_sync(0xFFFFFFFFu, mx, off));
-  }
-  __shared__ float smin[kThreads / 32];
-  __shared__ float smax[kThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    smin[warp] = mn;
-    smax[warp] = mx;
-  }
-  __syncthreads();
+  float mn, mx;
+  mnw::slice_minmax<kThreads>(x + r * n, lo, hi, periodic, bx, half, a, mn,
+                              mx);
   if (threadIdx.x == 0) {
-    for (int w = 1; w < kThreads / 32; ++w) {
-      mn = min_op(mn, smin[w]);
-      mx = max_op(mx, smax[w]);
-    }
     pmin[blk] = mn;
     pmax[blk] = mx;
   }
@@ -109,8 +69,8 @@ __global__ void stats_rows_finish(const float* __restrict__ pmin,
   float mn = pmin[r * slices];
   float mx = pmax[r * slices];
   for (int64_t s = 1; s < slices; ++s) {
-    mn = min_op(mn, pmin[r * slices + s]);
-    mx = max_op(mx, pmax[r * slices + s]);
+    mn = mnw::min_op(mn, pmin[r * slices + s]);
+    mx = mnw::max_op(mx, pmax[r * slices + s]);
   }
   out_min[r] = mn;
   out_max[r] = mx;

@@ -114,11 +114,6 @@ def _layout(body: torch.Tensor, widths, chunk: int, n: int):
     return widths, woff
 
 
-def _bin_width(dx, depth: int) -> np.float32:
-    """The bin width f32(dx) / 2^depth, as the JAX package's tail takes it."""
-    return np.float32(dx) / np.float32(2.0 ** depth)
-
-
 def decode_chunked_stream_plain(body: torch.Tensor, widths, first: int,
                                 chunk: int, n: int, zigzag: bool = True,
                                 prefix: bool = True) -> torch.Tensor:
@@ -227,7 +222,7 @@ def decode_chunked_stream_floats(body: torch.Tensor, widths, first: int,
     if body.device.type != "cuda":
         raise ValueError(f"no chunked decode for device {body.device}")
     out = _launch(body, widths, woff, first, chunk, n, True, True, True,
-                  key, x0, _bin_width(dx, depth), box, periodic)
+                  key, x0, kernels.bin_width(dx, depth), box, periodic)
     decode_chunked_stream_floats.launches += 1
     return out
 

@@ -6,7 +6,10 @@ at first use and again whenever a source is newer than the library.  Each
 source compiles in its own ``nvcc`` process, all started together, and one
 more links the objects.  Compiled with ``-fmad=false``: the kernels name
 every rounding they want (``__fadd_rn``, ``__fmaf_rn``), and a multiply-add
-contracted anywhere else changes the frozen wire bits.
+contracted anywhere else changes the frozen wire bits.  Compiled with
+``-ftz=true``: f32 subnormals flush to zeros of their sign, as XLA's do on
+the CPU (``kernels.ftz``); the kernels also flush explicitly where a raw
+value could pass through without arithmetic (``csrc/bins.cuh``).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
 LIB_PATH = os.path.join(BUILD_DIR, "libminnow_cuda.so")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
-              "-fmad=false", "-Xptxas", "-v"]
+              "-fmad=false", "-ftz=true", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -89,6 +92,15 @@ def lib() -> ctypes.CDLL:
         l.mnw_stats_rows.restype = i32
         l.mnw_stats_rows.argtypes = [p, i64, i64, i64, p, p, i32, p, p, p,
                                      p]
+        l.mnw_encode_recip.restype = i32
+        l.mnw_encode_recip.argtypes = [p, i64, f32, f32, f32, f32, i32, i32,
+                                       p, i64, p]
+        l.mnw_encode_recip_rows.restype = i32
+        l.mnw_encode_recip_rows.argtypes = [p, i64, i64, i32, p, p, p, p, i32,
+                                            p, p]
+        l.mnw_encode_recip_fused.restype = i32
+        l.mnw_encode_recip_fused.argtypes = [p, i64, i64, i64, i64, f32, p,
+                                             i32, i32, p, p, p, p, p, p]
         l.mnw_cumsum_u32.restype = i32
         l.mnw_cumsum_u32.argtypes = [p, i64, p, p, p]
         l.mnw_chunked_decode.restype = i32

@@ -63,7 +63,7 @@ def decode_cuda(words: torch.Tensor, key, width: int, n: int, x0, dx,
                          f"of {width} bits")
     k0, k1 = (int(k) & kernels.M32 for k in key)
     x0 = np.float32(x0)
-    dx_bin = np.float32(dx) / np.float32(2.0 ** width)
+    dx_bin = kernels.bin_width(dx, width)
     box = np.float32(box)
     if words.device.type == "cpu":
         return decode_plain(words, k0, k1, x0, dx_bin, box, n, width,
@@ -175,8 +175,8 @@ def decode_rows_cuda(words: torch.Tensor, keys, width: int, n: int, x0, dx,
     rows = words.shape[0]
     keys = torch.as_tensor(keys, device=dev).reshape(rows, 2)
     x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev).reshape(rows)
-    dx_bin = torch.as_tensor(dx, dtype=torch.float32, device=dev).reshape(
-        rows) / kernels.f32_scalar(2.0 ** width, dev)
+    dx_bin = kernels.bin_width(torch.as_tensor(
+        dx, dtype=torch.float32, device=dev).reshape(rows), width)
     if dev.type == "cpu":
         return decode_rows_plain(words, keys, x0, dx_bin, box, n, width,
                                  periodic)

@@ -1,5 +1,5 @@
-"""The encode kernels (``csrc/pack.cu``, ``csrc/stats.cu``) and their plain
-torch versions.
+"""The encode kernels (``csrc/pack.cu``, ``csrc/stats.cu``,
+``csrc/encode_recip.cu``) and their plain torch versions.
 
 * K4 ``pack_cuda`` / ``pack_plain``, port of
   ``minnow_c_tpu/ops/encode_pallas.py:pack_pallas``.  ``from_f32=True``
@@ -12,6 +12,20 @@ torch versions.
 * K6 ``stats_rows_cuda`` / ``stats_rows_plain``, port of
   ``stats_pallas_rows``: per-row min and max of R streams after the
   anchored periodic unwrap.
+* K5 ``encode_recip_cuda`` / ``encode_recip_plain``, port of
+  ``encode_pallas_recip``'s kernel: the recip scale mode's whole bin map
+  (anchored unwrap, ``((x - x0) * recip) * 2^w``, clamp) and the pack of one
+  plane of any length, in one pass over the raw floats.
+* K8 ``encode_recip_rows_cuda`` / ``encode_recip_rows_plain``, port of
+  ``encode_pallas_recip_rows``: K5 over R rows with per-row scalars,
+  32 | n; the snapshot writer's recip mode.
+* K12 ``encode_recip_fused_blocks_cuda`` /
+  ``encode_recip_fused_blocks_plain``, port of
+  ``encode_recip_fused_blocks``: per block of D rows the stats, the shared
+  range and its reciprocal, then K8's map and pack, in one launch.  Its
+  plain version is the split pipeline (K6's stats, the host's
+  ``exact_recip``, K8's map); no writer calls it, as none in the JAX
+  package does.
 
 Each ``*_cuda`` wrapper launches its CUDA kernel for a CUDA tensor and runs
 the plain version only for a CPU tensor; there is no fallback from one to
@@ -20,13 +34,15 @@ the other.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from . import cuda_lib
+from . import cuda_lib, kernels
 from .bitpack import packed_words
 from .kernels import M32, i64_to_u32, scaled_to_bins, u32_to_i64
 
 STATS_SLICE = 4096  # elements per block of K6's first launch
+FUSED_SLICE = 65536  # elements per partial min / max of K12's first step
 
 
 def _check(vals: torch.Tensor, width: int, n: int, from_f32: bool) -> None:
@@ -162,26 +178,12 @@ def stats_rows_plain(x: torch.Tensor, box: torch.Tensor,
     """Plain torch version of K6 on any device: per row of ``x`` (R, n), the
     min and max after the unwrap around ``anchor[r]`` in a box of
     ``box[r]`` (``kernels.undo_periodic`` op for op).  Like ``jnp.min`` /
-    ``jnp.max``: NaN propagates, -0.0 counts below +0.0."""
+    ``jnp.max`` on XLA: subnormals count as zeros of their sign, NaN
+    propagates, -0.0 counts below +0.0."""
     _check_stats(x, box, anchor)
-    if periodic:
-        bx = box[:, None]
-        a = anchor[:, None]
-        half = bx * 0.5
-        x = torch.where(x - a >= half, x - bx, x)
-        x = torch.where(x - a < -half, x + bx, x)
-    mn = x.amin(dim=1)
-    mx = x.amax(dim=1)
-    # torch.amin / amax return either zero when +-0.0 tie; pin the sign.
-    zero = x == 0
-    neg = torch.signbit(x)
-    mn = torch.where(mn == 0, torch.where((zero & neg).any(dim=1), -0.0,
-                                          0.0), mn)
-    mx = torch.where(mx == 0, torch.where((zero & ~neg).any(dim=1), 0.0,
-                                          -0.0), mx)
-    nan = torch.isnan(x).any(dim=1)
-    return (torch.where(nan, float("nan"), mn),
-            torch.where(nan, float("nan"), mx))
+    return kernels.minmax(
+        kernels.unwrap_anchored(x, box[:, None], anchor[:, None])
+        if periodic else x)
 
 
 def stats_rows_cuda(x: torch.Tensor, box: torch.Tensor,
@@ -218,3 +220,194 @@ def stats_rows_cuda(x: torch.Tensor, box: torch.Tensor,
 
 
 stats_rows_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The recip scale mode: K5, K8, K12
+# ---------------------------------------------------------------------------
+
+def _check_recip(x: torch.Tensor, width: int, dims: int) -> None:
+    if not 1 <= width <= 24:
+        raise ValueError(f"float encode width {width} not in [1, 24] (f32 "
+                         "mantissa cap)")
+    if x.dtype != torch.float32 or x.dim() != dims:
+        raise TypeError(f"recip encode needs a {dims}-D float32 tensor, got "
+                        f"{x.dtype} of shape {tuple(x.shape)}")
+    if dims > 1 and (x.shape[-1] == 0 or x.shape[-1] % 32):
+        raise ValueError(f"recip rows encode needs 32 | n and n > 0, got "
+                         f"n = {x.shape[-1]}")
+
+
+def encode_recip_plain(x: torch.Tensor, width: int, x0, recip, box, anchor,
+                       periodic: bool) -> torch.Tensor:
+    """Plain torch version of K5 on any device: the recip bin map of the
+    raw plane ``x`` (``kernels.recip_scaled_bins``), then the pack."""
+    _check_recip(x, width, 1)
+    return pack_plain(kernels.recip_scaled_bins(x, x0, recip, box, anchor,
+                                                width, periodic), width)
+
+
+def encode_recip_cuda(x: torch.Tensor, width: int, x0, recip, box, anchor,
+                      periodic: bool) -> torch.Tensor:
+    """Recip-mode encode of one raw plane (n,) f32, any n, to
+    ``ceil(n*width/32)`` words; ``x0``, ``recip`` = rn(1/range), ``box`` and
+    ``anchor`` (the plane's raw element 0) are host scalars.  Semantics of
+    the JAX package's ``encode_pallas_recip`` after its stats.  A CUDA
+    tensor launches K5 (counted in ``encode_recip_cuda.launches``); a CPU
+    tensor runs ``encode_recip_plain``."""
+    if x.device.type == "cpu":
+        return encode_recip_plain(x, width, x0, recip, box, anchor, periodic)
+    if x.device.type != "cuda":
+        raise ValueError(f"no recip encode for device {x.device}")
+    _check_recip(x, width, 1)
+    x = x.contiguous()
+    n = x.numel()
+    n_words = packed_words(n, width)
+    out = torch.empty(n_words, dtype=torch.int32, device=x.device)
+    if n_words == 0:
+        return out
+    lib = cuda_lib.lib()
+    with torch.cuda.device(x.device):
+        rc = lib.mnw_encode_recip(
+            x.data_ptr(), n, float(np.float32(x0)), float(np.float32(recip)),
+            float(np.float32(box)), float(np.float32(anchor)), width,
+            int(periodic), out.data_ptr(), n_words,
+            torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(rc, "encode_recip")
+    encode_recip_cuda.launches += 1
+    return out
+
+
+encode_recip_cuda.launches = 0
+
+
+def _row_scalars(x: torch.Tensor, *vals):
+    """Per-row scalars as contiguous f32 (R,) tensors on x's device."""
+    rows = x.shape[0]
+    out = []
+    for v in vals:
+        t = torch.as_tensor(v, dtype=torch.float32, device=x.device)
+        if t.shape != (rows,):
+            raise ValueError(f"per-row scalars must have shape ({rows},), "
+                             f"got {tuple(t.shape)}")
+        out.append(t.contiguous())
+    return out
+
+
+def encode_recip_rows_plain(x: torch.Tensor, width: int, x0, recip, box,
+                            anchor, periodic: bool) -> torch.Tensor:
+    """Plain torch version of K8 on any device: (R, n) raw floats, 32 | n,
+    with per-row (R,) x0, recip, box and anchor -> (R, (n/32)*width)
+    words."""
+    _check_recip(x, width, 2)
+    x0, recip, box, anchor = (t[:, None] for t in _row_scalars(
+        x, x0, recip, box, anchor))
+    return pack_rows_plain(kernels.recip_scaled_bins(
+        x, x0, recip, box, anchor, width, periodic), width)
+
+
+def encode_recip_rows_cuda(x: torch.Tensor, width: int, x0, recip, box,
+                           anchor, periodic: bool) -> torch.Tensor:
+    """Recip-mode encode of R independent rows (R, n), 32 | n, each with
+    its own x0, recip, box and anchor (R,); row r equals
+    ``encode_recip_cuda(x[r], ...)`` at row r's scalars.  Semantics of the
+    JAX package's ``encode_pallas_recip_rows``.  A CUDA tensor launches K8
+    (counted in ``encode_recip_rows_cuda.launches``); a CPU tensor runs
+    ``encode_recip_rows_plain``."""
+    if x.device.type == "cpu":
+        return encode_recip_rows_plain(x, width, x0, recip, box, anchor,
+                                       periodic)
+    if x.device.type != "cuda":
+        raise ValueError(f"no recip encode for device {x.device}")
+    _check_recip(x, width, 2)
+    x = x.contiguous()
+    rows, n = x.shape
+    x0, recip, box, anchor = _row_scalars(x, x0, recip, box, anchor)
+    out = torch.empty((rows, n // 32 * width), dtype=torch.int32,
+                      device=x.device)
+    if rows == 0:
+        return out
+    lib = cuda_lib.lib()
+    with torch.cuda.device(x.device):
+        rc = lib.mnw_encode_recip_rows(
+            x.data_ptr(), rows, n, width, x0.data_ptr(), recip.data_ptr(),
+            box.data_ptr(), anchor.data_ptr(), int(periodic), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(rc, "encode_recip_rows")
+    encode_recip_rows_cuda.launches += 1
+    return out
+
+
+encode_recip_rows_cuda.launches = 0
+
+
+def _check_fused(x: torch.Tensor, anchors: torch.Tensor, width: int) -> None:
+    _check_recip(x, width, 3)
+    if anchors.dtype != torch.float32 or anchors.shape != x.shape[:2]:
+        raise ValueError(f"anchors must be float32 of shape "
+                         f"{tuple(x.shape[:2])}")
+
+
+def encode_recip_fused_blocks_plain(x: torch.Tensor, box, anchors,
+                                    width: int, periodic: bool):
+    """Plain torch version of K12 on any device, as the split pipeline:
+    K6's stats of every row, the block's range max_d(mx - mn),
+    ``kernels.exact_recip`` on the host, then K8's map and pack.  Returns
+    (words (B, D, (n/32)*width), mn (B, D), mx (B, D))."""
+    _check_fused(x, anchors, width)
+    b, d, n = x.shape
+    rows = x.reshape(b * d, n)
+    boxes = torch.full((b * d,), float(np.float32(box)), dtype=torch.float32,
+                       device=x.device)
+    a = anchors.reshape(b * d)
+    mn, mx = stats_rows_plain(rows, boxes, a, periodic)
+    rng = kernels.ftz(mx - mn).reshape(b, d).amax(dim=1)
+    recip = torch.from_numpy(np.atleast_1d(kernels.exact_recip(
+        rng.cpu().numpy()))).to(x.device)
+    words = encode_recip_rows_plain(rows, width, mn,
+                                    recip.repeat_interleave(d), boxes, a,
+                                    periodic)
+    return words.reshape(b, d, -1), mn.reshape(b, d), mx.reshape(b, d)
+
+
+def encode_recip_fused_blocks_cuda(x: torch.Tensor, box, anchors,
+                                   width: int, periodic: bool):
+    """Recip-mode encode of (B, D, n) blocks, 32 | n, with the range shared
+    by a block's D rows derived inside the launch: returns (words
+    (B, D, (n/32)*width), mn (B, D), mx (B, D)); ``box`` is a host scalar,
+    ``anchors`` (B, D) each row's raw element 0.  Semantics of the JAX
+    package's ``encode_recip_fused_blocks``, without its VMEM cap on D*n.
+    A CUDA tensor launches K12 (counted in
+    ``encode_recip_fused_blocks_cuda.launches``); a CPU tensor runs
+    ``encode_recip_fused_blocks_plain``."""
+    if x.device.type == "cpu":
+        return encode_recip_fused_blocks_plain(x, box, anchors, width,
+                                               periodic)
+    if x.device.type != "cuda":
+        raise ValueError(f"no recip encode for device {x.device}")
+    _check_fused(x, anchors, width)
+    x, anchors = x.contiguous(), anchors.contiguous()
+    b, d, n = x.shape
+    items = b * d * -(-n // FUSED_SLICE)
+    scratch = torch.empty(2 * items + b, dtype=torch.float32,
+                          device=x.device)
+    barrier = torch.zeros(1, dtype=torch.int32, device=x.device)
+    words = torch.empty((b, d, n // 32 * width), dtype=torch.int32,
+                        device=x.device)
+    mn = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    mx = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    if b * d == 0:
+        return words, mn, mx
+    lib = cuda_lib.lib()
+    with torch.cuda.device(x.device):
+        rc = lib.mnw_encode_recip_fused(
+            x.data_ptr(), b, d, n, FUSED_SLICE, float(np.float32(box)),
+            anchors.data_ptr(), width, int(periodic), scratch.data_ptr(),
+            barrier.data_ptr(), words.data_ptr(), mn.data_ptr(),
+            mx.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(rc, "encode_recip_fused_blocks")
+    encode_recip_fused_blocks_cuda.launches += 1
+    return words, mn, mx
+
+
+encode_recip_fused_blocks_cuda.launches = 0

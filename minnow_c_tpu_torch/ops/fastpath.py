@@ -6,19 +6,20 @@ un-bin -> rewrap.
 (``decode_cuda``) and runs as plain torch on every device.
 ``fast_uniform_encode`` in div mode is torch's IEEE division followed by
 the pack kernel's wrapper in ``from_f32`` mode, the split the JAX package
-makes on the TPU (``minnow_c_tpu/ops/fastpath.py:113-119``); recip mode is
-plain torch plus the pack.
+makes on the TPU (``minnow_c_tpu/ops/fastpath.py:113-119``); recip mode
+takes the stats in torch and then one pass of K5 (``encode_recip_cuda``)
+over the raw plane, for widths 1-24 (wider planes take the plain map and
+the pack).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from . import bitpack, kernels
 from . import rng as _rng
 from .decode_cuda import decode_plain
-from .encode_cuda import pack_cuda
+from .encode_cuda import encode_recip_cuda, pack_cuda
 
 
 def fast_uniform_decode(words, key, level: int, n: int, x0, dx,
@@ -29,7 +30,7 @@ def fast_uniform_decode(words, key, level: int, n: int, x0, dx,
     ``key``: (k0, k1) dither key; ``ctr0``: global element offset of this
     plane's first element (for a plane that continues a longer stream)."""
     periodic = periodic_width is not None
-    bin_width = np.float32(dx) / np.float32(1 << level)
+    bin_width = kernels.bin_width(dx, level)
     k0, k1 = (int(k) for k in key)
     return decode_plain(words, k0, k1, x0, bin_width,
                         periodic_width if periodic else 0.0, n, level,
@@ -43,8 +44,7 @@ def undo_uniform(bins, key, level: int, x0, dx, periodic_width=None):
     from counter 0, ``x0 + dx/2^level*(bin + u)`` rounded as
     ``kernels.undo_bins``, the optional rewrap; any device."""
     u = _rng.uniform_dither(key, (bins.shape[0],), device=bins.device)
-    x = kernels.undo_bins(bins, x0, np.float32(dx) / np.float32(2.0 ** level),
-                          u)
+    x = kernels.undo_bins(bins, x0, kernels.bin_width(dx, level), u)
     return x if periodic_width is None else kernels.periodic(x,
                                                              periodic_width)
 
@@ -62,13 +62,21 @@ def fast_uniform_encode(x: torch.Tensor, level: int, periodic_width=None,
     wire-compatible."""
     if scale_mode not in ("div", "recip"):
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
-    if periodic_width is not None:
-        x = kernels.undo_periodic(x, periodic_width)
-    x0 = x.min()
-    rng_v = x.max() - x0
+    periodic = periodic_width is not None
+    xu = kernels.ftz(x) if not periodic else \
+        kernels.undo_periodic(x, periodic_width)
+    x0, x1 = kernels.minmax(xu)
+    rng_v = kernels.ftz(x1 - x0)
     if scale_mode == "recip":
-        bins = kernels.uniform_bin_index_recip(x, level, x0.item(),
-                                               rng_v.item())
-        return bitpack.uniform_pack(bins, level), x0, rng_v
-    scaled = kernels.exact_div(x - x0, rng_v) * float(1 << level)
+        # The map runs on the RAW plane, unwrapped around its element 0
+        # inside the map, as the JAX package's _recip_bins_xla does.
+        args = (x0.item(), kernels.exact_recip(rng_v.item()),
+                periodic_width if periodic else 0.0, x[0].item())
+        if 1 <= level <= 24:
+            words = encode_recip_cuda(x, level, *args, periodic)
+        else:
+            words = bitpack.uniform_pack(kernels.recip_scaled_bins(
+                x, *args, level, periodic), level)
+        return words, x0, rng_v
+    scaled = kernels.exact_div(xu - x0, rng_v) * float(1 << level)
     return pack_cuda(scaled, level, from_f32=True), x0, rng_v

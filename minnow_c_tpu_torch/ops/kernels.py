@@ -12,6 +12,11 @@ Conventions shared by the port:
   device (``f32_scalar``).  A CPU scalar divisor on a CUDA tensor makes
   torch multiply by its reciprocal instead of dividing, which is not the
   IEEE quotient the wire's bin map is defined by.
+* Subnormal f32 values flush to zero (``ftz``), as XLA on the CPU does in
+  the JAX package: an f32 subnormal reads as a zero of the same sign, and
+  a result that would be subnormal becomes a zero of the same sign.  Every
+  float op here that the JAX package runs in XLA flushes its inputs and
+  its result; the CUDA kernels build with ``-ftz=true`` to the same end.
 """
 
 from __future__ import annotations
@@ -20,11 +25,29 @@ import numpy as np
 import torch
 
 M32 = 0xFFFFFFFF
+F32_TINY = float(np.finfo(np.float32).tiny)  # 2^-126, least normal f32
 
 
 def f32_scalar(v, device) -> torch.Tensor:
     """``v`` rounded to f32, as a 0-dim float32 tensor on ``device``."""
     return torch.tensor(np.float32(v), dtype=torch.float32, device=device)
+
+
+def ftz(x):
+    """Flush f32 subnormals to a zero of the same sign: a float32 tensor
+    stays a tensor on its device; anything else becomes numpy f32 (a
+    scalar stays a scalar).  NaN and infinities pass unchanged."""
+    if isinstance(x, torch.Tensor):
+        return torch.where(x.abs() < F32_TINY, x * 0.0, x)
+    a = np.asarray(x, dtype=np.float32)
+    out = np.where(np.abs(a) < np.float32(F32_TINY),
+                   np.copysign(np.float32(0), a), a).astype(np.float32)
+    return out[()] if out.ndim == 0 else out
+
+
+def _f32(v, device) -> torch.Tensor:
+    """A flushed f32 operand: tensors pass, scalars become 0-dim tensors."""
+    return ftz(v if isinstance(v, torch.Tensor) else f32_scalar(v, device))
 
 
 def u32_to_i64(x: torch.Tensor) -> torch.Tensor:
@@ -37,6 +60,25 @@ def i64_to_u32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
 
 
+def minmax(x: torch.Tensor):
+    """(min, max) of f32 ``x`` over its last dimension, as XLA's
+    ``jnp.min`` / ``jnp.max`` give them (util_MinMax, util.c:27-46):
+    subnormals count as zeros of their sign, NaN propagates, and -0.0
+    counts below +0.0 (torch's amin / amax return either zero of a tie)."""
+    x = ftz(x)
+    mn = x.amin(dim=-1)
+    mx = x.amax(dim=-1)
+    zero = x == 0
+    neg = torch.signbit(x)
+    mn = torch.where(mn == 0, torch.where((zero & neg).any(dim=-1), -0.0,
+                                          0.0), mn)
+    mx = torch.where(mx == 0, torch.where((zero & ~neg).any(dim=-1), 0.0,
+                                          -0.0), mx)
+    nan = torch.isnan(x).any(dim=-1)
+    return (torch.where(nan, float("nan"), mn),
+            torch.where(nan, float("nan"), mx))
+
+
 # ---------------------------------------------------------------------------
 # Periodic boundary conditions (util.c:70-143)
 # ---------------------------------------------------------------------------
@@ -44,9 +86,10 @@ def i64_to_u32(x: torch.Tensor) -> torch.Tensor:
 def periodic(x, L):
     """Wrap values into [0, L).  Assumes points are within one box length of
     the range (util_Periodic, util.c:70-84)."""
-    L = f32_scalar(L, x.device)
-    x = torch.where(x >= L, x - L, x)
-    return torch.where(x < 0, x + L, x)
+    L = _f32(L, x.device)
+    x = ftz(x)
+    x = torch.where(x >= L, ftz(x - L), x)
+    return torch.where(x < 0, ftz(x + L), x)
 
 
 def u64_periodic(x, L):
@@ -59,11 +102,21 @@ def undo_periodic(x, L):
     more than L/2 from x[0] are unwrapped across the boundary
     (util_UndoPeriodic, util.c:97-113).  A 2-D ``x`` is a stack of
     independent rows, each unwrapped around its own element 0."""
-    L = f32_scalar(L, x.device)
-    half = L / 2
-    x0 = x[..., :1]
-    x = torch.where(x - x0 >= half, x - L, x)
-    return torch.where(x - x0 < -half, x + L, x)
+    return unwrap_anchored(x, L, x[..., :1])
+
+
+def unwrap_anchored(x, box, anchor):
+    """The periodic unwrap around ``anchor`` (the raw element 0 of each
+    stream) in a box of ``box``: ``x - a >= half`` moves x down a box, then
+    the already-moved ``x - a < -half`` moves it up; ``half = box * 0.5``
+    (``undo_periodic`` and the JAX package's ``_recip_body``).  ``box`` and
+    ``anchor`` are scalars or f32 tensors that broadcast against x."""
+    box = _f32(box, x.device)
+    a = _f32(anchor, x.device)
+    half = ftz(box * 0.5)
+    x = ftz(x)
+    x = torch.where(ftz(x - a) >= half, ftz(x - box), x)
+    return torch.where(ftz(x - a) < -half, ftz(x + box), x)
 
 
 def u64_undo_periodic(x, L):
@@ -89,15 +142,24 @@ def exact_div(x, d):
     """IEEE f32 division.  The JAX package corrects the TPU's approximate
     divide here; CPU and CUDA divide exactly once the divisor is a device
     tensor (see the module docstring)."""
-    if not isinstance(d, torch.Tensor):
-        d = f32_scalar(d, x.device)
-    return x / d
+    return ftz(ftz(x) / _f32(d, x.device))
 
 
-def exact_recip(d) -> np.float32:
-    """rn(1 / d) in f32, on the host (a per-plane scalar)."""
+def exact_recip(d):
+    """rn(1 / d) in f32 on the host, for a per-plane scalar or a numpy
+    array of per-block ranges.  A range of 0 (or a subnormal one) gives
+    +inf, as XLA's division does."""
     with np.errstate(divide="ignore"):
-        return np.float32(1.0) / np.float32(d)
+        return ftz(np.float32(1.0) / ftz(d))
+
+
+def bin_width(dx, level: int):
+    """The decode's bin width ``f32(dx) / 2^level``, flushed as XLA
+    computes it (``fastpath._fast_uniform_decode``); ``dx`` is a scalar
+    (numpy f32 result) or an f32 tensor."""
+    if isinstance(dx, torch.Tensor):
+        return ftz(ftz(dx) / float(1 << level))
+    return ftz(ftz(np.float32(dx)) / np.float32(1 << level))
 
 
 def fma_f32(a, b, c) -> torch.Tensor:
@@ -106,7 +168,9 @@ def fma_f32(a, b, c) -> torch.Tensor:
     exact in f64; the f64 sum is turned into its round-to-odd value with
     the exact error of the addition (TwoSum); rounding to odd at 53 bits
     and then to nearest at 24 bits is correctly rounded (Boldo and
-    Melquiond, 2008)."""
+    Melquiond, 2008).  Subnormal inputs and a subnormal result flush to
+    zero (``ftz``)."""
+    a, b, c = ftz(a), ftz(b), ftz(c)
     p = a.double() * b.double()
     c = c.double()
     s = p + c
@@ -115,7 +179,7 @@ def fma_f32(a, b, c) -> torch.Tensor:
     inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
     toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
     s = torch.where(inexact_even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
+    return ftz(s.to(torch.float32))
 
 
 def undo_bins(bins, x0, bin_width, u) -> torch.Tensor:
@@ -149,9 +213,7 @@ def uniform_bin_index(x, level: int, x0, dx):
     power-of-two scaling, so the clamp tests on it equal the reference's
     tests on ``delta``.  ``x0`` and ``dx`` are scalars, or f32 tensors on
     x's device that broadcast against it (one per row)."""
-    def f32(v):
-        return v if isinstance(v, torch.Tensor) else f32_scalar(v, x.device)
-    delta = exact_div(x - f32(x0), f32(dx))
+    delta = exact_div(ftz(x) - _f32(x0, x.device), _f32(dx, x.device))
     return scaled_to_bins(delta * float(1 << level), level).to(torch.int32)
 
 
@@ -163,10 +225,22 @@ def uniform_bin_index_recip(x, level: int, x0, dx):
         recip  = rn(1 / dx)            (host scalar, exact IEEE division)
         bins   = trunc(clamp(rn(rn(x - x0) * recip) * 2^level))
     """
+    return recip_scaled_bins(x, x0, exact_recip(dx), 0.0, 0.0, level, False)
+
+
+def recip_scaled_bins(x, x0, recip, box, anchor, level: int,
+                      periodic: bool) -> torch.Tensor:
+    """The recip map on RAW values, op for op the JAX package's
+    ``encode_pallas._recip_bins_xla`` (and the kernels K5 / K8): the
+    anchored periodic unwrap when ``periodic``, then
+    ``((x - x0) * recip) * 2^level`` in three separately rounded ops, then
+    ``scaled_to_bins``.  The scalars are Python / numpy values or f32
+    tensors that broadcast against x (one per row).  Returns u32 bits in
+    int32."""
     dev = x.device
-    recip = f32_scalar(exact_recip(dx), dev)
-    scaled = ((x - f32_scalar(x0, dev)) * recip) * float(1 << level)
-    return scaled_to_bins(scaled, level).to(torch.int32)
+    x = unwrap_anchored(x, box, anchor) if periodic else ftz(x)
+    q = ftz(ftz(x - _f32(x0, dev)) * _f32(recip, dev))
+    return scaled_to_bins(q * float(1 << level), level).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

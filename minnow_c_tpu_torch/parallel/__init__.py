@@ -5,5 +5,6 @@ from . import snapshot  # noqa: F401
 from .snapshot import (  # noqa: F401
     SnapshotSpec,
     compress_snapshot,
+    compress_snapshot_streaming,
     decompress_snapshot,
 )

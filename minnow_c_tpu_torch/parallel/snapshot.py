@@ -15,14 +15,17 @@ Depth policy: one depth per field across all blocks; ranges stay per
 block.  Encode runs on the device of the given tensors (numpy input goes
 to ``device=``); decode returns tensors on ``device``.  The batched passes
 go through the rows kernels: K6 ``stats_rows`` (per-block stats), K7
-``pack_rows`` (every pack when 32 | nb), K2 ``decode_rows`` (float decode)
-and K3 ``unpack_rows`` (ID decode); with 32 ∤ nb the blocks pack and
-decode row by row through K4 and K1.
+``pack_rows`` (every pack when 32 | nb), K8 ``encode_recip_rows`` (the
+whole float bin map and pack in the recip scale mode, 32 | nb), K2
+``decode_rows`` (float decode) and K3 ``unpack_rows`` (ID decode); with
+32 ∤ nb the blocks pack and decode row by row through K4 (or K5 in the
+recip mode) and K1.
 
-Not ported yet: ``scale_mode="recip"`` (it runs the rows kernel K8),
-per-particle accuracies (Deltas mode) and the log10/symlog maps, which
-raise NotImplementedError; the streaming and multihost writers and the
-multihost reader.
+``compress_snapshot_streaming`` writes a snapshot block by block, one
+segment per block, with the same encoders at B = 1.
+
+Not ported yet: per-particle accuracies (Deltas mode) and the log10/symlog
+maps, which raise NotImplementedError; the multihost writer and reader.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from ..ops import bitpack, entropy, kernels
 from ..ops import rng as _rng
 from ..ops.decode_cuda import (decode_cuda, decode_rows_cuda,
                                rows_kernel_eligible, unpack_rows_cuda)
-from ..ops.encode_cuda import stats_rows_cuda
+from ..ops.encode_cuda import (encode_recip_cuda, encode_recip_rows_cuda,
+                               stats_rows_cuda)
 from ..quant import engine
 from ..segment import format as wire
 from ..segment import io as seg_io
@@ -49,12 +53,6 @@ from ..types import (AlgoCode, FieldCode, FloatAccuracy, IDAccuracy,
                      PositionAccuracy, VelocityAccuracy)
 from ..utils import native_order
 from ..utils.profiling import phase
-
-NOT_PORTED_RECIP = (
-    "scale_mode='recip' on the snapshot path runs the rows kernel K8 "
-    "(encode_pallas_recip_rows), which is not ported to torch yet; it comes "
-    "with K5 in the next slice of the port (ROADMAP.md queue 2)")
-
 
 @dataclass(frozen=True)
 class SnapshotSpec:
@@ -97,7 +95,7 @@ def _float_rows_stats(x: torch.Tensor, box):
     max over dims of (max - min)."""
     b, d, nb = x.shape
     mn, mx = _rows_stats(x.reshape(b * d, nb), box)
-    return mn.reshape(b, d), (mx - mn).reshape(b, d).amax(dim=1)
+    return mn.reshape(b, d), kernels.ftz(mx - mn).reshape(b, d).amax(dim=1)
 
 
 def _batched_stats_pos(x: torch.Tensor, width: float):
@@ -138,41 +136,84 @@ def _pack_bins_rows(bins: torch.Tensor, depth: int) -> torch.Tensor:
     return words.reshape(b, d, -1)
 
 
-def _bin_pack_rows(xu: torch.Tensor, x0: torch.Tensor, rng_b: torch.Tensor,
-                   depth: int) -> torch.Tensor:
-    """(B, D, nb) mapped floats, x0 (B, D), shared range (B,) ->
-    (B, D, words): the div-mode bin map of every row, then the pack."""
-    b, d, nb = xu.shape
+def _bin_pack_rows(x: torch.Tensor, x0: torch.Tensor, rng_b: torch.Tensor,
+                   depth: int, box, scale_mode: str) -> torch.Tensor:
+    """(B, D, nb) mapped floats (RAW positions when ``box`` is not None),
+    x0 (B, D), shared range (B,) -> (B, D, words): the bin map of every
+    row in ``scale_mode``, then the pack."""
+    if scale_mode == "recip":
+        return _recip_rows(x, x0, rng_b, depth, box)
+    b, d, nb = x.shape
+    rows = x.reshape(b * d, nb)
+    if box is not None:
+        rows = kernels.undo_periodic(rows, box)
     bins = kernels.uniform_bin_index(
-        xu.reshape(b * d, nb), depth, x0.reshape(b * d, 1),
+        rows, depth, x0.reshape(b * d, 1),
         rng_b.repeat_interleave(d)[:, None])
     return _pack_bins_rows(bins.reshape(b, d, nb), depth)
 
 
+def _recip_rows(x: torch.Tensor, x0: torch.Tensor, rng_b: torch.Tensor,
+                depth: int, box) -> torch.Tensor:
+    """The recip scale mode's bin map and pack of (B, D, nb) RAW floats
+    (``sharding._float_rows_encode_recip``): row (b, d) maps with x0[b, d]
+    and the block's recip = rn(1 / rng_b[b]), unwrapped around its own raw
+    element 0 when ``box`` is not None.  One K8 launch when 32 | nb, else
+    K5 row by row; a depth outside 1-24 takes the plain map and the
+    pack."""
+    b, d, nb = x.shape
+    periodic = box is not None
+    boxf = float(np.float32(box if periodic else 0.0))
+    rows = x.reshape(b * d, nb)
+    recip = np.repeat(np.atleast_1d(kernels.exact_recip(
+        rng_b.cpu().numpy())), d)                            # (B*D,)
+    kernel_width = 1 <= depth <= 24
+    if kernel_width and nb % 32:
+        x0_h = x0.reshape(b * d).cpu().numpy()
+        anchors = rows[:, 0].cpu().numpy()
+        return torch.stack([
+            encode_recip_cuda(rows[r], depth, x0_h[r], recip[r], boxf,
+                              anchors[r], periodic)
+            for r in range(b * d)]).reshape(b, d, -1)
+    recip_t = torch.from_numpy(recip).to(x.device)
+    if kernel_width:
+        boxes = torch.full((b * d,), boxf, dtype=torch.float32,
+                           device=x.device)
+        return encode_recip_rows_cuda(
+            rows, depth, x0.reshape(b * d), recip_t, boxes, rows[:, 0],
+            periodic).reshape(b, d, -1)
+    bins = kernels.recip_scaled_bins(rows, x0.reshape(b * d, 1),
+                                     recip_t[:, None], boxf, rows[:, :1],
+                                     depth, periodic)
+    return _pack_bins_rows(bins.reshape(b, d, nb), depth)
+
+
 def _batched_bin_pack_pos(x: torch.Tensor, x0: torch.Tensor,
-                          rng_b: torch.Tensor, depth: int, width: float):
+                          rng_b: torch.Tensor, depth: int, width: float,
+                          scale_mode: str = "div"):
     """(B, 3, nb) RAW positions -> (B, 3, words) packed bins at ``depth``;
     recomputes the periodic unwrap of the stats pass."""
-    b, d, nb = x.shape
-    xu = kernels.undo_periodic(x.reshape(b * d, nb), width)
-    return _bin_pack_rows(xu.reshape(b, d, nb), x0, rng_b, depth)
+    return _bin_pack_rows(x, x0, rng_b, depth, float(width), scale_mode)
 
 
 def _batched_bin_pack_vel(x: torch.Tensor, x0: torch.Tensor,
                           rng_b: torch.Tensor, depth: int,
                           sym_log10_scaled: int = 0,
-                          threshold: float = 0.0):
-    """Velocity analog: recomputes the map, then bins and packs."""
+                          threshold: float = 0.0, scale_mode: str = "div"):
+    """Velocity analog: recomputes the map (the identity; symlog raises
+    NotImplementedError), then bins and packs."""
     xm = engine.map_float(x, 2 if sym_log10_scaled else 0, threshold)
-    return _bin_pack_rows(xm, x0, rng_b, depth)
+    return _bin_pack_rows(xm, x0, rng_b, depth, None, scale_mode)
 
 
 def _batched_bin_pack_scalar(x: torch.Tensor, x0: torch.Tensor,
                              rng_b: torch.Tensor, depth: int, mode: int = 0,
-                             threshold: float = 0.0):
-    """(B, nb) scalar floats -> (B, 1, words) packed bins (div map)."""
+                             threshold: float = 0.0,
+                             scale_mode: str = "div"):
+    """(B, nb) scalar floats -> (B, 1, words) packed bins."""
     xm = engine.map_float(x, mode, threshold)
-    return _bin_pack_rows(xm[:, None, :], x0[:, None], rng_b, depth)
+    return _bin_pack_rows(xm[:, None, :], x0[:, None], rng_b, depth, None,
+                          scale_mode)
 
 
 def _batched_id_pack(rel: torch.Tensor, w: int) -> torch.Tensor:
@@ -205,19 +246,24 @@ def _float_blocks(meta: Writer, words_h: np.ndarray, comp: List[bytes],
 
 
 def _encode_pos_batch(pos, B: int, nb: int, acc, seed: int, accel: int,
-                      device):
+                      device, depth: Optional[int] = None,
+                      scale_mode: str = "div"):
     """Batched device encode of positions (3, B*nb) -> per-block wire
-    block lists (Trim v1.0 layout), the shared depth (from the observed
-    global range), and the per-block bounding boxes of the raw positions
-    (lo, hi), host (B, 3) each.  Numpy input goes to ``device``."""
+    block lists (Trim v1.0 layout), the shared depth (``depth=None``
+    derives it from the observed global range), and the per-block bounding
+    boxes of the raw positions (lo, hi), host (B, 3) each.  Numpy input
+    goes to ``device``."""
     with phase("pos.h2d+stats", nbytes=_nbytes(pos)):
         pos = engine.as_tensor(pos, torch.float32, device)
         xb = pos.reshape(3, B, nb).transpose(0, 1).contiguous()
         x0, rng_b = _batched_stats_pos(xb, float(acc.width))
         box = (xb.amin(dim=2), xb.amax(dim=2))
-        depth = engine.delta_to_depth(acc.delta, 0.0, float(rng_b.max()))
+        if depth is None:
+            depth = engine.delta_to_depth(acc.delta, 0.0,
+                                          float(rng_b.max()))
     with phase("pos.binpack"):
-        words = _batched_bin_pack_pos(xb, x0, rng_b, depth, float(acc.width))
+        words = _batched_bin_pack_pos(xb, x0, rng_b, depth, float(acc.width),
+                                      scale_mode)
     with phase("pos.gather"):
         words_h = _host_u32(words)
         x0_h = x0.cpu().numpy()
@@ -239,16 +285,20 @@ def _encode_pos_batch(pos, B: int, nb: int, acc, seed: int, accel: int,
 
 
 def _encode_vel_batch(vel, B: int, nb: int, acc, seed: int, accel: int,
-                      device):
+                      device, depth: Optional[int] = None,
+                      scale_mode: str = "div"):
     sym = int(acc.sym_log10_scaled)
     thr = float(acc.sym_log10_threshold)
     with phase("vel.h2d+stats", nbytes=_nbytes(vel)):
         vel = engine.as_tensor(vel, torch.float32, device)
         xb = vel.reshape(3, B, nb).transpose(0, 1).contiguous()
         x0, rng_b = _batched_stats_vel(xb, sym, thr)
-        depth = engine.delta_to_depth(acc.delta, 0.0, float(rng_b.max()))
+        if depth is None:
+            depth = engine.delta_to_depth(acc.delta, 0.0,
+                                          float(rng_b.max()))
     with phase("vel.binpack"):
-        words = _batched_bin_pack_vel(xb, x0, rng_b, depth, sym, thr)
+        words = _batched_bin_pack_vel(xb, x0, rng_b, depth, sym, thr,
+                                      scale_mode)
     with phase("vel.gather"):
         words_h = _host_u32(words)
         x0_h = x0.cpu().numpy()
@@ -270,7 +320,9 @@ def _encode_vel_batch(vel, B: int, nb: int, acc, seed: int, accel: int,
 
 
 def _encode_scalar_float_batch(vals, B: int, nb: int, acc, seed: int,
-                               accel: int, device):
+                               accel: int, device,
+                               depth: Optional[int] = None,
+                               scale_mode: str = "div"):
     """Batched device encode of a scalar per-particle float field (n,) ->
     per-block UNSF wire block lists (Trim v1.0 layout) + the shared
     depth.  Used for Gadget-2 per-particle MASS and any other auxiliary
@@ -282,11 +334,12 @@ def _encode_scalar_float_batch(vals, B: int, nb: int, acc, seed: int,
     x0_h = x0.cpu().numpy()
     x1_h = x1.cpu().numpy()
     rng_h = x1_h.astype(np.float32) - x0_h.astype(np.float32)  # (B,)
-    depth = engine.delta_to_depth(acc.delta, 0.0, float(rng_h.max()))
+    if depth is None:
+        depth = engine.delta_to_depth(acc.delta, 0.0, float(rng_h.max()))
     with phase("mass.binpack"):
         words = _batched_bin_pack_scalar(
             xb, x0, torch.from_numpy(rng_h).to(xb.device), depth, mode,
-            threshold)
+            threshold, scale_mode)
     with phase("mass.gather"):
         words_h = _host_u32(words)  # (B, 1, wpb)
     comp = _entropy(words_h, accel, "mass")
@@ -354,12 +407,13 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
     by num_blocks.  Numpy arrays go to ``device``.  Returns stats (bytes,
     depths).
 
-    ``scale_mode``: 'div' (the C-exact division bin map) only; 'recip',
-    per-particle accuracies and the log maps raise NotImplementedError."""
+    ``scale_mode``: 'div' (default) is the C-exact division bin map;
+    'recip' multiplies by the exactly rounded reciprocal of each block's
+    range (``kernels.uniform_bin_index_recip``), wire-compatible, and its
+    whole float encode is one K8 launch per field when 32 | nb.
+    Per-particle accuracies and the log maps raise NotImplementedError."""
     if scale_mode not in ("div", "recip"):
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
-    if scale_mode == "recip":
-        raise NotImplementedError(NOT_PORTED_RECIP)
     pos, vel, ids, mass = (native_order(a) for a in (pos, vel, ids, mass))
     if mass is not None and spec.mass is None:
         raise ValueError("mass array given without spec.mass accuracy")
@@ -388,7 +442,8 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
     geometry = None
     if pos is not None:
         field_blocks, depth, (lo, hi) = _encode_pos_batch(
-            pos, B, nb, spec.pos, seed, accel, device)
+            pos, B, nb, spec.pos, seed, accel, device,
+            scale_mode=scale_mode)
         stats["pos_depth"] = depth
         add_field(FieldCode.POSN, field_blocks)
         # IOHeader Origin/Width (header_format.tex:206-218): per-block
@@ -399,7 +454,8 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
                     for b in range(B)]
     if vel is not None:
         field_blocks, depth = _encode_vel_batch(
-            vel, B, nb, spec.vel, seed, accel, device)
+            vel, B, nb, spec.vel, seed, accel, device,
+            scale_mode=scale_mode)
         stats["vel_depth"] = depth
         add_field(FieldCode.VELC, field_blocks)
     if ids is not None:
@@ -409,7 +465,8 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
         add_field(FieldCode.PTID, field_blocks)
     if mass is not None:
         field_blocks, depth = _encode_scalar_float_batch(
-            mass, B, nb, spec.mass, seed, accel, device)
+            mass, B, nb, spec.mass, seed, accel, device,
+            scale_mode=scale_mode)
         stats["mass_depth"] = depth
         add_field(FieldCode.UNSF, field_blocks)
 
@@ -421,6 +478,90 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
     stats["bytes"] = sum(len(s) for s in segments) + \
         seg_io.IO_HEADER_BYTES * B
     stats["num_blocks"] = B
+    return stats
+
+
+def _reject_deltas(spec: SnapshotSpec, writer: str) -> None:
+    """A spec-level per-particle deltas array is ambiguous for a writer
+    that cannot know each block's offset into it: ValueError, as in the
+    JAX package."""
+    for name in ("pos", "vel", "mass"):
+        acc = getattr(spec, name, None)
+        if acc is not None and getattr(acc, "deltas", None) is not None:
+            raise ValueError(
+                f"a spec-level per-particle deltas array for {name!r} is "
+                f"not supported by {writer}; use compress_snapshot, or "
+                "per-block '<field>_deltas' entries with the streaming "
+                "writer")
+
+
+def compress_snapshot_streaming(fp: BinaryIO, blocks_iter,
+                                spec: SnapshotSpec, seed: int = 0,
+                                accel: int = 1,
+                                depths: Optional[dict] = None,
+                                scale_mode: str = "div",
+                                device="cpu") -> dict:
+    """Memory-bounded snapshot encode: each block of ``blocks_iter`` is
+    encoded on the device and written as one segment before the next
+    block is pulled, so peak memory is one block.
+
+    ``blocks_iter`` yields dicts with any of ``pos`` / ``vel`` (3, nb) f32,
+    ``ids`` (nb,) u64 and ``mass`` (nb,) f32 -- the same fields in every
+    block; numpy arrays go to ``device``, tensors stay on theirs.  Pass
+    ``depths={"pos": d1, "vel": d2, "mass": d3}`` to pin the bit depths
+    shared by all blocks (the batched reader's one-pass decode needs
+    them), else each block derives its own from its range.  A block's
+    ``<field>_deltas`` entry (Deltas mode) raises NotImplementedError; a
+    spec-level ``deltas`` raises ValueError.  Returns stats (bytes,
+    num_blocks)."""
+    if scale_mode not in ("div", "recip"):
+        raise ValueError(f"unknown scale_mode {scale_mode!r}")
+    _reject_deltas(spec, "compress_snapshot_streaming")
+    stats = {"bytes": 0, "num_blocks": 0}
+    depths = depths or {}
+    encoders = {FieldCode.POSN: _encode_pos_batch,
+                FieldCode.VELC: _encode_vel_batch,
+                FieldCode.UNSF: _encode_scalar_float_batch}
+
+    def seg_gen():
+        for blk in blocks_iter:
+            pos, vel, ids, mass = (native_order(blk.get(k))
+                                   for k in ("pos", "vel", "ids", "mass"))
+            nb = next(a.shape[-1] for a in (pos, vel, ids) if a is not None)
+            fields: List[wire.WireField] = []
+            geometry = None
+
+            def float_field(arr, code, acc, dkey):
+                if blk.get(dkey + "_deltas") is not None:
+                    raise NotImplementedError(engine.NOT_PORTED_DELTAS)
+                out = encoders[code](arr, 1, nb, acc, seed, accel, device,
+                                     depth=depths.get(dkey),
+                                     scale_mode=scale_mode)
+                fields.append(wire.WireField(int(code), int(AlgoCode.TRIM),
+                                             TRIM_VERSION, out[0][0]))
+                return out
+
+            if pos is not None:
+                _, _, (lo, hi) = float_field(pos, FieldCode.POSN, spec.pos,
+                                             "pos")
+                geometry = (tuple(float(v) for v in lo[0]),
+                            tuple(float(h - l) for h, l in zip(hi[0],
+                                                               lo[0])))
+            if vel is not None:
+                float_field(vel, FieldCode.VELC, spec.vel, "vel")
+            if ids is not None:
+                fb, _ = _encode_id_batch(ids, 1, nb, spec.ids, accel, device)
+                fields.append(wire.WireField(
+                    int(FieldCode.PTID), int(AlgoCode.TRIM), TRIM_VERSION,
+                    fb[0]))
+            if mass is not None:
+                float_field(mass, FieldCode.UNSF, spec.mass, "mass")
+            seg = wire.serialize(fields, nb)
+            stats["bytes"] += len(seg) + seg_io.IO_HEADER_BYTES
+            stats["num_blocks"] += 1
+            yield seg, geometry
+
+    seg_io.write_segments_streaming(fp, seg_gen())
     return stats
 
 

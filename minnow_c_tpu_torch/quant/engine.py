@@ -128,7 +128,7 @@ def undo_float_uniform(bins, x0, x1, depth: int, key):
     """x0 + dx*(q + U[0,1)) with dx = (x1-x0)/2^depth (undoFloat,
     quant.c:634-652), counter-based dither; rounding as
     ``kernels.undo_bins``."""
-    dx = (np.float32(x1) - np.float32(x0)) / np.float32(1 << depth)
+    dx = kernels.bin_width(kernels.ftz(x1) - kernels.ftz(x0), depth)
     u = _rng.uniform_dither(key, tuple(bins.shape), device=bins.device)
     return kernels.undo_bins(bins, x0, dx, u)
 
@@ -245,8 +245,7 @@ def _quantize_position(field: Field, seed: int, scale_mode: str,
     xu = torch.stack([kernels.undo_periodic(x[d], float(acc.width))
                       for d in range(3)])
     bins, depth, x0_h, x1_h = _dims_quantize(
-        xu, xu.min(dim=1).values, xu.max(dim=1).values, acc.delta,
-        acc.deltas, scale_mode)
+        xu, *kernels.minmax(xu), acc.delta, acc.deltas, scale_mode)
     _dbg(lambda: int(bins.max()) < (1 << depth),
          "position bin index exceeds 2^depth")
     quant = PositionQuantization(
@@ -274,8 +273,7 @@ def _quantize_velocity(field: Field, seed: int, scale_mode: str,
     x = as_tensor(field.data, torch.float32, device).reshape(3, -1)
     xm = map_float(x, sym, float(acc.sym_log10_threshold))
     bins, depth, x0_h, x1_h = _dims_quantize(
-        xm, xm.min(dim=1).values, xm.max(dim=1).values, acc.delta,
-        acc.deltas, scale_mode)
+        xm, *kernels.minmax(xm), acc.delta, acc.deltas, scale_mode)
     quant = VelocityQuantization(
         x0=tuple(float(v) for v in x0_h), x1=tuple(float(v) for v in x1_h),
         depth=depth, depths=None, sym_log10_scaled=sym,
@@ -322,8 +320,9 @@ def _quantize_ufloat(field: Field, seed: int, scale_mode: str,
         raise NotImplementedError(NOT_PORTED_DELTAS)
     x = as_tensor(field.data, torch.float32, device).reshape(-1)
     xm = map_float(x, int(acc.log10_scaled), float(acc.sym_log10_threshold))
-    x0_h = float(xm.min().item())
-    x1_h = float(xm.max().item())
+    x0_t, x1_t = kernels.minmax(xm)
+    x0_h = float(x0_t.item())
+    x1_h = float(x1_t.item())
     depth = delta_to_depth(acc.delta, x0_h, x1_h)
     bins = _bin_fn(scale_mode)(
         xm, depth, x0_h, np.float32(x1_h) - np.float32(x0_h))

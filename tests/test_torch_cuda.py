@@ -407,3 +407,211 @@ def test_delta_path_on_cuda_never_reaches_a_plain_version(dev, monkeypatch):
             err = (out.fields[0].data - seg.fields[0].data).abs()
             assert float(torch.minimum(err, 64.0 - err).max()) <= 1e-3
     assert all(fn.launches > b for fn, b in zip(counted, before))
+
+
+# ---------------------------------------------------------------------------
+# The recip scale mode: K5, K8, K12
+# ---------------------------------------------------------------------------
+
+def _recip_plane(n: int, seed: int, periodic: bool) -> np.ndarray:
+    """Values in the box with the unwrap's edges (anchor +- half and one
+    ulp either side, the box edges), subnormals and signed zeros; element 0
+    (the anchor) at a box edge."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 64.0, n).astype(np.float32)
+    a = np.nextafter(np.float32(64.0), np.float32(0))
+    edges = np.array([a, a - 32, a + 32, np.nextafter(a - 32, np.float32(0)),
+                      np.nextafter(a - 32, np.float32(64)), 0.0, -0.0,
+                      1e-40, -1e-40, 64.0, 31.999998, 32.0], np.float32)
+    k = min(n, edges.size)
+    x[:k] = edges[:k]
+    if not periodic:
+        x -= np.float32(20.0)
+    return x
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("n", [1, 17, 33, 1_000_005])
+def test_encode_recip_kernel_matches_plain(dev, n, periodic):
+    x = torch.from_numpy(_recip_plane(n, n, periodic)).to(dev)
+    u = kernels.undo_periodic(x, 64.0) if periodic else x
+    x0, x1 = kernels.minmax(u)
+    recip = kernels.exact_recip((x1 - x0).item())
+    for width in range(1, 25):
+        args = (width, x0.item(), recip, 64.0 if periodic else 0.0,
+                x[0].item(), periodic)
+        got = encode_cuda.encode_recip_cuda(x, *args)
+        assert torch.equal(got, encode_cuda.encode_recip_plain(x, *args))
+    const = torch.full((n,), 7.5, device=dev)   # recip inf: bins 0
+    got = encode_cuda.encode_recip_cuda(const, 12, 7.5, np.inf, 0.0, 7.5,
+                                        False)
+    assert not got.any()
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("rows, n", ROW_SHAPES)
+@pytest.mark.parametrize("width", [1, 9, 16, 24])
+def test_encode_recip_rows_kernel_matches_plain(dev, width, rows, n,
+                                                periodic):
+    g = torch.Generator(device=dev).manual_seed(width + rows)
+    x = torch.rand(rows, n, generator=g, device=dev) * 64.0
+    x[0] = torch.from_numpy(_recip_plane(n, 1, periodic)).to(dev)
+    x0 = torch.rand(rows, generator=g, device=dev) * 4.0
+    recip = 1.0 / (40.0 + torch.rand(rows, generator=g, device=dev) * 20.0)
+    if rows > 2:
+        x[1] = 7.5
+        x0[1] = 7.5
+        recip[1] = float("inf")     # constant row: 0 * inf = NaN -> bin 0
+        x0[2] = 1e-40
+    box = torch.full((rows,), 64.0, device=dev)
+    args = (width, x0, recip, box, x[:, 0].contiguous(), periodic)
+    got = encode_cuda.encode_recip_rows_cuda(x, *args)
+    assert torch.equal(got, encode_cuda.encode_recip_rows_plain(x, *args))
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("blocks, dims, n", [(1, 1, 32), (3, 3, 2048),
+                                            (2, 3, 4096 * 5 + 32),
+                                            (4096, 3, 64), (64, 3, 1 << 16)])
+def test_encode_recip_fused_kernel_matches_plain(dev, blocks, dims, n,
+                                                 periodic):
+    g = torch.Generator(device=dev).manual_seed(blocks * n)
+    x = torch.rand(blocks, dims, n, generator=g, device=dev) * 64.0
+    x[0, 0] = torch.from_numpy(_recip_plane(n, 2, periodic)).to(dev)
+    if blocks > 1:
+        x[1] = 3.25                  # a constant block: range 0, recip inf
+    box = 64.0 if periodic else 0.0
+    anchors = x[:, :, 0].contiguous()
+    for width in (1, 14, 24):
+        got = encode_cuda.encode_recip_fused_blocks_cuda(x, box, anchors,
+                                                         width, periodic)
+        want = encode_cuda.encode_recip_fused_blocks_plain(
+            x, box, anchors, width, periodic)
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("n, blocks", [(1 << 16, 8), (4000, 4)])
+def test_recip_snapshot_on_cuda_matches_cpu(dev, n, blocks):
+    arrays, spec = _snapshot(n)
+    f_gpu, f_cpu = io.BytesIO(), io.BytesIO()
+    mt.compress_snapshot(f_gpu, spec=spec, num_blocks=blocks, seed=5,
+                         scale_mode="recip",
+                         **{k: torch.from_numpy(v).to(dev)
+                            for k, v in arrays.items()})
+    mt.compress_snapshot(f_cpu, spec=spec, num_blocks=blocks, seed=5,
+                         scale_mode="recip", **arrays)
+    assert f_gpu.getvalue() == f_cpu.getvalue()
+    got = mt.decompress_snapshot(io.BytesIO(f_gpu.getvalue()), device=dev)
+    want = mt.decompress_snapshot(io.BytesIO(f_gpu.getvalue()))
+    for k in want:
+        assert np.array_equal(got[k].cpu().numpy().view(np.uint8),
+                              want[k].numpy().view(np.uint8))
+
+
+def test_recip_paths_on_cuda_never_reach_a_plain_version(dev, monkeypatch,
+                                                         tmp_path):
+    """With every plain encode and decode version made to raise, the CUDA
+    recip snapshot (32 | nb and not), the streaming writer and the CLI
+    still run, through K5 and K8."""
+    from minnow_c_tpu_torch import __main__ as cli
+    from minnow_c_tpu_torch.drivers import gadget2
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version reached on the CUDA path")
+
+    for mod, name in ((decode_cuda, "decode_plain"),
+                      (decode_cuda, "decode_rows_plain"),
+                      (decode_cuda, "unpack_rows_plain"),
+                      (encode_cuda, "pack_plain"),
+                      (encode_cuda, "pack_rows_plain"),
+                      (encode_cuda, "stats_rows_plain"),
+                      (encode_cuda, "encode_recip_plain"),
+                      (encode_cuda, "encode_recip_rows_plain"),
+                      (encode_cuda, "encode_recip_fused_blocks_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    k5, k8 = encode_cuda.encode_recip_cuda, encode_cuda.encode_recip_rows_cuda
+    before = (k5.launches, k8.launches)
+    for n, blocks in ((1 << 14, 4), (4000, 4)):
+        arrays, spec = _snapshot(n)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+        f = io.BytesIO()
+        mt.compress_snapshot(f, spec=spec, num_blocks=blocks, seed=1,
+                             scale_mode="recip", **t)
+        out = mt.decompress_snapshot(io.BytesIO(f.getvalue()), device=dev)
+        assert torch.equal(out["ids"], t["ids"])
+        nb = n // blocks
+        s = io.BytesIO()
+        mt.compress_snapshot_streaming(
+            s, ({k: v[..., b * nb:(b + 1) * nb] for k, v in t.items()}
+                for b in range(blocks)), spec, seed=1, scale_mode="recip")
+        out = mt.decompress_snapshot(io.BytesIO(s.getvalue()), device=dev)
+        assert torch.equal(out["ids"], t["ids"])
+    assert k8.launches - before[1] >= 6 and k5.launches - before[0] >= 24
+    arrays, _ = _snapshot(3000)
+    hdr = gadget2.Gadget2Header(
+        npart=(0, 3000, 0, 0, 0, 0), mass=(0.0, 1.0, 0.0, 0.0, 0.0, 0.0),
+        time=1.0, redshift=0.0, box_size=64.0, omega0=0.3,
+        omega_lambda=0.7, hubble_param=0.7)
+    src, comp, back = (str(tmp_path / f) for f in ("s.g2", "s.min", "b.g2"))
+    with open(src, "wb") as f:
+        gadget2.write_snapshot(f, hdr, arrays["pos"], arrays["vel"],
+                               arrays["ids"])
+    k5_before = k5.launches
+    assert cli.main(["compress", src, comp, "--scale-mode", "recip",
+                     "--device", "cuda"]) == 0
+    assert cli.main(["decompress", comp, back, "--device", "cuda"]) == 0
+    assert k5.launches - k5_before == 6
+    with open(back, "rb") as f:
+        _, _, _, ids = gadget2.read_snapshot(f)
+    assert np.array_equal(ids.astype(np.int64), arrays["ids"])
+
+
+def test_kernels_flush_subnormal_results_like_plain(dev):
+    """Normal operands whose differences or sums are subnormal: the kernels
+    (built with -ftz=true) flush them as the plain versions do.  K5 / K8 on
+    values within 1e-37 above x0 = 1.2e-38; K1 / K2 decoding around 0 with
+    x0 = -2e-38 and a bin width of 2e-38; K6 / K12 in a box of 3e-38."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = 1.2e-38 + torch.rand(4096, generator=g, device=dev) * 1e-37
+    x0, x1 = kernels.minmax(x)
+    recip = kernels.exact_recip((x1 - x0).item())
+    for width in (6, 16, 24):
+        args = (width, x0.item(), recip, 0.0, x[0].item(), False)
+        assert torch.equal(encode_cuda.encode_recip_cuda(x, *args),
+                           encode_cuda.encode_recip_plain(x, *args))
+        rows = x.reshape(2, 2048)
+        r_args = (width, torch.full((2,), x0.item(), device=dev),
+                  torch.full((2,), float(recip), device=dev),
+                  torch.zeros(2, device=dev), rows[:, 0].contiguous(), False)
+        assert torch.equal(encode_cuda.encode_recip_rows_cuda(rows, *r_args),
+                           encode_cuda.encode_recip_rows_plain(rows, *r_args))
+    words = _bins(dev, 2, 128, 32, 12)        # 4096 bins of 1 bit a row
+    keys = torch.tensor([[5, 6], [7, 8]], device=dev)
+    xs, dxs = torch.full((2,), -2e-38, device=dev), \
+        torch.full((2,), 4e-38, device=dev)
+    got = decode_cuda.decode_cuda(words[0], (5, 6), 1, 4096, -2e-38, 4e-38)
+    want = decode_cuda.decode_plain(words[0], 5, 6, -2e-38,
+                                    kernels.bin_width(4e-38, 1), 0.0, 4096,
+                                    1, 0, False)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (want == 0).any()
+    got = decode_cuda.decode_rows_cuda(words, keys, 1, 4096, xs, dxs)
+    want = decode_cuda.decode_rows_plain(words, keys, xs,
+                                         kernels.bin_width(dxs, 1), 0.0,
+                                         4096, 1, False)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    tiny = torch.rand(3, 3, 4096, generator=g, device=dev) * 3e-38
+    box = torch.full((9,), 3e-38, device=dev)
+    rows = tiny.reshape(9, 4096)
+    for a, b in zip(encode_cuda.stats_rows_cuda(rows, box, rows[:, 0].
+                                                contiguous(), True),
+                    encode_cuda.stats_rows_plain(rows, box, rows[:, 0].
+                                                 contiguous(), True)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    anchors = tiny[:, :, 0].contiguous()
+    for a, b in zip(encode_cuda.encode_recip_fused_blocks_cuda(
+                        tiny, 3e-38, anchors, 12, True),
+                    encode_cuda.encode_recip_fused_blocks_plain(
+                        tiny, 3e-38, anchors, 12, True)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -1,0 +1,174 @@
+"""The torch port's Gadget-2 driver and command-line interface against the
+JAX package's, on the CPU.
+
+Gadget-2 files are made with numpy from fixed seeds; both packages
+compress and decompress them.  The CLI runs in process through each
+package's ``main([...])``, in two directories holding the same input, so
+the printed lines can be compared verbatim.  Tolerance: bitwise equality of
+every output file and of the printed lines.
+"""
+
+import io
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from minnow_c_tpu import __main__ as jcli
+from minnow_c_tpu.drivers import gadget2 as jg2
+from minnow_c_tpu_torch import __main__ as tcli
+from minnow_c_tpu_torch.drivers import gadget2 as tg2
+
+BOX = 64.0
+
+
+def gadget2_file(n: int, masses: str, seed: int = 0) -> bytes:
+    """A format-1 Gadget-2 file of ``n`` particles: a random walk in the
+    box, N(0, 150) velocities, unique IDs.  ``masses``: "table" (one type
+    with a mass-table entry), "mixed" (a table type, and a per-particle
+    type whose masses take both signs) or "positive" (per-particle, all
+    positive)."""
+    rng = np.random.default_rng(seed)
+    steps = rng.normal(0, 0.05, (3, n)).astype(np.float32)
+    pos = (np.cumsum(steps, axis=1) + BOX / 2).astype(np.float32) % BOX
+    vel = rng.normal(0, 150, (3, n)).astype(np.float32)
+    ids = rng.permutation(64 ** 3)[:n].astype(np.uint64)
+    mass = None
+    if masses == "table":
+        npart, table = (0, n, 0, 0, 0, 0), (0.0, 1.0, 0.0, 0.0, 0.0, 0.0)
+    elif masses == "mixed":
+        n1 = n // 3
+        npart = (0, n1, n - n1, 0, 0, 0)
+        table = (0.0, 2.5, 0.0, 0.0, 0.0, 0.0)
+        m_var = rng.uniform(-1.0, 4.0, n - n1).astype(np.float32)
+        mass = np.concatenate([np.full(n1, 2.5, np.float32), m_var])
+    else:
+        npart, table = (0, n, 0, 0, 0, 0), (0.0,) * 6
+        mass = rng.uniform(0.5, 4.0, n).astype(np.float32)
+    hdr = jg2.Gadget2Header(npart=npart, mass=table, time=0.5,
+                            redshift=1.5, box_size=BOX, omega0=0.3,
+                            omega_lambda=0.7, hubble_param=0.7)
+    buf = io.BytesIO()
+    jg2.write_snapshot(buf, hdr, pos, vel, ids, mass=mass)
+    return buf.getvalue()
+
+
+def _compress(g2, raw: bytes, **kw) -> bytes:
+    out = io.BytesIO()
+    g2.compress(io.BytesIO(raw), out, **kw)
+    return out.getvalue()
+
+
+def _decompress(g2, blob: bytes) -> bytes:
+    out = io.BytesIO()
+    g2.decompress(io.BytesIO(blob), out)
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("mode", ["div", "recip"])
+@pytest.mark.parametrize("n, masses, blocks", [
+    (3000, "table", None),      # one block of 3000: 32 does not divide nb
+    (3000, "mixed", None),
+    (8192, "table", 4),         # 4 blocks of 2048: 32 | nb
+    (8192, "mixed", 4)])
+def test_gadget2_files_match_jax(mode, n, masses, blocks):
+    raw = gadget2_file(n, masses, seed=n)
+    kw = dict(pos_delta=1e-3, vel_delta=1.0, num_blocks=blocks, seed=4,
+              scale_mode=mode)
+    want = _compress(jg2, raw, **kw)
+    got = _compress(tg2, raw, **kw)
+    assert got == want
+    # each package's decompress of either file gives the same Gadget-2 file
+    back = _decompress(jg2, want)
+    assert _decompress(tg2, want) == back
+    assert _decompress(jg2, got) == back
+    hdr, pos, vel, ids, mass = tg2.read_snapshot_ext(io.BytesIO(back))
+    _, pos0, vel0, ids0, mass0 = jg2.read_snapshot_ext(io.BytesIO(raw))
+    e = np.abs(pos - pos0)
+    assert np.minimum(e, BOX - e).max() <= 1e-3
+    assert np.abs(vel - vel0).max() <= 1.0
+    assert np.array_equal(ids, ids0)
+    assert (mass is None) == (masses == "table")
+
+
+def test_gadget2_positive_masses_raise():
+    raw = gadget2_file(1024, "positive")
+    out = io.BytesIO()
+    with pytest.raises(NotImplementedError, match="log10"):
+        tg2.compress(io.BytesIO(raw), out, num_blocks=2)
+    assert out.getvalue() == b""
+
+
+def _run(main, argv, capsys):
+    rc = main(argv)
+    return rc, capsys.readouterr().out
+
+
+def test_cli_matches_jax(tmp_path, capsys, monkeypatch):
+    """compress (recip), info, verify (and verify after a flipped byte),
+    query, repack --algo Coil and decompress: the same files and lines."""
+    raw = gadget2_file(4096, "mixed", seed=3)
+    dirs = {}
+    for name in ("jax", "torch"):
+        d = tmp_path / name
+        d.mkdir()
+        (d / "snap.g2").write_bytes(raw)
+        dirs[name] = d
+    steps = [
+        ["compress", "snap.g2", "snap.g2.min", "--scale-mode", "recip",
+         "--blocks", "2"],
+        ["info", "snap.g2.min"],
+        ["verify", "snap.g2.min"],
+        ["query", "snap.g2.min", "--origin", "1", "1", "1", "--size", "2",
+         "2", "2", "--periodic", "64"],
+        ["repack", "snap.g2.min", "snap.coil.min", "--algo", "Coil"],
+        ["verify", "snap.coil.min"],
+        ["decompress", "snap.g2.min", "back.g2"],
+        ["decompress", "snap.coil.min", "back_coil.g2"],
+    ]
+    outs = {}
+    for name, main in (("jax", jcli.main), ("torch", tcli.main)):
+        monkeypatch.chdir(dirs[name])
+        lines = []
+        for argv in steps:
+            if name == "torch" and argv[0] in ("compress", "decompress"):
+                argv = argv + ["--device", "cpu"]
+            lines.append(_run(main, argv, capsys))
+        blob = bytearray((dirs[name] / "snap.g2.min").read_bytes())
+        blob[-100] ^= 0xFF
+        (dirs[name] / "bad.min").write_bytes(bytes(blob))
+        lines.append(_run(main, ["verify", "bad.min"], capsys))
+        outs[name] = lines
+    assert outs["torch"] == outs["jax"]
+    assert [rc for rc, _ in outs["torch"]] == [0] * len(steps) + [1]
+    assert "CORRUPT" in outs["torch"][-1][1]
+    for f in ("snap.g2.min", "snap.coil.min", "back.g2", "back_coil.g2"):
+        assert (dirs["torch"] / f).read_bytes() == \
+            (dirs["jax"] / f).read_bytes(), f
+    assert (dirs["torch"] / "back.g2").read_bytes() == \
+        (dirs["torch"] / "back_coil.g2").read_bytes()
+
+
+def test_cli_refuses_unported_inputs(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "snap.g2").write_bytes(gadget2_file(256, "table"))
+    (tmp_path / "snap.hdf5").write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(64))
+    with pytest.raises(SystemExit, match="Illustris"):
+        tcli.main(["compress", "snap.hdf5", "out.il.min", "--device", "cpu"])
+    assert tcli.main(["compress", "snap.g2", "snap.g2.min", "--device",
+                      "cpu"]) == 0
+    for algo in ("Sort", "Cart"):
+        with pytest.raises(SystemExit, match="not ported"):
+            tcli.main(["repack", "snap.g2.min", "x.min", "--algo", algo])
+    with pytest.raises(SystemExit, match="unknown codec"):
+        tcli.main(["repack", "snap.g2.min", "x.min", "--algo", "Zip"])
+    (tmp_path / "fake.il.min").write_bytes(b"\x05\x00\x00\x00{}")
+    with pytest.raises(SystemExit, match="Illustris"):
+        tcli.main(["decompress", "fake.il.min", "out.hdf5", "--device",
+                   "cpu"])
+    if not torch.cuda.is_available():
+        # the default device is the card, with no fallback to the CPU
+        with pytest.raises((AssertionError, RuntimeError)):
+            tcli.main(["compress", "snap.g2", "out.g2.min"])
+    assert os.path.exists("snap.g2.min")

@@ -305,9 +305,6 @@ def test_unported_snapshot_modes_raise():
                            mass=mt.FloatAccuracy(delta=1e-3))
     mass = np.linspace(1, 2, 1024, dtype=np.float32)
     deltas = np.full(1024, 1e-3, np.float32)
-    with pytest.raises(NotImplementedError, match="K8"):
-        mt.compress_snapshot(io.BytesIO(), pos, vel, None, spec, 2,
-                             scale_mode="recip")
     bad = (
         dataclasses.replace(spec, pos=mt.PositionAccuracy(
             delta=1e-3, width=64.0, deltas=deltas)),
