@@ -7,14 +7,18 @@ Needs one CUDA card, nvcc (the CUDA toolkit) and the repository checkout;
 imports nothing of JAX.  Phases, one progress line each; any failure raises
 and the script exits non-zero:
 
-1. device: card name, power limit, kernel build time;
+1. device: card name, power limit, kernel build time; the registers and
+   spills of the tile kernels (K1 / K2 decode, K4 / K7 pack) and the SASS
+   instructions of their inner loops;
 2. each CUDA kernel (K1 fused decode, K4 pack, the rows kernels K2
    decode, K3 unpack, K6 stats, K7 pack, the delta kernels K9 scan, K10
    chunked decode, K11 its float mode, and the recip-mode encodes K5, K8 and
-   K12) against its plain torch version on the card, bitwise, over widths,
-   row counts, ragged sizes and edge values, subnormals included (they
-   flush to zeros of their sign, as on XLA); K4's kernel at 2 * 16384 bins
-   as the counterpart of K13 (pack_pallas_tiles);
+   K12) against its plain torch version on the card, bitwise, over widths
+   (K1 and K2 at every width 1-24, K4 and K7 at every width 0-32), row
+   counts, rows that cross tile edges, ragged sizes, unaligned inputs and
+   edge values, subnormals included (they flush to zeros of their sign, as
+   on XLA); K4's kernel at 2 * 16384 bins as the counterpart of K13
+   (pack_pallas_tiles);
 3. the frozen wire: Trim v1.0 / v1.1, Diff v1.0, Coil v1.0 / v1.1 and Octo
    v1.0 / v1.1 segments encoded from CUDA tensors and decoded on CUDA
    (generic and fused) match tests/fixtures/wire_digests.json;
@@ -28,14 +32,17 @@ and the script exits non-zero:
    as in phase 4, plus masses) in 64 blocks through compress_snapshot and
    decompress_snapshot(batched=True) on CUDA, with error bounds, exact IDs,
    the first and last block equal to decompress_segment bitwise, launch
-   counts, wall times, rates and peak memory; then K2, K3, K6 and K7 timed
-   against their plain versions at that path's shapes;
+   counts, wall times, rates, peak memory and the device's busy share (a
+   torch.profiler trace of the card); then K2, K3, K6 and K7 timed
+   against their plain versions at that path's shapes, K2 and K7 also at
+   every width the path decodes and packs and alone in a torch.profiler
+   trace, and torch.aminmax beside K6;
 6. the delta path at full size: the 2^24-particle snapshot of phase 4 in
    Lagrangian (ID) order through Diff v1.0, Coil v1.1 and Octo v1.1, each
    compressed and decompressed (generic and fused) on CUDA, with error
    bounds, exact IDs, fused == generic, ratios, wall times, rates, peak
    memory and launch counts; then K9, K10 and K11 timed against their plain
-   versions at that path's shapes;
+   versions at that path's shapes, and torch.cumsum beside K9;
 7. the recip scale mode at full size: (a) phase 5's snapshot through
    compress_snapshot(scale_mode="recip") (K8) and the batched read, with
    error bounds, exact IDs and a file size within 0.1% of phase 5's;
@@ -53,7 +60,10 @@ read just after.  The last line is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts (K1 and K4 from phase
 4, the rows kernels from phase 5, the delta kernels from phase 6, K5 from
 phase 7(c), K8 from 7(a), K12 from its one-pass run in 7(e), K13 as K4's
-kernel), errors and times.
+kernel), errors, times, bounds (the bytes each input read once and each
+output written once at 3.35 TB/s, or the float operations at 67 TFLOP/s,
+whichever is longer), the share of the bound reached, and the library
+call's time where one computes the same function.
 """
 
 from __future__ import annotations
@@ -122,15 +132,114 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+# The card's published peaks (H100 SXM data sheet, at its 700 W limit): HBM
+# bytes per second and float32 operations per second outside the tensor
+# cores.  The integer lanes (the Threefry cipher, shifts, masks) have no
+# rate in that table, so a bound counts bytes and float operations only.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# Each timed kernel's work at its timed shape: name -> (bytes each input is
+# read once plus each output written once, float operations).
+WORK = {}
+
+
+def note_work(name: str, inputs, outputs, flops: float = 0.0) -> None:
+    WORK[name] = (sum(t.numel() * t.element_size() for t in inputs) +
+                  sum(t.numel() * t.element_size() for t in outputs), flops)
+
+
+def bound(name: str):
+    """(bound_ms, bound_by) of a kernel's noted work: the larger of its
+    bytes over the memory rate and its float operations over the f32
+    rate."""
+    nbytes, flops = WORK[name]
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_ms(fn, kernel: str):
+    """Device time per launch of the CUDA kernels whose name holds
+    ``kernel`` in a torch.profiler trace of 5 calls, over the launches the
+    trace holds; None where it holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(e.device_time_total for e in hits)
+    count = sum(e.count for e in hits)
+    return total / count / 1e3 if total > 0 else None
+
+
+def kernel_report(build_log: str) -> None:
+    """Registers and spills of the tile kernels at the main path's widths
+    (from nvcc -Xptxas -v) and the SASS instructions of their inner loops
+    (cuobjdump), as progress lines."""
+    import re
+    from minnow_c_tpu_torch.ops import cuda_lib
+    for fn, spill, regs in re.findall(
+            r"Compiling entry function '(\S*(?:decode|pack)_tiles\S*)'.*?"
+            r"(\d+) bytes spill stores.*?Used (\d+) registers", build_log,
+            re.S):
+        w = re.search(r"kernelILi(\d+)E(?:Lb(\d))?", fn)
+        if w and int(w.group(1)) in (9, 12, 14, 16):
+            kind = "decode_tiles" if "decode" in fn else (
+                "pack_tiles" + ("(f32)" if w.group(2) == "1" else ""))
+            log(f"phase 1: ptxas: {kind}<{w.group(1)}>: {regs} registers, "
+                f"{spill} bytes spilled")
+    tool = os.path.join(os.path.dirname(os.path.dirname(cuda_lib._nvcc())),
+                        "bin", "cuobjdump")
+    try:
+        sass = subprocess.run([tool, "-sass", cuda_lib.LIB_PATH],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"phase 1: SASS not read ({e})")
+        return
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = part.split("\n", 1)[0]
+        w = re.search(r"(decode|pack)_tiles_kernelILi(\d+)E(Lb0)?", name)
+        if not w or w.group(2) not in ("12", "16") or \
+                (w.group(1) == "pack" and not w.group(3)):
+            continue
+        ins = [(int(a, 16), i) for a, i in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
+        # the inner loop: the shortest backward branch around the work
+        # (decode: the FFMAs of one quad; pack: the stores of 4 words)
+        mark = "FFMA" if w.group(1) == "decode" else "STG"
+        loops = []
+        for addr, i in ins:
+            m = re.search(r"BRA (0x[0-9a-f]+)", i)
+            if m and int(m.group(1), 16) < addr:
+                body = [j for a, j in ins if int(m.group(1), 16) <= a <= addr]
+                if any(mark in j for j in body) and \
+                        not any("BAR" in j for j in body):
+                    loops.append(len(body))
+        per = "one quad (4 elements)" if w.group(1) == "decode" else \
+            "4 output words"
+        log(f"phase 1: SASS: {w.group(1)}_tiles<{w.group(2)}>: "
+            f"{len(ins)} instructions, inner loop "
+            f"{min(loops) if loops else 'not found'} per {per}")
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def check_decode_kernel(dev, g) -> float:
+    """K1 against its plain version, bitwise, at every width 1-24: n of
+    32 and 2^20 + 37, edge bins, periodic and subnormal planes, elem0 0
+    and 2^14; then at the ragged n 1, 33, 100_003 and 7_812_500 from
+    words whose storage starts 16-byte aligned or one word in (the
+    kernel's 4-byte copy path), with elem0 near the counter's wrap."""
     from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
     worst = 0.0
     cases = 0
-    for width in (1, 7, 11, 16, 23, 24):
+    for width in range(1, 25):
         for n in (32, (1 << 20) + 37):
             top = (1 << width) - 1
             bins = torch.randint(0, top + 1, (n,), generator=g, device=dev,
@@ -159,8 +268,30 @@ def check_decode_kernel(dev, g) -> float:
                             f"K1 != plain: width={width} n={n} "
                             f"periodic={periodic} elem0={elem0}")
                     cases += 1
-    log(f"phase 2: K1 decode == plain bitwise in {cases} cases "
-        f"(max_abs_err {worst})")
+    for width in (1, 9, 12, 14, 16, 17, 24):
+        for n in (1, 33, 100_003, 7_812_500):
+            bins = torch.randint(0, 1 << width, (n,), generator=g,
+                                 device=dev, dtype=torch.int64)
+            packed = encode_cuda.pack_plain(bins.to(torch.int32), width)
+            for offset in (0, 1):
+                store = torch.zeros(packed.numel() + offset,
+                                    dtype=torch.int32, device=dev)
+                store[offset:] = packed
+                words = store[offset:]
+                elem0 = (1 << 34) - 8 if offset else 4 * 12345
+                got = decode_cuda.decode_cuda(words, (3, 4), width, n, 0.5,
+                                              40.0, BOX, True, elem0)
+                want = decode_cuda.decode_plain(
+                    words, 3, 4, 0.5, kernels.bin_width(40.0, width), BOX, n,
+                    width, elem0, True)
+                torch.cuda.synchronize()
+                worst = max(worst, max_abs_err(got, want))
+                if not torch.equal(bits(got), bits(want)):
+                    raise AssertionError(f"K1 != plain: width={width} n={n} "
+                                         f"offset={offset}")
+                cases += 1
+    log(f"phase 2: K1 decode == plain bitwise in {cases} cases, widths "
+        f"1-24, ragged n, unaligned words (max_abs_err {worst})")
     return worst
 
 
@@ -187,28 +318,35 @@ def check_pack_kernel(dev, g) -> float:
     from minnow_c_tpu_torch.ops import encode_cuda
     worst = 0.0
     cases = 0
-    for n in (37, (1 << 20) + 37):
-        vals = torch.randint(-(1 << 31), 1 << 31, (n,), generator=g,
-                             device=dev, dtype=torch.int64).to(torch.int32)
-        for width in range(1, 33):
-            got = encode_cuda.pack_cuda(vals, width)
-            want = encode_cuda.pack_plain(vals, width)
-            torch.cuda.synchronize()
-            worst = max(worst, max_abs_err(got, want))
-            if not torch.equal(got, want):
-                raise AssertionError(f"K4 != plain: u32 width={width} n={n}")
-            cases += 1
-        for width in range(1, 25):
-            s = edge_plane(width, n if n > 300 else 300, g, dev)
-            got = encode_cuda.pack_cuda(s, width, from_f32=True)
-            want = encode_cuda.pack_plain(s, width, from_f32=True)
-            torch.cuda.synchronize()
-            worst = max(worst, max_abs_err(got, want))
-            if not torch.equal(got, want):
-                raise AssertionError(f"K4 != plain: from_f32 width={width}")
-            cases += 1
-    log(f"phase 2: K4 pack == plain bitwise in {cases} cases "
-        f"(max_abs_err {worst})")
+    for n in (1, 37, 100_003, (1 << 20) + 37):
+        # offset 1: the input's storage starts one element in (4-byte loads)
+        for offset in (0, 1):
+            vals = torch.randint(-(1 << 31), 1 << 31, (n + offset,),
+                                 generator=g, device=dev,
+                                 dtype=torch.int64).to(torch.int32)[offset:]
+            for width in range(1, 33):
+                got = encode_cuda.pack_cuda(vals, width)
+                want = encode_cuda.pack_plain(vals, width)
+                torch.cuda.synchronize()
+                worst = max(worst, max_abs_err(got, want))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K4 != plain: u32 width={width} "
+                                         f"n={n} offset={offset}")
+                cases += 1
+            for width in range(1, 25):
+                m = n if n > 300 else 300
+                s = torch.cat([torch.zeros(offset, device=dev),
+                               edge_plane(width, m, g, dev)])[offset:]
+                got = encode_cuda.pack_cuda(s, width, from_f32=True)
+                want = encode_cuda.pack_plain(s, width, from_f32=True)
+                torch.cuda.synchronize()
+                worst = max(worst, max_abs_err(got, want))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K4 != plain: from_f32 "
+                                         f"width={width} offset={offset}")
+                cases += 1
+    log(f"phase 2: K4 pack == plain bitwise in {cases} cases, widths 1-32 "
+        f"(f32 1-24), ragged n, unaligned inputs (max_abs_err {worst})")
     return worst
 
 
@@ -226,7 +364,9 @@ def check_rows_kernels(dev, g) -> dict:
     """K2, K3, K6 and K7 against their plain versions, bitwise, over widths
     and row counts past the 65535 limit of a grid's y dimension."""
     from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
-    shapes = ((1, 32), (70_000, 32), (3, (1 << 20) + 32), (192, 4096))
+    tile = decode_cuda.DECODE_TILE
+    shapes = ((1, 32), (70_000, 32), (3, (1 << 20) + 32), (192, 4096),
+              (3, tile - 32), (3, tile + 32), (2, 3 * tile + 96))
     worst = {"K2": 0.0, "K3": 0.0, "K6": 0.0, "K7": 0.0}
     cases = 0
 
@@ -243,16 +383,18 @@ def check_rows_kernels(dev, g) -> dict:
         cases += 1
 
     for rows, n in shapes:
-        for width in (1, 7, 16, 24, 32):
-            vals = u32_rows(rows, n, 32, g, dev)
+        vals = u32_rows(rows, n, 32, g, dev)
+        for width in range(0, 33):      # K7 at every width
             same("K7", encode_cuda.pack_rows_cuda(vals, width),
                  encode_cuda.pack_rows_plain(vals, width),
                  f"width={width} rows={rows} n={n}")
+        for width in range(1, 33):      # K3 at its width classes, K2 at all
             words = encode_cuda.pack_rows_plain(
                 u32_rows(rows, n, width, g, dev), width)
-            same("K3", decode_cuda.unpack_rows_cuda(words, width, n),
-                 decode_cuda.unpack_rows_plain(words, width, n),
-                 f"width={width} rows={rows} n={n}")
+            if width in (1, 7, 16, 24, 32):
+                same("K3", decode_cuda.unpack_rows_cuda(words, width, n),
+                     decode_cuda.unpack_rows_plain(words, width, n),
+                     f"width={width} rows={rows} n={n}")
             if width > 24:
                 continue
             keys = torch.randint(0, 1 << 32, (rows, 2), generator=g,
@@ -613,6 +755,24 @@ def timed(fn):
     return out, time.perf_counter() - t, torch.cuda.max_memory_allocated()
 
 
+def timed_busy(fn):
+    """``timed(fn)`` inside a torch.profiler trace of the card alone, plus
+    the device's busy seconds in it: the union of the intervals of its
+    kernels, copies and sets; None where the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, wall, peak = timed(fn)
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in prof.events()
+                              if e.device_type == DeviceType.CUDA):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return out, wall, peak, busy / 1e6 if busy > 0 else None
+
+
 def check_main_path(mt, dev):
     from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda
     seg = snapshot(mt, dev)
@@ -623,10 +783,11 @@ def check_main_path(mt, dev):
     decode_cuda.decode_cuda.launches = 0
     encode_cuda.pack_cuda.launches = 0
     blob, t_enc, m_enc = timed(lambda: mt.compress_segment(seg, seed=SEED))
+    # no device given: the entry points run on the card by default
     fused, t_fus, m_fus = timed(
-        lambda: mt.decompress_segment(blob, fused=True, device=dev))
+        lambda: mt.decompress_segment(blob, fused=True))
     generic, t_gen, m_gen = timed(
-        lambda: mt.decompress_segment(blob, fused=False, device=dev))
+        lambda: mt.decompress_segment(blob, fused=False))
     launches = {"K1": decode_cuda.decode_cuda.launches,
                 "K4": encode_cuda.pack_cuda.launches}
 
@@ -695,6 +856,10 @@ def time_kernels(mt, seg, dev):
     err4 = max_abs_err(k4(), k4_plain())
     if err1 or err4:
         raise AssertionError(f"kernel != plain at full size: {err1}, {err4}")
+    # the decode's float work: grain and bin builds, bin + u, the FMA (2),
+    # the rewrap's compare and add: 7 an element
+    note_work("K1", [words], [k1()], 7.0 * n)
+    note_work("K4", [bins], [words])
     t = {name: cuda_ms(fn) for name, fn in
          (("K1", k1), ("K1 plain", k1_plain), ("K4", k4),
           ("K4 plain", k4_plain))}
@@ -789,17 +954,21 @@ def check_snapshot_path(mt, dev):
 
     reset_counts()
     buf = io.BytesIO()
-    stats, t_enc, m_enc = timed(lambda: mt.compress_snapshot(
+    stats, t_enc, m_enc, b_enc = timed_busy(lambda: mt.compress_snapshot(
         buf, pos, vel, ids, spec, SNAP_BLOCKS, seed=SEED, mass=mass))
     blob = buf.getvalue()
-    out, t_dec, m_dec = timed(lambda: mt.decompress_snapshot(
-        io.BytesIO(blob), batched=True, device=dev))
+    out, t_dec, m_dec, b_dec = timed_busy(lambda: mt.decompress_snapshot(
+        io.BytesIO(blob), batched=True))
     launches = {k: fn.launches for k, fn in launch_counted().items()}
 
-    for name, t, m in (("compress_snapshot", t_enc, m_enc),
-                       ("decompress_snapshot(batched)", t_dec, m_dec)):
+    for name, t, m, b in (("compress_snapshot", t_enc, m_enc, b_enc),
+                          ("decompress_snapshot(batched)", t_dec, m_dec,
+                           b_dec)):
+        busy = "not measured" if b is None else \
+            f"{b:.4f} s ({100 * b / t:.2f}%)"
         log(f"phase 5: {name}: {t:.4f} s wall, {raw / t / 1e9:.3f} GB/s of "
-            f"raw f32/u64 bytes, peak device memory {m / 2**30:.3f} GiB")
+            f"raw f32/u64 bytes, peak device memory {m / 2**30:.3f} GiB, "
+            f"device busy {busy} (torch.profiler)")
     log(f"phase 5: {n} particles in {SNAP_BLOCKS} blocks, {raw} raw bytes "
         f"-> {len(blob)} file bytes (ratio {raw / len(blob):.3f}); depths "
         f"{ {k: v for k, v in stats.items() if k not in ('bytes',)} }")
@@ -887,7 +1056,68 @@ def time_rows_kernels(mt, data, dev):
         times[k + " plain"] = cuda_ms(plain)
         log(f"phase 5: {k} at {shape}: {times[k]:.4f} ms, plain torch "
             f"{times[k + ' plain']:.4f} ms (CUDA events, median of 5)")
+    note_work("K6", [rows, box, anchor], list(fns["K6"][0]()),
+              6.0 * rows.numel())
+    note_work("K7", [bins], [fns["K7"][0]()])
+    note_work("K2", [words, keys.contiguous(), x0d, dxd], [fns["K2"][0]()],
+              7.0 * B * nb)
+    note_work("K3", [id_words], [fns["K3"][0]()])
+    # the nearest library call to K6: the rows' min and max without the
+    # unwrap (it also orders -0 and +0 otherwise)
+    times["K6 library"] = cuda_ms(lambda: torch.aminmax(rows, dim=1))
+    log(f"phase 5: torch.aminmax(rows, dim=1) beside K6: "
+        f"{times['K6 library']:.4f} ms (nearest call, no unwrap, differs "
+        "on +-0; CUDA events, median of 5)")
+    for k, kernel in (("K2", "decode_tiles"), ("K7", "pack_tiles")):
+        times[k + " device"] = device_ms(fns[k][0], kernel)
+        log(f"phase 5: {k} device time alone (torch.profiler, 5 calls): "
+            f"{times[k + ' device']} ms against {times[k]:.4f} ms with its "
+            "wrapper (CUDA events)")
+    times["K2 widths"], times["K7 widths"] = time_rows_widths(
+        stats, B, nb, {"K2": times["K2"], "K7": times["K7"]}, depth, dev)
     return times, errs
+
+
+def time_rows_widths(stats, B: int, nb: int, at_depth: dict, depth: int,
+                     dev):
+    """K2 and K7 at every width the snapshot path decodes and packs:
+    K2 over 64 rows of 2^21 at the velocity and mass depths, K7 over the
+    192 velocity rows and the 64 mass and ID rows, on random bins; each
+    checked against its plain version, then timed (CUDA events, median of
+    5).  ``at_depth`` holds the times at the position depth."""
+    from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    k2 = {f"{depth} bits, {B} rows": at_depth["K2"]}
+    k7 = {f"{depth} bits, {3 * B} rows": at_depth["K7"]}
+    keys = torch.randint(0, 1 << 32, (B, 2), generator=g, device=dev)
+    x0 = torch.rand(B, generator=g, device=dev)
+    dx = torch.full((B,), 600.0, device=dev)
+    for width in (stats["vel_depth"], stats["mass_depth"]):
+        words = encode_cuda.pack_rows_cuda(u32_rows(B, nb, width, g, dev),
+                                           width)
+        fast = lambda: decode_cuda.decode_rows_cuda(  # noqa: E731
+            words, keys, width, nb, x0, dx)
+        want = decode_cuda.decode_rows_plain(
+            words, keys, x0, kernels.bin_width(dx, width), 0.0, nb, width)
+        if not torch.equal(bits(fast()), bits(want)):
+            raise AssertionError(f"K2 != plain at width {width}")
+        del want
+        k2[f"{width} bits, {B} rows"] = cuda_ms(fast)
+    for width, rows in ((stats["vel_depth"], 3 * B),
+                        (stats["mass_depth"], B),
+                        (stats["id_widths"][0], B)):
+        vals = u32_rows(rows, nb, width, g, dev)
+        if not torch.equal(encode_cuda.pack_rows_cuda(vals, width),
+                           encode_cuda.pack_rows_plain(vals, width)):
+            raise AssertionError(f"K7 != plain at width {width}")
+        k7[f"{width} bits, {rows} rows"] = cuda_ms(
+            lambda: encode_cuda.pack_rows_cuda(vals, width))
+        del vals
+    log(f"phase 5: K2 at n {nb} by width: "
+        f"{ {k: round(v, 4) for k, v in k2.items()} } ms; K7 by width: "
+        f"{ {k: round(v, 4) for k, v in k7.items()} } ms (CUDA events, "
+        "median of 5)")
+    return k2, k7
 
 
 # ---------------------------------------------------------------------------
@@ -1030,6 +1260,16 @@ def time_delta_kernels(mt, data, dev):
         times[k + " plain"] = cuda_ms(plain)
         log(f"phase 6: {k} at {shape}: {times[k]:.4f} ms, plain torch "
             f"{times[k + ' plain']:.4f} ms (CUDA events, median of 5)")
+    table = torch.from_numpy(np.asarray(widths, np.uint8))
+    note_work("K9", [deltas], [bins])
+    note_work("K10", [body, table], [bins])
+    note_work("K11", [body, table], [fns["K11"][0]()], 7.0 * n)
+    # the library's prefix sum on the same deltas: int32 sums wrap as the
+    # u32 scan's do
+    times["K9 library"] = cuda_ms(
+        lambda: torch.cumsum(deltas, 0, dtype=torch.int32))
+    log(f"phase 6: torch.cumsum(deltas, 0, dtype=torch.int32) beside K9: "
+        f"{times['K9 library']:.4f} ms (CUDA events, median of 5)")
     return times, errs
 
 
@@ -1302,6 +1542,9 @@ def check_fast_recip(mt, dev):
                                                                     *args))}
     log(f"phase 7(e): K5 at width {level}, n {n}: {t['K5']:.4f} ms, plain "
         f"torch {t['K5 plain']:.4f} ms (CUDA events, median of 5)")
+    # the recip map's float work: the unwrap's two subtractions and two
+    # compares, (x - x0) * recip * 2^w, the clamp's compare: 8 an element
+    note_work("K5", [x], [words], 8.0 * n)
     return t
 
 
@@ -1369,6 +1612,12 @@ def time_recip_rows(mt, data, dev):
         times[k + " plain"] = cuda_ms(plain)
         log(f"phase 7(e): {k} at {shape}: {times[k]:.4f} ms, plain torch "
             f"{times[k + ' plain']:.4f} ms (CUDA events, median of 5)")
+    note_work("K8", [rows, x0, recip, box, anchors],
+              [fns["K8"][0]()], 8.0 * rows.numel())
+    # K12 reads x once in this count (stats, then the encode, on the card
+    # read it twice): the stats' 6 and the map's 8 float operations
+    note_work("K12", [x3, anchors], list(fns["K12"][0]()),
+              14.0 * x3.numel())
     times["K12 split"] = cuda_ms(split)
     log(f"phase 7(e): one-pass K12 {times['K12']:.4f} ms vs the split CUDA "
         f"path (K6, host recip, K8) {times['K12 split']:.4f} ms (CUDA "
@@ -1392,9 +1641,7 @@ def main() -> int:
     cuda_lib.lib()
     log(f"phase 1: kernels built and loaded in "
         f"{time.perf_counter() - t:.2f} s")
-    for line in cuda_lib.build_log.splitlines():
-        if "registers" in line:
-            log(f"phase 1: ptxas: {line.split(':', 1)[-1].strip()}")
+    kernel_report(cuda_lib.build_log)
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     err1 = check_decode_kernel(dev, g)
@@ -1425,75 +1672,70 @@ def main() -> int:
     bins13 = u32_rows(1, 2 * 16384, 17, g, dev)[0]
     t13 = {"K13": cuda_ms(lambda: encode_cuda.pack_cuda(bins13, 17)),
            "K13 plain": cuda_ms(lambda: encode_cuda.pack_plain(bins13, 17))}
+    note_work("K13", [bins13], [encode_cuda.pack_cuda(bins13, 17)])
     log(f"phase 7(e): K13 as K4's kernel at width 17, n {2 * 16384}: "
         f"{t13['K13']:.4f} ms, plain torch {t13['K13 plain']:.4f} ms (CUDA "
         "events, median of 5)")
 
-    kernels = [
-        {"name": "decode_uniform (K1)", "route": "cuda",
-         "source": "minnow_c_tpu_torch/csrc/decode.cu",
-         "replaces": "minnow_c_tpu/ops/decode_pallas.py:183",
-         "launches": launches["K1"],
-         "max_abs_err": max(err1, e1, cli_e["K1"]),
-         "ms": times["K1"], "plain_ms": times["K1 plain"]},
-        {"name": "pack_uniform (K4)", "route": "cuda",
-         "source": "minnow_c_tpu_torch/csrc/pack.cu",
-         "replaces": "minnow_c_tpu/ops/encode_pallas.py:103",
-         "launches": launches["K4"],
-         "max_abs_err": max(err4, e4, cli_e["K4"]),
-         "ms": times["K4"], "plain_ms": times["K4 plain"]},
-    ]
-    for k, name, src, rep_ in (
-            ("K2", "decode_rows (K2)", "decode.cu", "decode_pallas.py:361"),
-            ("K3", "unpack_rows (K3)", "decode.cu", "decode_pallas.py:291"),
-            ("K6", "stats_rows (K6)", "stats.cu", "encode_pallas.py:501"),
-            ("K7", "pack_rows (K7)", "pack.cu", "encode_pallas.py:147")):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"minnow_c_tpu_torch/csrc/{src}",
-            "replaces": f"minnow_c_tpu/ops/{rep_}",
-            "launches": snap_launches[k],
-            "max_abs_err": max(rows_err[k], rows_e[k]),
-            "ms": rows_times[k], "plain_ms": rows_times[k + " plain"]})
-    for k, name, src, rep_ in (
-            ("K9", "cumsum_u32 (K9)", "scan.cu", "scan_pallas.py:106"),
-            ("K10", "chunked_decode (K10)", "chunked.cu",
-             "chunked_pallas.py:208"),
-            ("K11", "chunked_decode_floats (K11)", "chunked.cu",
-             "chunked_pallas.py:346")):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"minnow_c_tpu_torch/csrc/{src}",
-            "replaces": f"minnow_c_tpu/ops/{rep_}",
-            "launches": delta_launches[k],
-            "max_abs_err": max(delta_err[k], delta_e[k]),
-            "ms": delta_times[k], "plain_ms": delta_times[k + " plain"]})
-    kernels += [
-        {"name": "encode_recip (K5)", "route": "cuda",
-         "source": "minnow_c_tpu_torch/csrc/encode_recip.cu",
-         "replaces": "minnow_c_tpu/ops/encode_pallas.py:368",
-         "launches": cli_launches["K5"],
-         "max_abs_err": max(recip_err["K5"], cli_e["K5"]),
-         "ms": k5_times["K5"], "plain_ms": k5_times["K5 plain"]},
-        {"name": "encode_recip_rows (K8)", "route": "cuda",
-         "source": "minnow_c_tpu_torch/csrc/encode_recip.cu",
-         "replaces": "minnow_c_tpu/ops/encode_pallas.py:395",
-         "launches": recip_launches["K8"],
-         "max_abs_err": max(recip_err["K8"], recip_e["K8"]),
-         "ms": recip_times["K8"], "plain_ms": recip_times["K8 plain"]},
-        {"name": "encode_recip_fused_blocks (K12)", "route": "cuda",
-         "source": "minnow_c_tpu_torch/csrc/encode_recip.cu",
-         "replaces": "minnow_c_tpu/ops/encode_pallas.py:637",
-         "launches": k12_launches,
-         "max_abs_err": max(recip_err["K12"], recip_e["K12"]),
-         "ms": recip_times["K12"], "plain_ms": recip_times["K12 plain"]},
-        {"name": "pack_pallas_tiles (K13) as pack_uniform (K4)",
-         "route": "cuda", "source": "minnow_c_tpu_torch/csrc/pack.cu",
-         "replaces": "minnow_c_tpu/ops/pack_pallas.py:76",
-         "launches": launches["K4"], "max_abs_err": err13,
-         "ms": t13["K13"], "plain_ms": t13["K13 plain"]},
-    ]
-    kernels.sort(key=lambda k: int(k["name"].split("(K")[1].split(")")[0]))
+    # (name, source, replaced Pallas function, launches on its path,
+    #  max_abs_err, times with "<K>" / "<K> plain" / "<K> library" keys)
+    rows_ = {
+        "K1": ("decode_uniform", "decode.cu", "decode_pallas.py:183",
+               launches["K1"], max(err1, e1, cli_e["K1"]), times),
+        "K2": ("decode_rows", "decode.cu", "decode_pallas.py:361",
+               snap_launches["K2"], max(rows_err["K2"], rows_e["K2"]),
+               rows_times),
+        "K3": ("unpack_rows", "decode.cu", "decode_pallas.py:291",
+               snap_launches["K3"], max(rows_err["K3"], rows_e["K3"]),
+               rows_times),
+        "K4": ("pack_uniform", "pack.cu", "encode_pallas.py:103",
+               launches["K4"], max(err4, e4, cli_e["K4"]), times),
+        "K5": ("encode_recip", "encode_recip.cu", "encode_pallas.py:368",
+               cli_launches["K5"], max(recip_err["K5"], cli_e["K5"]),
+               k5_times),
+        "K6": ("stats_rows", "stats.cu", "encode_pallas.py:501",
+               snap_launches["K6"], max(rows_err["K6"], rows_e["K6"]),
+               rows_times),
+        "K7": ("pack_rows", "pack.cu", "encode_pallas.py:147",
+               snap_launches["K7"], max(rows_err["K7"], rows_e["K7"]),
+               rows_times),
+        "K8": ("encode_recip_rows", "encode_recip.cu",
+               "encode_pallas.py:395", recip_launches["K8"],
+               max(recip_err["K8"], recip_e["K8"]), recip_times),
+        "K9": ("cumsum_u32", "scan.cu", "scan_pallas.py:106",
+               delta_launches["K9"], max(delta_err["K9"], delta_e["K9"]),
+               delta_times),
+        "K10": ("chunked_decode", "chunked.cu", "chunked_pallas.py:208",
+                delta_launches["K10"], max(delta_err["K10"],
+                                           delta_e["K10"]), delta_times),
+        "K11": ("chunked_decode_floats", "chunked.cu",
+                "chunked_pallas.py:346", delta_launches["K11"],
+                max(delta_err["K11"], delta_e["K11"]), delta_times),
+        "K12": ("encode_recip_fused_blocks", "encode_recip.cu",
+                "encode_pallas.py:637", k12_launches,
+                max(recip_err["K12"], recip_e["K12"]), recip_times),
+        "K13": ("pack_pallas_tiles (K13) as pack_uniform (K4)", "pack.cu",
+                "pack_pallas.py:76", launches["K4"], err13, t13),
+    }
+    library_calls = {
+        "K6": "torch.aminmax(rows, dim=1): nearest call, no unwrap, "
+              "differs on +-0",
+        "K9": "torch.cumsum(x, 0, dtype=torch.int32)"}
+    kernels = []
+    for k, (name, src, rep_, n_launch, err, t) in rows_.items():
+        b_ms, b_by = bound(k)
+        row = {"name": name if "(K" in name else f"{name} ({k})",
+               "route": "cuda", "source": f"minnow_c_tpu_torch/csrc/{src}",
+               "replaces": f"minnow_c_tpu/ops/{rep_}", "launches": n_launch,
+               "max_abs_err": err, "ms": t[k], "plain_ms": t[k + " plain"],
+               "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / t[k],
+               "library_ms": t.get(k + " library")}
+        if k in library_calls:
+            row["library_call"] = library_calls[k]
+        if k in ("K2", "K7"):
+            row["device_ms"] = t[k + " device"]
+            row["widths_ms"] = t[k + " widths"]
+        kernels.append(row)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,9 +13,10 @@ Usage::
     python -m minnow_c_tpu_torch query      out.g2.min --origin X Y Z
                                             --size W H D
 
-compress and decompress run on ``--device`` (default ``cuda``; there is no
-fallback to the CPU).  Not ported yet: the Illustris HDF5 driver (HDF5
-inputs, ``.il.min`` files) and the Sort and Cart codecs of ``repack``.
+compress, decompress and repack run on ``--device`` (default ``cuda``;
+there is no fallback to the CPU).  Not ported yet: the Illustris HDF5
+driver (HDF5 inputs, ``.il.min`` files) and the Sort and Cart codecs of
+``repack``.
 """
 
 from __future__ import annotations
@@ -104,6 +105,8 @@ def main(argv=None):
                         "Cart are not ported yet)")
     t.add_argument("--codec-version", default=None, metavar="X.Y.Z",
                    help="codec version (default: newest registered)")
+    t.add_argument("--device", default="cuda",
+                   help="torch device of the transcode (default: cuda)")
 
     v = sub.add_parser("verify", help="integrity-check every segment, "
                                       "field, and block checksum")
@@ -203,7 +206,8 @@ def main(argv=None):
                 if len(fin.read(1)) == 0:
                     break  # end of file
                 fin.seek(pos)
-                pairs = ((transcode_segment(seg, algo, version=cver),
+                pairs = ((transcode_segment(seg, algo, version=cver,
+                                            device=args.device),
                           (hd.origin, hd.width))
                          for hd, seg in seg_io.iter_segments(fin))
                 n += seg_io.write_segments_streaming(fo, pairs)

@@ -104,7 +104,7 @@ class CoilV1_1(TrimV1_0):
         return undo_delta_zigzag_first(first, z)
 
     def decompress_field_fused(self, hd, blocks, field_index: int,
-                               device="cpu"):
+                               device):
         """Coil v1.1 float fields: K11 per 16384-chunk plane, or the bins
         plus the engine's undo tail (see TrimV1_0's for the contract); the
         bits equal decompress + dequantize."""

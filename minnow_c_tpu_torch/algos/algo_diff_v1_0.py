@@ -68,7 +68,7 @@ class DiffV1_0(TrimV1_0):
         return _bins(words[0], z)
 
     def decompress_field_fused(self, hd, blocks, field_index: int,
-                               device="cpu"):
+                               device):
         """Diff-coded float fields in one device pass per plane (see
         TrimV1_0's for the contract); the bits equal decompress +
         dequantize."""

@@ -190,7 +190,7 @@ class TrimV1_0:
 
     def decompress_field_fused(self, hd: FieldHeader,
                                blocks: List[Optional[bytes]],
-                               field_index: int, device="cpu"):
+                               field_index: int, device):
         """words -> Field in one fused pass per plane (unpack + dither +
         undo + rewrap): the decode kernel (``ops.decode_cuda``) on CUDA, its
         plain twin (``ops.fastpath.fast_uniform_decode``) on the CPU.
@@ -292,7 +292,7 @@ class TrimV1_0:
     # -- decompress --------------------------------------------------------
 
     def decompress(self, hd: FieldHeader, blocks: List[Optional[bytes]],
-                   device="cpu") -> QField:
+                   device) -> QField:
         code = hd.field_code
         if blocks[0] is None:
             # Metadata loss cannot be localized -- whole field invalid

@@ -1,15 +1,16 @@
 // The decode kernels of the Trim planes.
 //
-// K1 (decode_uniform_kernel): fused uniform decode of one plane -- unpack,
+// K2 (decode_tiles_kernel): fused decode of R independent streams -- unpack,
 // Threefry-2x32-13 dither, undo of the bin index, optional periodic rewrap --
-// in one pass.  Replaces minnow_c_tpu/ops/decode_pallas.py:decode_pallas
-// (_decode_body, _unpack_128, _threefry13_tile).
+// each row with its own key, x0 and bin width, the dither counter restarting
+// at 0 in every row.  Replaces minnow_c_tpu/ops/decode_pallas.py:
+// decode_pallas_rows (_decode_rows_kernel).  The snapshot reader decodes all
+// blocks of a field dimension with it.
 //
-// K2 (decode_rows_kernel): K1 over R independent streams in one launch, each
-// with its own key, x0 and bin width, the dither counter restarting at 0 in
-// every row.  Replaces decode_pallas.py:decode_pallas_rows
-// (_decode_rows_kernel).  The snapshot reader decodes all blocks of a field
-// dimension with it.
+// K1 is the same kernel at one row: decode of one plane of any length whose
+// first element has dither counter ctr0 (the plane's first element / 4).
+// Replaces decode_pallas.py:decode_pallas (_decode_body, _unpack_128,
+// _threefry13_tile).
 //
 // K3 (unpack_rows_kernel): bare unpack of R streams to u32 bins.  Replaces
 // decode_pallas.py:unpack_pallas_rows (_unpack_rows_kernel); the snapshot
@@ -19,27 +20,44 @@
 // JAX package's decode (the dither is part of the wire, so the cipher is
 // Threefry bit for bit, dither.cuh).
 //
-// Bound on the card: memory.  Per element K1 and K2 read width/8 bytes of
-// packed words and write 4 bytes of f32; the 13 cipher rounds are shared by
-// four elements, so the arithmetic stays below the bandwidth line.  K3 reads
-// width/8 bytes and writes 4.
+// Bound on the card: memory, with the arithmetic close behind.  Per element
+// K1 and K2 read width/8 bytes of packed words and write 4 bytes of f32
+// (0.24 ms for 64 rows of 2^21 at 16 bits at 3.35 TB/s).  Threefry-2x32-13
+// costs about 50 integer operations per counter, shared by four elements,
+// and each element adds its extract, the two float builds, the add, the FMA
+// and the rewrap: some 25 integer and float operations an element, about as
+// long again on the card's integer lanes.  K3 reads width/8 bytes and writes
+// 4.
 //
-// Design: K1 and K2 run one thread per Threefry counter, i.e. 4 consecutive
-// elements per thread, through one __device__ function (decode_quad).  Each
-// element takes a 64-bit funnel window of two words (served from L1 for
-// neighbouring threads).  The dither and the undo of a bin are dither.cuh's,
-// shared with K11 (chunked.cu).  Every float step names its rounding
-// (__fadd_rn, __fmaf_rn), and the library is compiled with -fmad=false so
-// that the compiler contracts nothing else.  The rows kernels flatten (row,
-// element) onto a 1-D grid, so any row count fits the grid's x dimension; K2
-// splits the flat index into row and counter, K3 needs no split at all,
-// because 32 | n starts every row's stream on a word boundary and the rows
-// are one contiguous stream.
-// Left for later work: vectorised 16-byte loads/stores, staging the words of
-// a block in shared memory, and grid-stride loops over a persistent grid.
+// Design of K1 / K2.  With 32 | n every row is (n / 32) * width words and
+// starts on a word, so the R rows are one contiguous stream of words and
+// one contiguous stream of floats: the kernel tiles that stream, not the
+// rows.  A tile is `tile` elements (a multiple of 128, from the wrapper's
+// plan, ops/decode_cuda.decode_plan), i.e. tile / 32 * width words, which
+// start on a 16-byte boundary when the stream does.  A persistent grid of a
+// few blocks per SM walks the tiles; each block copies the next tile's words
+// into shared memory with cp.async (16-byte copies, or 4-byte ones when the
+// stream's pointer is not 16-byte aligned and for a ragged tail) while it
+// decodes the current one from the other buffer.  A thread decodes one
+// quad (the four elements of one Threefry counter) at a time, neighbouring
+// threads neighbouring quads, and writes it as one 16-byte store, so a
+// warp's store covers 512 contiguous bytes.  The width is a template
+// parameter (1-24), so every shift and mask is a constant.  Index math
+// inside a tile is 32-bit: a tile's first row and its offset in that row are
+// found once per tile (one thread, one 64-bit division), and a quad past the
+// end of that row finds its row by a 32-bit division by the row length
+// through a precomputed magic number with one correction step.  Every float
+// step names its rounding (__fadd_rn, __fmaf_rn, __fsub_rn) and the library
+// builds with -fmad=false -ftz=true; the grain's and the bin's floats are
+// built exactly from bits (dither.cuh).
+//
+// K3 keeps one thread per element over the flattened rows: 32 | n starts
+// every row's stream on a word boundary and the rows are one contiguous
+// stream.  Left for later work: K3 on K2's tile loader.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <utility>
 
 #include "dither.cuh"
 
@@ -47,63 +65,171 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// Decodes elements e0 .. e0+3 (those below n) of one stream: words holds its
-// n_words packed u32 words, out its n floats, and the four elements share
-// dither counter ctr.
-__device__ __forceinline__ void decode_quad(
-    const uint32_t* __restrict__ words, int64_t n_words, uint32_t k0,
-    uint32_t k1, uint32_t ctr, int64_t e0, int64_t n, int width, float x0,
-    float dx_bin, float box, int periodic, float* __restrict__ out) {
-  float u[4];
-  mnw::dither_quad(k0, k1, ctr, u);
-  const uint32_t mask = (1u << width) - 1u;  // width <= 24
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    const int64_t e = e0 + l;
-    if (e >= n) break;
-    const uint64_t start = static_cast<uint64_t>(e) * width;
-    const int64_t j = static_cast<int64_t>(start >> 5);
-    uint64_t window = words[j];
-    if (j + 1 < n_words) window |= static_cast<uint64_t>(words[j + 1]) << 32;
-    const uint32_t bin = static_cast<uint32_t>(window >> (start & 31)) & mask;
-    out[e] = mnw::undo_bin(bin, u[l], x0, dx_bin, box, periodic);
+__device__ __forceinline__ void cp_async16(uint32_t* dst,
+                                           const uint32_t* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t* dst,
+                                          const uint32_t* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+struct DecodeArgs {
+  const uint32_t* words;  // the flat stream of packed words
+  int64_t n_words;        // its length
+  int64_t total;          // elements in all rows
+  uint32_t n;             // elements per row (= total for one row)
+  uint32_t n_magic;       // floor(2^32 / n), 0 for one row
+  int64_t tiles;          // ceil(total / tile)
+  int tile;               // elements per tile, a multiple of 128
+  int vec16;              // the stream starts on a 16-byte boundary
+  const int64_t* keys;    // per-row keys (low 32 bits), or null: one stream
+  int64_t key_row;        // keys' strides in elements: row r's pair is
+  int64_t key_col;        // keys[r * key_row], keys[r * key_row + key_col]
+  const float* x0;        // (R,) per-row x0 (with keys)
+  const float* dx;        // (R,) per-row full ranges (with keys)
+  uint32_t k0, k1;        // one stream's key, x0 and full range
+  float x0s, dxs;
+  uint32_t ctr0;          // dither counter of element 0 of every row
+  float box;
+  int periodic;
+  float* out;
+};
+
+// Copies the words of tile t into buf (cp.async; the caller commits).
+template <int W>
+__device__ __forceinline__ void load_tile(const DecodeArgs& a, int64_t t,
+                                          uint32_t* buf) {
+  const int wpt = a.tile / 32 * W;
+  const int64_t w0 = t * wpt;
+  const int64_t left = a.n_words - w0;
+  const int count = left < wpt ? static_cast<int>(left) : wpt;
+  const uint32_t* src = a.words + w0;
+  int done = 0;
+  if (a.vec16) {
+    done = count & ~3;
+    for (int k = threadIdx.x * 4; k < done; k += kThreads * 4) {
+      cp_async16(buf + k, src + k);
+    }
+  }
+  for (int k = done + threadIdx.x; k < count; k += kThreads) {
+    cp_async4(buf + k, src + k);
   }
 }
 
-// K1.  Element e of the plane uses dither counter ctr0 + e/4 (ctr0 = the
-// plane's first element / 4).
-__global__ void decode_uniform_kernel(const uint32_t* __restrict__ words,
-                                      int64_t n_words, uint32_t k0,
-                                      uint32_t k1, float x0, float dx_bin,
-                                      float box, int64_t n, int width,
-                                      int64_t ctr0, int periodic,
-                                      float* __restrict__ out) {
-  const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (q * 4 >= n) return;
-  decode_quad(words, n_words, k0, k1, static_cast<uint32_t>(ctr0 + q), q * 4,
-              n, width, x0, dx_bin, box, periodic, out);
+// A row's dither key, x0 and bin width f32(dx) / 2^W.  The product by 2^-W
+// is exact, and a subnormal operand or result flushes to zero
+// (-ftz=true), as kernels.bin_width flushes them.
+struct RowParams {
+  uint32_t k0, k1;
+  float x0, dx_bin;
+};
+
+template <int W>
+__device__ __forceinline__ RowParams row_params(const DecodeArgs& a,
+                                                int64_t row) {
+  const float scale = __int_as_float((127 - W) << 23);  // 2^-W
+  if (!a.keys) return {a.k0, a.k1, a.x0s, __fmul_rn(a.dxs, scale)};
+  const int64_t* key = a.keys + row * a.key_row;
+  return {static_cast<uint32_t>(key[0]),
+          static_cast<uint32_t>(key[a.key_col]), a.x0[row],
+          __fmul_rn(a.dx[row], scale)};
 }
 
-// K2.  rows streams of n elements (32 | n), each (n / 32) * width words;
-// keys holds (k0, k1) per row.
-__global__ void decode_rows_kernel(const uint32_t* __restrict__ words,
-                                   int64_t rows, int64_t n, int width,
-                                   const uint32_t* __restrict__ keys,
-                                   const float* __restrict__ x0,
-                                   const float* __restrict__ dx_bin,
-                                   float box, int periodic,
-                                   float* __restrict__ out) {
-  const int64_t quads = n / 4;
-  const int64_t q = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (q >= rows * quads) return;
-  const int64_t r = q / quads;
-  const int64_t c = q - r * quads;  // the counter, from 0 in every row
-  const int64_t row_words = n / 32 * width;
-  decode_quad(words + r * row_words, row_words, keys[2 * r], keys[2 * r + 1],
-              static_cast<uint32_t>(c), c * 4, n, width, x0[r], dx_bin[r],
-              box, periodic, out + r * n);
+// The W-bit field of element i of the tile in buf (32-bit bit index; the
+// buffer holds a spare word past the tile for the funnel's high word).
+template <int W>
+__device__ __forceinline__ uint32_t field(const uint32_t* buf, uint32_t i) {
+  const uint32_t bit = i * W;
+  const uint32_t j = bit >> 5;
+  const uint32_t v = __funnelshift_r(buf[j], buf[j + 1], bit & 31);
+  return v & ((1u << W) - 1u);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, 4)
+decode_tiles_kernel(const DecodeArgs a) {
+  extern __shared__ uint4 smem4[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(smem4);
+  const int stage = a.tile / 32 * W + 4;  // words a buffer, 16-byte multiple
+  __shared__ int64_t row0_s;
+  __shared__ uint32_t off0_s;
+
+  int64_t t = blockIdx.x;
+  if (t < a.tiles) load_tile<W>(a, t, smem);
+  cp_async_commit();
+  for (int it = 0; t < a.tiles; ++it, t += gridDim.x) {
+    const int64_t next = t + gridDim.x;
+    if (next < a.tiles) {
+      load_tile<W>(a, next, smem + ((it + 1) & 1) * stage);
+    }
+    cp_async_commit();
+    const int64_t e0 = t * a.tile;
+    if (threadIdx.x == 0) {
+      const int64_t r0 = a.n_magic ? e0 / a.n : 0;
+      row0_s = r0;
+      off0_s = static_cast<uint32_t>(e0 - r0 * a.n);
+    }
+    cp_async_wait_prior();
+    __syncthreads();
+    const uint32_t* buf = smem + (it & 1) * stage;
+    const int64_t row0 = row0_s;
+    const uint32_t off0 = off0_s;
+    const int64_t left = a.total - e0;
+    const uint32_t count = left < a.tile ? static_cast<uint32_t>(left)
+                                         : static_cast<uint32_t>(a.tile);
+    // the tile's first row, and whether the whole tile lies in it (rows of
+    // at least a tile: the parameters load once a tile)
+    const RowParams first = row_params<W>(a, row0);
+    const bool one_row = !a.n_magic || off0 + count <= a.n;
+    for (uint32_t i = threadIdx.x * 4; i < count; i += kThreads * 4) {
+      uint32_t off = off0 + i;
+      RowParams p = first;
+      if (!one_row) {
+        // the quad's row and its offset in it: a 32-bit division through
+        // the magic number, one correction step
+        uint32_t q = __umulhi(off, a.n_magic);
+        off -= q * a.n;
+        if (off >= a.n) {
+          ++q;
+          off -= a.n;
+        }
+        p = row_params<W>(a, row0 + q);
+      }
+      float u[4];
+      mnw::dither_quad(p.k0, p.k1, a.ctr0 + (off >> 2), u);
+      float v[4];
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        v[l] = mnw::undo_binf(mnw::bin_to_float<W>(field<W>(buf, i + l)),
+                              u[l], p.x0, p.dx_bin, a.box, a.periodic);
+      }
+      float* o = a.out + e0 + i;
+      if (i + 4 <= count) {
+        __stwb(reinterpret_cast<float4*>(o),
+               make_float4(v[0], v[1], v[2], v[3]));
+      } else {
+#pragma unroll
+        for (uint32_t l = 0; l < 4; ++l) {
+          if (i + l < count) o[l] = v[l];
+        }
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // K3.  One thread per element of the flattened rows (total = rows * n).
@@ -128,30 +254,46 @@ unsigned grid_for(int64_t threads) {
   return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
 }
 
-}  // namespace
+using DecodeLaunch = void (*)(const DecodeArgs&, unsigned, int, cudaStream_t);
 
-extern "C" int mnw_decode_uniform(const void* words, int64_t n_words,
-                                  uint32_t k0, uint32_t k1, float x0,
-                                  float dx_bin, float box, int64_t n,
-                                  int width, int64_t ctr0, int periodic,
-                                  void* out, void* stream) {
-  decode_uniform_kernel<<<grid_for((n + 3) / 4), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), n_words, k0, k1, x0, dx_bin, box,
-      n, width, ctr0, periodic, static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+template <int W>
+void launch_decode(const DecodeArgs& a, unsigned grid, int smem,
+                   cudaStream_t s) {
+  decode_tiles_kernel<W><<<grid, kThreads, smem, s>>>(a);
 }
 
-extern "C" int mnw_decode_rows(const void* words, int64_t rows, int64_t n,
-                               int width, const void* keys, const void* x0,
-                               const void* dx_bin, float box, int periodic,
-                               void* out, void* stream) {
-  decode_rows_kernel<<<grid_for(rows * (n / 4)), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), rows, n, width,
-      static_cast<const uint32_t*>(keys), static_cast<const float*>(x0),
-      static_cast<const float*>(dx_bin), box, periodic,
-      static_cast<float*>(out));
+template <int... Ws>
+DecodeLaunch decode_table(int width,
+                                    std::integer_sequence<int, Ws...>) {
+  DecodeLaunch fns[] = {&launch_decode<Ws + 1>...};
+  return fns[width - 1];
+}
+
+}  // namespace
+
+// K1 and K2: width 1-24; for K2 int64 keys (strides key_row, key_col in
+// elements), x0 and full ranges dx per row; for K1 null keys, x0 and dx,
+// and the one stream's k0, k1, x0s and full range dxs.  grid, tile and
+// smem_bytes come from the wrapper's plan.
+extern "C" int mnw_decode_tiles(const void* words, int64_t n_words,
+                                int64_t total, int64_t n, uint32_t n_magic,
+                                int64_t tiles, int tile, int vec16,
+                                const void* keys, int64_t key_row,
+                                int64_t key_col, const void* x0,
+                                const void* dx, uint32_t k0, uint32_t k1,
+                                float x0s, float dxs, uint32_t ctr0,
+                                float box, int periodic, int width,
+                                unsigned grid, int smem_bytes, void* out,
+                                void* stream) {
+  if (width < 1 || width > 24) return static_cast<int>(cudaErrorInvalidValue);
+  DecodeArgs a{static_cast<const uint32_t*>(words), n_words, total,
+               static_cast<uint32_t>(n), n_magic, tiles, tile, vec16,
+               static_cast<const int64_t*>(keys), key_row, key_col,
+               static_cast<const float*>(x0), static_cast<const float*>(dx),
+               k0, k1, x0s, dxs, ctr0, box, periodic,
+               static_cast<float*>(out)};
+  decode_table(width, std::make_integer_sequence<int, 24>())(
+      a, grid, smem_bytes, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -210,7 +210,7 @@ def compress(in_fp: BinaryIO, out_fp: BinaryIO,
              seed: int = 0,
              scale_mode: str = "div",
              mass_rel_delta: float = 1e-4,
-             device="cpu") -> dict:
+             device="cuda") -> dict:
     """Gadget-2 snapshot -> .g2.min: the raw header is written first as one
     Fortran-style record, then the chained compressed segments.
 
@@ -221,7 +221,8 @@ def compress(in_fp: BinaryIO, out_fp: BinaryIO,
     accuracy), else linear with an absolute delta of
     ``mass_rel_delta * max|m|``.  The log10 map is not ported yet: a file
     whose per-particle masses are all positive raises NotImplementedError
-    before anything is written.  The arrays are encoded on ``device``."""
+    before anything is written.  The arrays are encoded on ``device``,
+    ``cuda`` unless the caller asks for ``cpu``."""
     hdr, pos, vel, ids, mass = read_snapshot_ext(in_fp)
     n = ids.shape[0]
     import warnings
@@ -270,8 +271,9 @@ def compress(in_fp: BinaryIO, out_fp: BinaryIO,
 
 
 def decompress(in_fp: BinaryIO, out_fp: BinaryIO,
-               device="cpu") -> Gadget2Header:
-    """.g2.min -> Gadget-2 snapshot, decoded on ``device``."""
+               device="cuda") -> Gadget2Header:
+    """.g2.min -> Gadget-2 snapshot, decoded on ``device`` (``cuda``
+    unless the caller asks for ``cpu``)."""
     hdr = Gadget2Header.unpack(_read_record(in_fp))
     fields = {k: v.cpu().numpy() for k, v in
               snapshot.decompress_snapshot(in_fp, device=device).items()}

@@ -164,17 +164,13 @@ def _launch(body, widths, woff, first, chunk, n, zigzag, prefix, floats,
     scratch = torch.empty(2 * used, dtype=torch.int32, device=dev)
     body = body.contiguous()
     k0, k1 = (int(k) & kernels.M32 for k in key)
-    lib = cuda_lib.lib()
-    with torch.cuda.device(dev):
-        rc = lib.mnw_chunked_decode(
-            body.data_ptr(), o_t.data_ptr(), w_t.data_ptr(), used,
-            int(widths[:used].max()), n, int(zigzag), int(prefix),
-            int(first) & kernels.M32, scratch.data_ptr(), int(floats), k0,
-            k1, float(np.float32(x0)), float(dx_bin), float(np.float32(box)),
-            int(periodic), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(rc, "chunked_decode_floats" if floats else
-                   "chunked_decode")
+    cuda_lib.launch(
+        "chunked_decode_floats" if floats else "chunked_decode",
+        cuda_lib.lib().mnw_chunked_decode, dev, body.data_ptr(),
+        o_t.data_ptr(), w_t.data_ptr(), used, int(widths[:used].max()), n,
+        int(zigzag), int(prefix), int(first) & kernels.M32,
+        scratch.data_ptr(), int(floats), k0, k1, float(np.float32(x0)),
+        float(dx_bin), float(np.float32(box)), int(periodic), out.data_ptr())
     return out
 
 

@@ -20,6 +20,8 @@ import os
 import shutil
 import threading
 
+import torch
+
 from ._build import BUILD_DIR, build_locked, run_all
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(
@@ -31,6 +33,7 @@ NVCC_FLAGS = [*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 
 _lock = threading.Lock()
 _lib = None
+_sms = {}
 build_log = ""  # nvcc's output of the last build (ptxas register counts)
 
 
@@ -77,18 +80,15 @@ def lib() -> ctypes.CDLL:
         p, i64, i32, u32, f32 = (ctypes.c_void_p, ctypes.c_int64,
                                  ctypes.c_int, ctypes.c_uint32,
                                  ctypes.c_float)
-        l.mnw_decode_uniform.restype = i32
-        l.mnw_decode_uniform.argtypes = [p, i64, u32, u32, f32, f32, f32,
-                                         i64, i32, i64, i32, p, p]
-        l.mnw_decode_rows.restype = i32
-        l.mnw_decode_rows.argtypes = [p, i64, i64, i32, p, p, p, f32, i32,
-                                      p, p]
+        l.mnw_decode_tiles.restype = i32
+        l.mnw_decode_tiles.argtypes = [p, i64, i64, i64, u32, i64, i32, i32,
+                                       p, i64, i64, p, p, u32, u32, f32, f32,
+                                       u32, f32, i32, i32, u32, i32, p, p]
         l.mnw_unpack_rows.restype = i32
         l.mnw_unpack_rows.argtypes = [p, i64, i64, i32, p, p]
-        l.mnw_pack_uniform.restype = i32
-        l.mnw_pack_uniform.argtypes = [p, i64, i32, i32, p, i64, p]
-        l.mnw_pack_rows.restype = i32
-        l.mnw_pack_rows.argtypes = [p, i64, i64, i32, p, p]
+        l.mnw_pack_tiles.restype = i32
+        l.mnw_pack_tiles.argtypes = [p, i64, i32, i32, i64, i32, i32, u32,
+                                     i32, p, i64, p]
         l.mnw_stats_rows.restype = i32
         l.mnw_stats_rows.argtypes = [p, i64, i64, i64, p, p, i32, p, p, p,
                                      p]
@@ -111,6 +111,33 @@ def lib() -> ctypes.CDLL:
         l.mnw_cuda_error_string.argtypes = [i32]
         _lib = l
         return _lib
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA ``device`` (the persistent grids'
+    size)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sms[index]
+
+
+def launch(what: str, entry, device: torch.device, *args) -> None:
+    """Call the C entry point ``entry(*args, stream)`` on the current
+    stream of CUDA ``device``, made the current device for the call only
+    when it is not already (the guard costs host time on every launch);
+    raise if it returns a CUDA error code."""
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        rc = entry(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(index):
+            rc = entry(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(rc, what)
 
 
 def check(rc: int, what: str) -> None:

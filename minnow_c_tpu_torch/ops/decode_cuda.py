@@ -13,9 +13,10 @@
   ``unpack_pallas_rows``: the bare unpack of R streams to u32 bins.
 
 The rows kernels need ``rows_kernel_eligible``: 32 | n, so no row ends
-inside a word.  Each ``*_cuda`` wrapper launches its CUDA kernel for a
-CUDA tensor and runs the plain version only for a CPU tensor; there is no
-fallback from one to the other.
+inside a word.  K1 and K2 are one CUDA kernel over the flat stream of
+words, cut into tiles by ``decode_plan``.  Each ``*_cuda`` wrapper launches
+its CUDA kernel for a CUDA tensor and runs the plain version only for a CPU
+tensor; there is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -25,6 +26,56 @@ import torch
 
 from . import bitpack, cuda_lib, kernels
 from . import rng as _rng
+
+DECODE_TILE = 4096      # elements per tile of K1 / K2: a multiple of 128
+BLOCKS_PER_SM = 4       # the persistent grid: blocks resident on each SM
+MAX_ROW = 1 << 31       # the kernel's in-tile offsets are 32-bit
+
+
+def decode_plan(width: int, total: int, ptr: int, sms: int) -> dict:
+    """How K1 / K2 cut a flat stream of ``total`` elements packed at
+    ``width`` bits in u32 words at address ``ptr``, for a card
+    of ``sms`` SMs: tile t holds elements [t*tile, (t+1)*tile) and words
+    [t*words_per_tile, (t+1)*words_per_tile) (both cut at the stream's
+    end); the grid's blocks walk tiles b, b + grid, ...; two buffers of
+    words_per_tile + 4 words each in shared memory; 16-byte copies when
+    the stream starts on a 16-byte boundary (every tile then does, as
+    words_per_tile is a multiple of 4), 4-byte copies otherwise."""
+    tiles = -(-total // DECODE_TILE)
+    wpt = DECODE_TILE // 32 * width
+    return {"tile": DECODE_TILE, "tiles": tiles, "words_per_tile": wpt,
+            "grid": max(1, min(tiles, sms * BLOCKS_PER_SM)),
+            "smem_bytes": 2 * (wpt + 4) * 4, "vec16": ptr % 16 == 0}
+
+
+def _launch_decode(words: torch.Tensor, total: int, n: int, width: int,
+                   keys, x0, dx, ctr0: int, box, periodic: bool,
+                   out: torch.Tensor) -> None:
+    """One launch of the K1 / K2 kernel over ``words`` (contiguous, on the
+    card), streams of ``n`` elements, ``total`` in all.  Rows of their own:
+    ``keys`` an (R, 2) int64 tensor of any strides (the kernel reads each
+    key's low 32 bits), ``x0`` and ``dx`` (R,) contiguous f32 tensors, dx
+    the full range (the kernel derives the bin width f32(dx) / 2^width as
+    ``kernels.bin_width`` does).  One stream: ``keys`` a (k0, k1) pair,
+    ``x0`` and ``dx`` host scalars."""
+    if n > MAX_ROW:
+        raise ValueError(f"a row of {n} elements exceeds {MAX_ROW}")
+    plan = decode_plan(width, total, words.data_ptr(),
+                       cuda_lib.sm_count(words.device))
+    if isinstance(keys, torch.Tensor):
+        rows = (keys.data_ptr(), keys.stride(0), keys.stride(1),
+                x0.data_ptr(), dx.data_ptr(), 0, 0, 0.0, 0.0)
+        n_magic = (1 << 32) // n
+    else:
+        rows = (None, 0, 0, None, None, keys[0], keys[1], float(x0),
+                float(dx))
+        n_magic = 0
+    cuda_lib.launch(
+        "decode", cuda_lib.lib().mnw_decode_tiles, words.device,
+        words.data_ptr(), words.numel(), total, n, n_magic, plan["tiles"],
+        plan["tile"], int(plan["vec16"]), *rows, ctr0 & kernels.M32,
+        float(box), int(periodic), width, plan["grid"], plan["smem_bytes"],
+        out.data_ptr())
 
 
 def decode_plain(words: torch.Tensor, k0: int, k1: int, x0, dx_bin, box,
@@ -62,23 +113,16 @@ def decode_cuda(words: torch.Tensor, key, width: int, n: int, x0, dx,
         raise ValueError(f"{words.numel()} words cannot hold {n} elements "
                          f"of {width} bits")
     k0, k1 = (int(k) & kernels.M32 for k in key)
-    x0 = np.float32(x0)
-    dx_bin = kernels.bin_width(dx, width)
-    box = np.float32(box)
+    x0, dx, box = np.float32(x0), np.float32(dx), np.float32(box)
     if words.device.type == "cpu":
-        return decode_plain(words, k0, k1, x0, dx_bin, box, n, width,
-                            elem0, periodic)
+        return decode_plain(words, k0, k1, x0, kernels.bin_width(dx, width),
+                            box, n, width, elem0, periodic)
     if words.device.type != "cuda":
         raise ValueError(f"no decode for device {words.device}")
     words = words[:n_words].contiguous()
     out = torch.empty(n, dtype=torch.float32, device=words.device)
-    lib = cuda_lib.lib()
-    with torch.cuda.device(words.device):
-        rc = lib.mnw_decode_uniform(
-            words.data_ptr(), n_words, k0, k1, float(x0), float(dx_bin),
-            float(box), n, width, elem0 // 4, int(periodic),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(rc, "decode")
+    _launch_decode(words, n, n, width, (k0, k1), x0, dx, elem0 // 4, box,
+                   periodic, out)
     decode_cuda.launches += 1
     return out
 
@@ -132,12 +176,9 @@ def unpack_rows_cuda(words: torch.Tensor, width: int,
     out = torch.empty((rows, n), dtype=torch.int32, device=words.device)
     if rows == 0:
         return out
-    lib = cuda_lib.lib()
-    with torch.cuda.device(words.device):
-        rc = lib.mnw_unpack_rows(words.data_ptr(), rows, n, width,
-                                 out.data_ptr(),
-                                 torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(rc, "unpack_rows")
+    cuda_lib.launch("unpack_rows", cuda_lib.lib().mnw_unpack_rows,
+                    words.device, words.data_ptr(), rows, n, width,
+                    out.data_ptr())
     unpack_rows_cuda.launches += 1
     return out
 
@@ -173,32 +214,37 @@ def decode_rows_cuda(words: torch.Tensor, keys, width: int, n: int, x0, dx,
     _check_rows(words, width, n, 24, "decode_rows")
     dev = words.device
     rows = words.shape[0]
-    keys = torch.as_tensor(keys, device=dev).reshape(rows, 2)
-    x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev).reshape(rows)
-    dx_bin = kernels.bin_width(torch.as_tensor(
-        dx, dtype=torch.float32, device=dev).reshape(rows), width)
     if dev.type == "cpu":
-        return decode_rows_plain(words, keys, x0, dx_bin, box, n, width,
-                                 periodic)
+        keys = torch.as_tensor(keys, device=dev).reshape(rows, 2)
+        x0, dx = (torch.as_tensor(v, dtype=torch.float32, device=dev)
+                  .reshape(rows) for v in (x0, dx))
+        return decode_rows_plain(words, keys, x0, kernels.bin_width(dx, width),
+                                 box, n, width, periodic)
     if dev.type != "cuda":
         raise ValueError(f"no decode for device {dev}")
-    words = words.contiguous()
-    keys = kernels.i64_to_u32(keys.to(torch.int64) & kernels.M32)
-    x0 = x0.contiguous()
-    dx_bin = dx_bin.contiguous()
     out = torch.empty((rows, n), dtype=torch.float32, device=dev)
     if rows == 0:
         return out
-    lib = cuda_lib.lib()
-    with torch.cuda.device(dev):
-        rc = lib.mnw_decode_rows(
-            words.data_ptr(), rows, n, width, keys.data_ptr(),
-            x0.data_ptr(), dx_bin.data_ptr(), float(np.float32(box)),
-            int(periodic), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(rc, "decode_rows")
+    _launch_decode(words.contiguous(), rows * n, n, width,
+                   _row_param(keys, dev, torch.int64, (rows, 2)),
+                   _row_param(x0, dev, torch.float32, (rows,)),
+                   _row_param(dx, dev, torch.float32, (rows,)), 0,
+                   np.float32(box), periodic, out)
     decode_rows_cuda.launches += 1
     return out
+
+
+def _row_param(v, dev: torch.device, dtype: torch.dtype,
+               shape: tuple) -> torch.Tensor:
+    """A per-row parameter as a tensor of ``dtype`` and ``shape`` on
+    ``dev``, contiguous unless it holds keys (the kernel takes their
+    strides).  A tensor that already is one passes as it is: each torch
+    call here is host time on every launch."""
+    if not (isinstance(v, torch.Tensor) and v.device == dev and
+            v.dtype == dtype and v.shape == shape and
+            (dtype == torch.int64 or v.is_contiguous())):
+        v = torch.as_tensor(v, device=dev).to(dtype).reshape(shape)
+    return v if dtype == torch.int64 else v.contiguous()
 
 
 decode_rows_cuda.launches = 0

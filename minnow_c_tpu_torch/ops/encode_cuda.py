@@ -27,9 +27,10 @@
   ``exact_recip``, K8's map); no writer calls it, as none in the JAX
   package does.
 
-Each ``*_cuda`` wrapper launches its CUDA kernel for a CUDA tensor and runs
-the plain version only for a CPU tensor; there is no fallback from one to
-the other.
+K4 and K7 are one CUDA kernel over the flat stream of bins, cut into
+tiles by ``pack_plan``.  Each ``*_cuda`` wrapper launches its CUDA kernel
+for a CUDA tensor and runs the plain version only for a CPU tensor; there
+is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -43,6 +44,37 @@ from .kernels import M32, i64_to_u32, scaled_to_bins, u32_to_i64
 
 STATS_SLICE = 4096  # elements per block of K6's first launch
 FUSED_SLICE = 65536  # elements per partial min / max of K12's first step
+PACK_TILE = 4096  # elements per tile of K4 / K7: a multiple of 1024
+BLOCKS_PER_SM = 4  # the persistent grid: blocks resident on each SM
+
+
+def pack_plan(width: int, n: int, ptr: int, sms: int) -> dict:
+    """How K4 / K7 cut a flat stream of ``n`` bins (4 bytes each, at
+    address ``ptr``) packed at ``width`` bits, for a card of ``sms`` SMs:
+    tile t holds elements [t*tile, (t+1)*tile) and packs into words
+    [t*words_per_tile, (t+1)*words_per_tile) (both cut at the stream's
+    end); the grid's blocks walk tiles b, b + grid, ...; the tile's bins in
+    shared memory, skewed by one word every 32 (tile + tile / 32 words);
+    16-byte loads when the bins start on a 16-byte boundary (every tile
+    then does), 4-byte loads otherwise."""
+    tiles = -(-n // PACK_TILE)
+    return {"tile": PACK_TILE, "tiles": tiles,
+            "words_per_tile": PACK_TILE // 32 * width,
+            "grid": max(1, min(tiles, sms * BLOCKS_PER_SM)),
+            "smem_bytes": (PACK_TILE + PACK_TILE // 32) * 4,
+            "vec16": ptr % 16 == 0}
+
+
+def _launch_pack(vals: torch.Tensor, n: int, width: int, from_f32: bool,
+                 out: torch.Tensor) -> None:
+    """One launch of the K4 / K7 kernel: the first ``n`` values of the
+    contiguous ``vals`` packed at ``width`` bits into ``out``."""
+    plan = pack_plan(width, n, vals.data_ptr(),
+                     cuda_lib.sm_count(vals.device))
+    cuda_lib.launch("pack", cuda_lib.lib().mnw_pack_tiles, vals.device,
+                    vals.data_ptr(), n, width, int(from_f32), plan["tiles"],
+                    plan["tile"], int(plan["vec16"]), plan["grid"],
+                    plan["smem_bytes"], out.data_ptr(), out.numel())
 
 
 def _check(vals: torch.Tensor, width: int, n: int, from_f32: bool) -> None:
@@ -103,12 +135,7 @@ def pack_cuda(vals: torch.Tensor, width: int, n: int = None,
     out = torch.empty(n_words, dtype=torch.int32, device=vals.device)
     if n_words == 0:
         return out
-    lib = cuda_lib.lib()
-    with torch.cuda.device(vals.device):
-        rc = lib.mnw_pack_uniform(
-            vals.data_ptr(), n, width, int(from_f32), out.data_ptr(),
-            n_words, torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(rc, "pack")
+    _launch_pack(vals, n, width, from_f32, out)
     pack_cuda.launches += 1
     return out
 
@@ -149,13 +176,7 @@ def pack_rows_cuda(vals: torch.Tensor, width: int) -> torch.Tensor:
                       device=vals.device)
     if out.numel() == 0:
         return out
-    vals = vals.contiguous()
-    lib = cuda_lib.lib()
-    with torch.cuda.device(vals.device):
-        rc = lib.mnw_pack_rows(vals.data_ptr(), rows, n, width,
-                               out.data_ptr(),
-                               torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(rc, "pack_rows")
+    _launch_pack(vals.contiguous(), rows * n, width, False, out)
     pack_rows_cuda.launches += 1
     return out
 
@@ -207,14 +228,10 @@ def stats_rows_cuda(x: torch.Tensor, box: torch.Tensor,
     mx = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows == 0:
         return mn, mx
-    lib = cuda_lib.lib()
-    with torch.cuda.device(x.device):
-        rc = lib.mnw_stats_rows(
-            x.data_ptr(), rows, n, STATS_SLICE, box.data_ptr(),
-            anchor.data_ptr(), int(periodic), partials.data_ptr(),
-            mn.data_ptr(), mx.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(rc, "stats_rows")
+    cuda_lib.launch("stats_rows", cuda_lib.lib().mnw_stats_rows, x.device,
+                    x.data_ptr(), rows, n, STATS_SLICE, box.data_ptr(),
+                    anchor.data_ptr(), int(periodic), partials.data_ptr(),
+                    mn.data_ptr(), mx.data_ptr())
     stats_rows_cuda.launches += 1
     return mn, mx
 
@@ -266,14 +283,11 @@ def encode_recip_cuda(x: torch.Tensor, width: int, x0, recip, box, anchor,
     out = torch.empty(n_words, dtype=torch.int32, device=x.device)
     if n_words == 0:
         return out
-    lib = cuda_lib.lib()
-    with torch.cuda.device(x.device):
-        rc = lib.mnw_encode_recip(
-            x.data_ptr(), n, float(np.float32(x0)), float(np.float32(recip)),
-            float(np.float32(box)), float(np.float32(anchor)), width,
-            int(periodic), out.data_ptr(), n_words,
-            torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(rc, "encode_recip")
+    cuda_lib.launch(
+        "encode_recip", cuda_lib.lib().mnw_encode_recip, x.device,
+        x.data_ptr(), n, float(np.float32(x0)), float(np.float32(recip)),
+        float(np.float32(box)), float(np.float32(anchor)), width,
+        int(periodic), out.data_ptr(), n_words)
     encode_recip_cuda.launches += 1
     return out
 
@@ -327,13 +341,10 @@ def encode_recip_rows_cuda(x: torch.Tensor, width: int, x0, recip, box,
                       device=x.device)
     if rows == 0:
         return out
-    lib = cuda_lib.lib()
-    with torch.cuda.device(x.device):
-        rc = lib.mnw_encode_recip_rows(
-            x.data_ptr(), rows, n, width, x0.data_ptr(), recip.data_ptr(),
-            box.data_ptr(), anchor.data_ptr(), int(periodic), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(rc, "encode_recip_rows")
+    cuda_lib.launch(
+        "encode_recip_rows", cuda_lib.lib().mnw_encode_recip_rows, x.device,
+        x.data_ptr(), rows, n, width, x0.data_ptr(), recip.data_ptr(),
+        box.data_ptr(), anchor.data_ptr(), int(periodic), out.data_ptr())
     encode_recip_rows_cuda.launches += 1
     return out
 
@@ -398,14 +409,11 @@ def encode_recip_fused_blocks_cuda(x: torch.Tensor, box, anchors,
     mx = torch.empty((b, d), dtype=torch.float32, device=x.device)
     if b * d == 0:
         return words, mn, mx
-    lib = cuda_lib.lib()
-    with torch.cuda.device(x.device):
-        rc = lib.mnw_encode_recip_fused(
-            x.data_ptr(), b, d, n, FUSED_SLICE, float(np.float32(box)),
-            anchors.data_ptr(), width, int(periodic), scratch.data_ptr(),
-            barrier.data_ptr(), words.data_ptr(), mn.data_ptr(),
-            mx.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(rc, "encode_recip_fused_blocks")
+    cuda_lib.launch(
+        "encode_recip_fused_blocks", cuda_lib.lib().mnw_encode_recip_fused,
+        x.device, x.data_ptr(), b, d, n, FUSED_SLICE, float(np.float32(box)),
+        anchors.data_ptr(), width, int(periodic), scratch.data_ptr(),
+        barrier.data_ptr(), words.data_ptr(), mn.data_ptr(), mx.data_ptr())
     encode_recip_fused_blocks_cuda.launches += 1
     return words, mn, mx
 

@@ -269,8 +269,8 @@ def _threefry2x32_torch(k0, k1, c0: torch.Tensor, c1: int):
     return x0, x1
 
 
-def dither_u16(key, n: int, tag: int = 0, ctr0: int = 0,
-               device="cpu") -> torch.Tensor:
+def dither_u16(key, n: int, tag: int = 0, ctr0: int = 0, *,
+               device) -> torch.Tensor:
     """n uint16-valued dither lanes as an int32 tensor on ``device``: four
     per Threefry call.  ``ctr0`` offsets the element index for a plane that
     continues a longer stream (element i uses counter (ctr0 + i) >> 2).
@@ -290,7 +290,8 @@ def dither_u16(key, n: int, tag: int = 0, ctr0: int = 0,
     return h.reshape(-1)[:n].to(torch.int32)
 
 
-def uniform_dither(key, shape, ctr0: int = 0, device="cpu") -> torch.Tensor:
+def uniform_dither(key, shape, ctr0: int = 0, *,
+                   device) -> torch.Tensor:
     """Uniform [0, 1) with 16-bit granularity, exactly representable in f32
     -- the stream-format dither source (see the section comment above).
     ``key`` is a (k0, k1) pair from ``field_key``; ``ctr0`` the global

@@ -51,12 +51,8 @@ def cumsum_u32(x: torch.Tensor) -> torch.Tensor:
         return out
     scratch = torch.empty(2 * -(-n // TILE), dtype=torch.int32,
                           device=x.device)
-    lib = cuda_lib.lib()
-    with torch.cuda.device(x.device):
-        rc = lib.mnw_cumsum_u32(x.data_ptr(), n, scratch.data_ptr(),
-                                out.data_ptr(),
-                                torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(rc, "cumsum_u32")
+    cuda_lib.launch("cumsum_u32", cuda_lib.lib().mnw_cumsum_u32, x.device,
+                    x.data_ptr(), n, scratch.data_ptr(), out.data_ptr())
     cumsum_u32.launches += 1
     return out
 

@@ -13,7 +13,8 @@ JAX package's writer, and either package reads the other's.
 
 Depth policy: one depth per field across all blocks; ranges stay per
 block.  Encode runs on the device of the given tensors (numpy input goes
-to ``device=``); decode returns tensors on ``device``.  The batched passes
+to ``device=``, ``cuda`` unless the caller asks for ``cpu``); decode
+returns tensors on ``device``.  The batched passes
 go through the rows kernels: K6 ``stats_rows`` (per-block stats), K7
 ``pack_rows`` (every pack when 32 | nb), K8 ``encode_recip_rows`` (the
 whole float bin map and pack in the recip scale mode, 32 | nb), K2
@@ -399,12 +400,13 @@ def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device):
 def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
                       num_blocks: int, seed: int = 0, accel: int = 1,
                       scale_mode: str = "div", mass=None,
-                      device="cpu") -> dict:
+                      device="cuda") -> dict:
     """Compress a snapshot into ``fp`` as ``num_blocks`` chained standard
     segments.  Arrays (numpy, or tensors that stay on their device):
     pos/vel (3, n) f32, ids (n,) u64 below 2^63, mass (n,) f32 (optional
     scalar field, stored as UNSF; requires ``spec.mass``); n must divide
-    by num_blocks.  Numpy arrays go to ``device``.  Returns stats (bytes,
+    by num_blocks.  Numpy arrays go to ``device``, ``cuda`` unless the
+    caller asks for ``cpu``.  Returns stats (bytes,
     depths).
 
     ``scale_mode``: 'div' (default) is the C-exact division bin map;
@@ -500,14 +502,15 @@ def compress_snapshot_streaming(fp: BinaryIO, blocks_iter,
                                 accel: int = 1,
                                 depths: Optional[dict] = None,
                                 scale_mode: str = "div",
-                                device="cpu") -> dict:
+                                device="cuda") -> dict:
     """Memory-bounded snapshot encode: each block of ``blocks_iter`` is
     encoded on the device and written as one segment before the next
     block is pulled, so peak memory is one block.
 
     ``blocks_iter`` yields dicts with any of ``pos`` / ``vel`` (3, nb) f32,
     ``ids`` (nb,) u64 and ``mass`` (nb,) f32 -- the same fields in every
-    block; numpy arrays go to ``device``, tensors stay on theirs.  Pass
+    block; numpy arrays go to ``device`` (``cuda`` unless the caller asks
+    for ``cpu``), tensors stay on theirs.  Pass
     ``depths={"pos": d1, "vel": d2, "mass": d3}`` to pin the bit depths
     shared by all blocks (the batched reader's one-pass decode needs
     them), else each block derives its own from its range.  A block's
@@ -615,9 +618,10 @@ def _parse_want(fields):
 
 
 def decompress_snapshot(fp: BinaryIO, batched: bool = True, box=None,
-                        periodic=None, fields=None, device="cpu") -> dict:
+                        periodic=None, fields=None, device="cuda") -> dict:
     """Read a chained multi-segment snapshot back into concatenated field
-    tensors on ``device`` (ordered gather in file order): "pos" and "vel"
+    tensors on ``device`` (``cuda`` unless the caller asks for ``cpu``;
+    ordered gather in file order): "pos" and "vel"
     (3, n) f32, "ids" (n,) int64, "mass" (n,) f32.
 
     ``batched=True`` decodes all blocks of each field in one device pass
@@ -644,8 +648,8 @@ def decompress_snapshot(fp: BinaryIO, batched: bool = True, box=None,
     return _decode_segment_list(segments, batched, want, device)
 
 
-def _decode_segment_list(segments, batched: bool = True, want=None,
-                         device="cpu") -> dict:
+def _decode_segment_list(segments, batched: bool, want,
+                         device) -> dict:
     """Decode a list of serialized segments into concatenated field
     tensors on ``device``."""
     device = torch.device(device)
@@ -713,8 +717,8 @@ def _to_device(words: np.ndarray, device) -> torch.Tensor:
             device)
 
 
-def _decompress_snapshot_batched(segments, want=None,
-                                 device="cpu") -> Optional[dict]:
+def _decompress_snapshot_batched(segments, want,
+                                 device) -> Optional[dict]:
     """Batched decode of a uniform snapshot file; None if the file doesn't
     fit the writer's structure (the caller then decodes per segment)."""
     try:

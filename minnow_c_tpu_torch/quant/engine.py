@@ -58,7 +58,7 @@ NOT_PORTED_MAPS = ("log10/symlog10 float maps are not ported to torch yet "
 # Inputs: numpy or torch -> tensors on one device
 # ---------------------------------------------------------------------------
 
-def as_tensor(data, dtype: torch.dtype, device="cpu") -> torch.Tensor:
+def as_tensor(data, dtype: torch.dtype, device) -> torch.Tensor:
     """A field's data as a tensor of ``dtype``: a tensor keeps its device,
     numpy input goes to ``device``.  ``dtype`` int64 takes u64 values,
     which must lie below 2^63."""
@@ -161,10 +161,11 @@ def id_recompose(qdims, x0, width: int):
 # ---------------------------------------------------------------------------
 
 def quantize(field: Field, seed: int = 0, scale_mode: str = "div",
-             device="cpu") -> QField:
+             device="cuda") -> QField:
     """Quantize one field on the device of its tensor (numpy data goes to
-    ``device``).  ``scale_mode``: 'div' (default) is the C-exact division
-    bin map; 'recip' multiplies by the exactly-rounded reciprocal
+    ``device``, ``cuda`` unless the caller asks for ``cpu``).
+    ``scale_mode``: 'div' (default) is the C-exact division bin map;
+    'recip' multiplies by the exactly-rounded reciprocal
     (kernels.uniform_bin_index_recip) -- wire-compatible, same error
     class."""
     if scale_mode not in ("div", "recip"):

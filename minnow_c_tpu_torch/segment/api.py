@@ -4,7 +4,9 @@ Port of ``minnow_c_tpu/segment/api.py``: the reference's ``src/funcs.{h,c}``
 stage names (Quantize / Compress and inverses) plus the one-call
 ``compress_segment`` / ``decompress_segment`` over the spec wire format.
 Field data are torch tensors; encode runs on the device of each field's
-tensor (numpy data goes to ``device``), decode runs on ``device``.
+tensor (numpy data goes to ``device``), decode runs on ``device``.  Every
+entry point's ``device`` is ``cuda`` unless the caller asks for ``cpu``:
+nothing runs on the CPU unasked.
 
 Fault tolerance follows the reference contract: a field that fails its
 checksum is *skipped, not fatal* -- it comes back with ``valid=False``
@@ -27,7 +29,7 @@ from . import format as wire
 
 
 def quantize(s: Seg, seed: int = 0, scale_mode: str = "div",
-             device="cpu") -> QSeg:
+             device="cuda") -> QSeg:
     """Quantize every field (Quantize, funcs.c:13-23).  ``seed`` is the
     segment's dither seed, carried into the stream for deterministic
     decode.  ``scale_mode`` picks the float bin map ('div' = C-exact
@@ -84,7 +86,7 @@ def compress(qs: QSeg) -> CSeg:
     return CSeg(fields=out)
 
 
-def decompress(cs: CSeg, device="cpu") -> QSeg:
+def decompress(cs: CSeg, device="cuda") -> QSeg:
     """Verify checksums and decode each field's bins onto ``device``
     (Decompress, funcs.c:40-60).  A field whose checksum fails is skipped
     (valid=False), not fatal."""
@@ -132,7 +134,7 @@ def wire_to_cseg(data: bytes) -> CSeg:
 
 
 def transcode_segment(data: bytes, algo: int, version: int = None,
-                      device="cpu") -> bytes:
+                      device="cuda") -> bytes:
     """Losslessly re-encode a segment with a different compression
     algorithm, at the QUANTIZED level: the stored bins are decoded (no
     dithered float reconstruction) and re-compressed with the new codec,
@@ -163,9 +165,10 @@ def transcode_segment(data: bytes, algo: int, version: int = None,
 
 
 def compress_segment(s: Seg, seed: int = 0, scale_mode: str = "div",
-                     device="cpu") -> bytes:
+                     device="cuda") -> bytes:
     """Full encode: Seg -> spec segment bytes.  Each field runs on the
-    device of its tensor; numpy data goes to ``device``.  ``scale_mode``:
+    device of its tensor; numpy data goes to ``device`` (``cuda`` unless
+    the caller asks for ``cpu``).  ``scale_mode``:
     see :func:`quantize` (decode needs no flag -- the bin map is the
     encoder's choice and the stream is self-describing either way)."""
     lens = {f.hd.particle_len for f in s.fields}
@@ -179,7 +182,7 @@ def compress_segment(s: Seg, seed: int = 0, scale_mode: str = "div",
 
 
 def decompress_segment(data: bytes, fused: bool = False, fields=None,
-                       device="cpu") -> Seg:
+                       device="cuda") -> Seg:
     """Full decode: spec segment bytes -> Seg of tensors on ``device``
     (invalid fields/dims degrade gracefully).
 

@@ -92,9 +92,9 @@ def _segment(device):
 @pytest.mark.parametrize("fused", [False, True])
 def test_segment_on_cuda_matches_cpu(dev, fused):
     blob = mt.compress_segment(_segment(dev), seed=3)
-    assert blob == mt.compress_segment(_segment("cpu"), seed=3)
+    assert blob == mt.compress_segment(_segment("cpu"), seed=3, device="cpu")
     got = mt.decompress_segment(blob, fused=fused, device=dev)
-    want = mt.decompress_segment(blob, fused=fused)
+    want = mt.decompress_segment(blob, fused=fused, device="cpu")
     for a, b in zip(got.fields, want.fields):
         assert a.data.is_cuda
         assert np.array_equal(a.data.cpu().numpy().view(np.uint8),
@@ -114,7 +114,7 @@ def _bins(dev, rows, n, width, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     b = torch.randint(0, 1 << width, (rows, n), generator=g, device=dev,
                       dtype=torch.int64)
-    b[:, :2] = torch.tensor([0, (1 << width) - 1], device=dev)
+    b[:, :2] = torch.tensor([0, (1 << width) - 1], device=dev)[:n]
     return kernels.i64_to_u32(b)
 
 
@@ -172,6 +172,87 @@ def test_stats_rows_kernel_matches_plain(dev, rows, n, periodic):
 
 
 # ---------------------------------------------------------------------------
+# The tile kernels of K1 / K2 (decode) and K4 / K7 (pack) at every width, on
+# shapes whose rows cross tile edges and tiles that hold many rows
+# ---------------------------------------------------------------------------
+
+TILE = decode_cuda.DECODE_TILE
+TILE_SHAPES = ROW_SHAPES + [(3, TILE - 32), (3, TILE + 32),
+                            (2, 3 * TILE + 96)]
+
+
+@pytest.mark.parametrize("rows, n", TILE_SHAPES)
+@pytest.mark.parametrize("width", range(1, 25))
+def test_decode_tiles_every_width_matches_plain(dev, width, rows, n):
+    words = encode_cuda.pack_rows_plain(_bins(dev, rows, n, width, width + n),
+                                        width)
+    g = torch.Generator(device=dev).manual_seed(width * rows)
+    keys = torch.randint(0, 1 << 32, (rows, 2), generator=g, device=dev)
+    x0 = torch.rand(rows, generator=g, device=dev) * 4.0 - 2.0
+    dx = 60.0 + torch.rand(rows, generator=g, device=dev) * 8.0
+    periodic = width % 2 == 0
+    got = decode_cuda.decode_rows_cuda(words, keys, width, n, x0, dx, 64.0,
+                                       periodic)
+    want = decode_cuda.decode_rows_plain(
+        words, keys, x0, kernels.bin_width(dx, width), 64.0, n, width,
+        periodic)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows, n", TILE_SHAPES)
+@pytest.mark.parametrize("width", range(0, 33))
+def test_pack_tiles_every_width_matches_plain(dev, width, rows, n):
+    vals = _bins(dev, rows, n, 32, 100 + width)  # full-range u32 values
+    got = encode_cuda.pack_rows_cuda(vals, width)
+    assert torch.equal(got, encode_cuda.pack_rows_plain(vals, width))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 33, 100_003, 7_812_500])
+@pytest.mark.parametrize("width", [1, 5, 9, 12, 16, 17, 23, 24])
+def test_decode_kernel_ragged_and_unaligned(dev, width, n, offset):
+    """K1 at ragged n, elem0 != 0, and words whose storage starts one word
+    in (``offset`` 1: the 4-byte copy path)."""
+    bins = _bins(dev, 1, n, width, n + width)[0]
+    packed = encode_cuda.pack_plain(bins, width)
+    store = torch.zeros(packed.numel() + offset, dtype=torch.int32,
+                        device=dev)
+    store[offset:] = packed
+    words = store[offset:]
+    assert (words.data_ptr() % 16 == 0) == (offset == 0)
+    for elem0 in (0, 4 * 12345, (1 << 34) - 8):
+        got = decode_cuda.decode_cuda(words, (9, 10), width, n, 0.5, 40.0,
+                                      64.0, True, elem0)
+        want = decode_cuda.decode_plain(
+            words, 9, 10, 0.5, kernels.bin_width(40.0, width), 64.0, n,
+            width, elem0, True)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 31, 33, 100_003, 7_812_500])
+@pytest.mark.parametrize("width, from_f32", [
+    (w, False) for w in (1, 3, 9, 12, 16, 17, 31, 32)] + [
+    (w, True) for w in (1, 9, 14, 16, 24)])
+def test_pack_kernel_ragged_and_unaligned(dev, width, from_f32, n, offset):
+    """K4 from u32 and from f32 at ragged n, from a tensor whose storage
+    starts one element in (``offset`` 1: the 4-byte load path)."""
+    g = torch.Generator(device=dev).manual_seed(n + width)
+    if from_f32:
+        store = torch.randn(n + offset, generator=g, device=dev) * (
+            1 << width)
+        store[::7] = float("nan")
+    else:
+        store = torch.randint(-(1 << 31), 1 << 31, (n + offset,),
+                              generator=g, device=dev,
+                              dtype=torch.int64).to(torch.int32)
+    vals = store[offset:]
+    got = encode_cuda.pack_cuda(vals, width, from_f32=from_f32)
+    assert torch.equal(got, encode_cuda.pack_plain(vals, width,
+                                                   from_f32=from_f32))
+
+
+# ---------------------------------------------------------------------------
 # The snapshot path on CUDA
 # ---------------------------------------------------------------------------
 
@@ -197,13 +278,13 @@ def test_snapshot_on_cuda_matches_cpu(dev, n, blocks):
                          **{k: torch.from_numpy(v).to(dev)
                             for k, v in arrays.items()})
     mt.compress_snapshot(f_cpu, spec=spec, num_blocks=blocks, seed=5,
-                         **arrays)
+                         device="cpu", **arrays)
     assert f_gpu.getvalue() == f_cpu.getvalue()
     for batched in (True, False):
         got = mt.decompress_snapshot(io.BytesIO(f_gpu.getvalue()),
                                      batched=batched, device=dev)
         want = mt.decompress_snapshot(io.BytesIO(f_gpu.getvalue()),
-                                      batched=batched)
+                                      batched=batched, device="cpu")
         assert set(got) == set(want) == set(arrays)
         for k in want:
             assert got[k].is_cuda
@@ -368,10 +449,10 @@ def test_delta_segment_on_cuda_matches_cpu(dev, monkeypatch, name, n):
     monkeypatch.setattr(algo_coil_v1_1, "BIG_PLANE", 30000)
     blob = mt.compress_segment(_delta_segment(name, n, dev), seed=3)
     assert blob == mt.compress_segment(_delta_segment(name, n, "cpu"),
-                                       seed=3)
+                                       seed=3, device="cpu")
     for fused in (False, True):
         got = mt.decompress_segment(blob, fused=fused, device=dev)
-        want = mt.decompress_segment(blob, fused=fused)
+        want = mt.decompress_segment(blob, fused=fused, device="cpu")
         for a, b in zip(got.fields, want.fields):
             assert a.data.device.type == dev.type
             assert np.array_equal(a.data.cpu().numpy().view(np.uint8),
@@ -500,10 +581,10 @@ def test_recip_snapshot_on_cuda_matches_cpu(dev, n, blocks):
                          **{k: torch.from_numpy(v).to(dev)
                             for k, v in arrays.items()})
     mt.compress_snapshot(f_cpu, spec=spec, num_blocks=blocks, seed=5,
-                         scale_mode="recip", **arrays)
+                         scale_mode="recip", device="cpu", **arrays)
     assert f_gpu.getvalue() == f_cpu.getvalue()
     got = mt.decompress_snapshot(io.BytesIO(f_gpu.getvalue()), device=dev)
-    want = mt.decompress_snapshot(io.BytesIO(f_gpu.getvalue()))
+    want = mt.decompress_snapshot(io.BytesIO(f_gpu.getvalue()), device="cpu")
     for k in want:
         assert np.array_equal(got[k].cpu().numpy().view(np.uint8),
                               want[k].numpy().view(np.uint8))

@@ -291,7 +291,8 @@ def jax_blobs():
 
 def _port_blob(name, seg=None):
     seg = seg if seg is not None else reference_segment(*ALGOS[name])
-    return mt.compress_segment(interop.seg_from_reference(seg), seed=SEED)
+    return mt.compress_segment(interop.seg_from_reference(seg), seed=SEED,
+                               device="cpu")
 
 
 @pytest.mark.parametrize("name", CODECS)
@@ -305,7 +306,8 @@ def test_delta_codec_matches_jax_and_fixture(name, jax_blobs,
         fixture_digests[f"{name}_encode_sha256"]
     assert len(blob) == fixture_digests[f"{name}_bytes"]
     for fused in (False, True):
-        assert _digest(mt.decompress_segment(blob, fused=fused)) == \
+        assert _digest(mt.decompress_segment(blob, fused=fused,
+                                             device="cpu")) == \
             fixture_digests[f"{name}_decode_sha256"], fused
 
 
@@ -318,7 +320,7 @@ def test_delta_cross_decode(name, fused, jax_blobs):
     blob = jax_blobs[name]
     ref = japi.decompress_segment(blob, fused=fused)
     generic = japi.decompress_segment(blob)
-    got = mt.decompress_segment(_port_blob(name), fused=fused)
+    got = mt.decompress_segment(_port_blob(name), fused=fused, device="cpu")
     for a, b, c in zip(ref.fields, got.fields, generic.fields):
         assert _same_bytes(a.data, b.data), hex(a.hd.field_code)
         assert _same_bytes(a.data, c.data)
@@ -358,7 +360,7 @@ def test_delta_boundary_sizes_match_jax(n):
         assert blob == japi.compress_segment(seg, seed=SEED), name
         for fused in (False, True):
             ref = japi.decompress_segment(blob, fused=fused)
-            got = mt.decompress_segment(blob, fused=fused)
+            got = mt.decompress_segment(blob, fused=fused, device="cpu")
             for a, b in zip(ref.fields, got.fields):
                 assert _same_bytes(a.data, b.data), (name, n, fused)
 
@@ -384,7 +386,7 @@ def test_kernel_chunks_match_jax(name, monkeypatch):
     for fused in (False, True):
         calls.clear()
         ref = japi.decompress_segment(blob, fused=fused)
-        got = mt.decompress_segment(blob, fused=fused)
+        got = mt.decompress_segment(blob, fused=fused, device="cpu")
         for a, b in zip(ref.fields, got.fields):
             assert _same_bytes(a.data, b.data), fused
         assert calls, "no plane took the 16384-element chunks"
@@ -407,7 +409,7 @@ def test_delta_corrupt_block_degrades_as_jax(name, jax_blobs):
     comes back NaN with valid=False, as in the JAX package."""
     blob = _flip_block_byte(jax_blobs[name], 2)
     for fused in (False, True):
-        got = mt.decompress_segment(blob, fused=fused)
+        got = mt.decompress_segment(blob, fused=fused, device="cpu")
         ref = japi.decompress_segment(blob, fused=fused)
         assert not got.fields[0].valid and not ref.fields[0].valid
         assert torch.isnan(got.fields[0].data).any()
@@ -419,7 +421,7 @@ def test_transcode_trim_to_coil_v1_1_matches_jax():
     trim = japi.compress_segment(reference_segment(*ALGOS["trim"]),
                                  seed=SEED)
     v11 = mt.semver.pack(1, 1, 0)
-    assert mt.transcode_segment(trim, mt.AlgoCode.COIL, v11) == \
+    assert mt.transcode_segment(trim, mt.AlgoCode.COIL, v11, device="cpu") == \
         japi.transcode_segment(trim, mnw.AlgoCode.COIL, v11)
 
 

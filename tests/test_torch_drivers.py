@@ -60,9 +60,9 @@ def _compress(g2, raw: bytes, **kw) -> bytes:
     return out.getvalue()
 
 
-def _decompress(g2, blob: bytes) -> bytes:
+def _decompress(g2, blob: bytes, **kw) -> bytes:
     out = io.BytesIO()
-    g2.decompress(io.BytesIO(blob), out)
+    g2.decompress(io.BytesIO(blob), out, **kw)
     return out.getvalue()
 
 
@@ -77,11 +77,11 @@ def test_gadget2_files_match_jax(mode, n, masses, blocks):
     kw = dict(pos_delta=1e-3, vel_delta=1.0, num_blocks=blocks, seed=4,
               scale_mode=mode)
     want = _compress(jg2, raw, **kw)
-    got = _compress(tg2, raw, **kw)
+    got = _compress(tg2, raw, device="cpu", **kw)
     assert got == want
     # each package's decompress of either file gives the same Gadget-2 file
     back = _decompress(jg2, want)
-    assert _decompress(tg2, want) == back
+    assert _decompress(tg2, want, device="cpu") == back
     assert _decompress(jg2, got) == back
     hdr, pos, vel, ids, mass = tg2.read_snapshot_ext(io.BytesIO(back))
     _, pos0, vel0, ids0, mass0 = jg2.read_snapshot_ext(io.BytesIO(raw))
@@ -96,7 +96,7 @@ def test_gadget2_positive_masses_raise():
     raw = gadget2_file(1024, "positive")
     out = io.BytesIO()
     with pytest.raises(NotImplementedError, match="log10"):
-        tg2.compress(io.BytesIO(raw), out, num_blocks=2)
+        tg2.compress(io.BytesIO(raw), out, num_blocks=2, device="cpu")
     assert out.getvalue() == b""
 
 
@@ -132,7 +132,8 @@ def test_cli_matches_jax(tmp_path, capsys, monkeypatch):
         monkeypatch.chdir(dirs[name])
         lines = []
         for argv in steps:
-            if name == "torch" and argv[0] in ("compress", "decompress"):
+            if name == "torch" and argv[0] in ("compress", "decompress",
+                                               "repack"):
                 argv = argv + ["--device", "cpu"]
             lines.append(_run(main, argv, capsys))
         blob = bytearray((dirs[name] / "snap.g2.min").read_bytes())

@@ -119,7 +119,7 @@ def _jax_segment(pos, vel, mass, version=(1, 0, 0)):
 def _same_segments(blob, fused_too=True):
     for fused in (False, True) if fused_too else (False,):
         ref = japi.decompress_segment(blob, fused=fused)
-        got = mt.decompress_segment(blob, fused=fused)
+        got = mt.decompress_segment(blob, fused=fused, device="cpu")
         for a, b in zip(ref.fields, got.fields):
             assert _bits(np.asarray(a.data)) == _bits(b.data)
 
@@ -130,7 +130,7 @@ def test_segment_with_subnormal_velocities(mode):
     seg = _jax_segment(pos, vel, mass)
     blob = japi.compress_segment(seg, seed=7, scale_mode=mode)
     assert mt.compress_segment(interop.seg_from_reference(seg), seed=7,
-                               scale_mode=mode) == blob
+                               scale_mode=mode, device="cpu") == blob
     _same_segments(blob)
 
 
@@ -152,13 +152,13 @@ def test_snapshot_with_subnormal_velocities(mode, n, blocks):
     jsnap.compress_snapshot(fa, pos, vel, ids, spec(mnw, jsnap), blocks,
                             seed=3, scale_mode=mode, mass=mass)
     mt.compress_snapshot(fb, pos, vel, ids, spec(mt, mt), blocks, seed=3,
-                         scale_mode=mode, mass=mass)
+                         scale_mode=mode, mass=mass, device="cpu")
     assert fb.getvalue() == fa.getvalue()
     for batched in (True, False):
         ref = jsnap.decompress_snapshot(io.BytesIO(fa.getvalue()),
                                         batched=batched)
         got = mt.decompress_snapshot(io.BytesIO(fa.getvalue()),
-                                     batched=batched)
+                                     batched=batched, device="cpu")
         assert set(ref) == set(got)
         for k in ref:
             assert _bits(got[k]) == _bits(ref[k]), k
@@ -182,7 +182,7 @@ def test_plane_with_subnormal_spread(mode, periodic):
                        np.stack([x, x, -x]), x)
     blob = japi.compress_segment(seg, seed=5, scale_mode=mode)
     assert mt.compress_segment(interop.seg_from_reference(seg), seed=5,
-                               scale_mode=mode) == blob
+                               scale_mode=mode, device="cpu") == blob
     _same_segments(blob)
 
 
@@ -220,7 +220,7 @@ def test_segment_with_subnormal_bin_width(mode):
         data=m, acc=mnw.FloatAccuracy(delta=1e-40)))
     blob = japi.compress_segment(seg, seed=9, scale_mode=mode)
     assert mt.compress_segment(interop.seg_from_reference(seg), seed=9,
-                               scale_mode=mode) == blob
+                               scale_mode=mode, device="cpu") == blob
     _same_segments(blob)
 
 

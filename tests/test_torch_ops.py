@@ -44,16 +44,17 @@ def _u32_tensor(a: np.ndarray) -> torch.Tensor:
 @pytest.mark.parametrize("n", [1, 37, 4096])
 def test_dither_matches_numpy_mirror(n, ctr0):
     key = trng.field_key(777, 3, 2)
-    got = trng.dither_u16(key, n, ctr0=ctr0).numpy().astype(np.uint32)
+    got = trng.dither_u16(key, n, ctr0=ctr0,
+                          device="cpu").numpy().astype(np.uint32)
     np.testing.assert_array_equal(got, trng.dither_u16_np(key, n, ctr0=ctr0))
-    u = trng.uniform_dither(key, (n,), ctr0=ctr0)
+    u = trng.uniform_dither(key, (n,), ctr0=ctr0, device="cpu")
     np.testing.assert_array_equal(
         _bits(u), _bits(trng.uniform_dither_np(key, (n,), ctr0=ctr0)))
 
 
 def test_dither_rejects_unaligned_ctr0():
     with pytest.raises(ValueError):
-        trng.dither_u16((1, 2), 8, ctr0=2)
+        trng.dither_u16((1, 2), 8, ctr0=2, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -264,3 +265,65 @@ def test_fast_uniform_encode_matches_jax():
         np.testing.assert_array_equal(_bits(words), np.asarray(w_ref))
         assert _bits(x0.reshape(1)) == _bits(np.float32(x0_ref).reshape(1))
         assert _bits(r.reshape(1)) == _bits(np.float32(r_ref).reshape(1))
+
+
+# The plans of the tile kernels (K1 / K2 decode, K4 / K7 pack) against a
+# brute-force model of the flat stream: every element in exactly one tile
+# that one block visits, its bits inside its tile's words and the stream's,
+# 16-byte copies only from 16-byte boundaries, the in-tile row split exact.
+
+PLAN_SHAPES = [(1, 32), (70_000, 32), (3, 65_568), (1, 33), (1, 100_003)] + \
+    [(3, 100_000 + 32 * k) for k in (1, 3, 17, 128)]
+
+
+def _plan_check(plan, width, total, ptr, rows_n=None):
+    tile, tiles, wpt = plan["tile"], plan["tiles"], plan["words_per_tile"]
+    n_words = -(-total * width // 32)
+    assert wpt == tile // 32 * width and wpt % 4 == 0
+    seen = np.zeros(tiles, np.int64)
+    for b in range(plan["grid"]):
+        seen[b::plan["grid"]] += 1
+    assert (seen == 1).all() and plan["grid"] <= tiles
+    e = np.arange(total, dtype=np.int64)
+    t = e // tile
+    assert t.max() == tiles - 1
+    lo, hi = e * width, e * width + width - 1
+    assert (lo >= t * wpt * 32).all()
+    assert (hi < np.minimum((t + 1) * wpt, n_words) * 32).all()
+    assert plan["vec16"] == (ptr % 16 == 0)
+    if plan["vec16"]:
+        assert all((ptr + k * wpt * 4) % 16 == 0 for k in range(tiles))
+    if rows_n is not None:   # the kernel's 32-bit row split of each quad
+        n = rows_n
+        magic = (1 << 32) // n
+        e0 = np.arange(tiles, dtype=np.int64) * tile
+        i = np.arange(0, tile, 4, dtype=np.int64)
+        off = ((e0 % n)[:, None] + i[None, :]).reshape(-1)
+        keep = (np.repeat(e0, i.size) + np.tile(i, tiles)) < total
+        off = off[keep]
+        assert off.max() < 1 << 32
+        q = (off * magic) >> 32
+        r = off - q * n
+        q = np.where(r >= n, q + 1, q)
+        r = np.where(r >= n, r - n, r)
+        assert (q == off // n).all() and (r == off % n).all()
+
+
+@pytest.mark.parametrize("width", range(1, 33))
+def test_tile_plans_cover_the_stream(width):
+    for rows, n in PLAN_SHAPES:
+        total = rows * n
+        for ptr in (1 << 20, (1 << 20) + 4, (1 << 20) + 8):
+            plan = encode_cuda.pack_plan(width, total, ptr, 132)
+            _plan_check(plan, width, total, ptr)
+            assert plan["tile"] % 1024 == 0
+            assert plan["smem_bytes"] >= (plan["tile"] +
+                                          plan["tile"] // 32) * 4
+            if width > 24:
+                continue
+            plan = decode_cuda.decode_plan(width, total, ptr, 132)
+            _plan_check(plan, width, total, ptr,
+                        rows_n=n if n % 32 == 0 else None)
+            assert plan["tile"] % 128 == 0
+            assert plan["smem_bytes"] == 2 * (plan["words_per_tile"] +
+                                              4) * 4 <= 48 * 1024

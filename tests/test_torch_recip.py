@@ -312,7 +312,8 @@ def test_recip_snapshot_matches_jax(n, blocks):
                                  blocks, seed=3, scale_mode="recip",
                                  mass=mass)
     tb = mt.compress_snapshot(fb, pos, vel, ids, _spec(mt, mt), blocks,
-                              seed=3, scale_mode="recip", mass=mass)
+                              seed=3, scale_mode="recip", mass=mass,
+                              device="cpu")
     assert fb.getvalue() == fa.getvalue()
     assert tb == ja
     for batched in (True, False):
@@ -320,7 +321,7 @@ def test_recip_snapshot_matches_jax(n, blocks):
         ref = jsnap.decompress_snapshot(io.BytesIO(fb.getvalue()),
                                         batched=batched)
         got = mt.decompress_snapshot(io.BytesIO(fa.getvalue()),
-                                     batched=batched)
+                                     batched=batched, device="cpu")
         _same_arrays(ref, got)
     e = np.abs(got["pos"].numpy() - pos)
     assert np.minimum(e, W - e).max() <= 1e-3
@@ -332,7 +333,7 @@ def test_recip_file_size_near_div():
     for mode in ("div", "recip"):
         f = io.BytesIO()
         mt.compress_snapshot(f, pos, vel, ids, _spec(mt, mt), 4, seed=1,
-                             scale_mode=mode, mass=mass)
+                             scale_mode=mode, mass=mass, device="cpu")
         sizes.append(len(f.getvalue()))
     assert abs(sizes[0] - sizes[1]) <= max(64, sizes[0] // 1000), sizes
 
@@ -361,7 +362,7 @@ def test_streaming_matches_jax(mode, pinned, n, nb):
     one_pass = io.BytesIO()
     stats = mt.compress_snapshot(one_pass, pos, vel, None,
                                  _spec(mt, mt, ids=False), n // nb, seed=2,
-                                 scale_mode=mode, mass=mass)
+                                 scale_mode=mode, mass=mass, device="cpu")
     depths = {k: stats[f"{k}_depth"] for k in ("pos", "vel", "mass")} \
         if pinned else None
     fa, fb = io.BytesIO(), io.BytesIO()
@@ -372,11 +373,12 @@ def test_streaming_matches_jax(mode, pinned, n, nb):
     sb = mt.compress_snapshot_streaming(
         fb, _blocks(pos, vel, ids, mass, nb, not pinned),
         _spec(mt, mt, ids=not pinned), seed=2, depths=depths,
-        scale_mode=mode)
+        scale_mode=mode, device="cpu")
     assert fb.getvalue() == fa.getvalue()
     assert sb == sa
     _same_arrays(jsnap.decompress_snapshot(io.BytesIO(fb.getvalue())),
-                 mt.decompress_snapshot(io.BytesIO(fa.getvalue())))
+                 mt.decompress_snapshot(io.BytesIO(fa.getvalue()),
+                                        device="cpu"))
     if pinned:
         assert fb.getvalue() == one_pass.getvalue()
 
@@ -388,7 +390,7 @@ def test_streaming_from_tensors_and_errors():
               for b in _blocks(pos, vel, ids, mass, 1024, True)]
     fa, fb = io.BytesIO(), io.BytesIO()
     mt.compress_snapshot_streaming(fa, iter(blocks), _spec(mt, mt),
-                                   scale_mode="recip")
+                                   scale_mode="recip", device="cpu")
     jsnap.compress_snapshot_streaming(
         fb, _blocks(pos, vel, ids, mass, 1024, True), _spec(mnw, jsnap),
         scale_mode="recip")
@@ -396,11 +398,12 @@ def test_streaming_from_tensors_and_errors():
     bad = dict(blocks[0], pos_deltas=np.full(1024, 1e-3, np.float32))
     with pytest.raises(NotImplementedError, match="Deltas"):
         mt.compress_snapshot_streaming(io.BytesIO(), iter([bad]),
-                                       _spec(mt, mt))
+                                       _spec(mt, mt), device="cpu")
     deltas = np.full(2048, 1e-3, np.float32)
     with pytest.raises(ValueError, match="spec-level"):
         mt.compress_snapshot_streaming(io.BytesIO(), iter(blocks),
-                                       _spec(mt, mt, deltas=deltas))
+                                       _spec(mt, mt, deltas=deltas),
+                                       device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -411,17 +414,18 @@ def test_scale_mode_errors():
     pos, vel, ids, mass = _fields(1024, 9)
     with pytest.raises(ValueError, match="scale_mode"):
         mt.compress_snapshot(io.BytesIO(), pos, vel, ids, _spec(mt, mt), 2,
-                             scale_mode="exp", mass=mass)
+                             scale_mode="exp", mass=mass, device="cpu")
     with pytest.raises(ValueError, match="scale_mode"):
         mt.compress_snapshot_streaming(io.BytesIO(), iter([]),
-                                       _spec(mt, mt), scale_mode="exp")
+                                       _spec(mt, mt), scale_mode="exp",
+                                       device="cpu")
     with pytest.raises(ValueError, match="scale_mode"):
         fastpath.fast_uniform_encode(_t(pos[0]), 8, scale_mode="exp")
     symlog = dataclasses.replace(_spec(mt, mt), vel=mt.VelocityAccuracy(
         delta=1.0, sym_log10_scaled=2, sym_log10_threshold=1.0))
     with pytest.raises(NotImplementedError, match="symlog"):
         mt.compress_snapshot(io.BytesIO(), pos, vel, ids, symlog, 2,
-                             scale_mode="recip", mass=mass)
+                             scale_mode="recip", mass=mass, device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["div", "recip"])
@@ -435,8 +439,9 @@ def test_snapshot_with_constant_fields_matches_jax(mode):
     jsnap.compress_snapshot(fa, pos, vel, ids, _spec(mnw, jsnap), 2, seed=4,
                             scale_mode=mode, mass=mass)
     stats = mt.compress_snapshot(fb, pos, vel, ids, _spec(mt, mt), 2, seed=4,
-                                 scale_mode=mode, mass=mass)
+                                 scale_mode=mode, mass=mass, device="cpu")
     assert fb.getvalue() == fa.getvalue()
     assert stats["vel_depth"] == 0 and stats["mass_depth"] == 0
     _same_arrays(jsnap.decompress_snapshot(io.BytesIO(fa.getvalue())),
-                 mt.decompress_snapshot(io.BytesIO(fb.getvalue())))
+                 mt.decompress_snapshot(io.BytesIO(fb.getvalue()),
+                                        device="cpu"))

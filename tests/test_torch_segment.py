@@ -66,7 +66,8 @@ def jax_blobs():
 def _port_blob(name, scale_mode="div"):
     seg = interop.seg_from_reference(
         reference_segment(mnw.AlgoCode.TRIM, VERSIONS[name]))
-    return mt.compress_segment(seg, seed=SEED, scale_mode=scale_mode)
+    return mt.compress_segment(seg, seed=SEED, scale_mode=scale_mode,
+                               device="cpu")
 
 
 @pytest.mark.parametrize("name", sorted(VERSIONS))
@@ -81,7 +82,7 @@ def test_encode_matches_jax_and_fixture(name, jax_blobs, fixture_digests):
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("name", sorted(VERSIONS))
 def test_decode_matches_fixture(name, fused, jax_blobs, fixture_digests):
-    seg = mt.decompress_segment(jax_blobs[name], fused=fused)
+    seg = mt.decompress_segment(jax_blobs[name], fused=fused, device="cpu")
     assert _digest(seg) == fixture_digests[f"{name}_decode_sha256"]
 
 
@@ -93,7 +94,7 @@ def test_cross_decode_both_directions(fused, jax_blobs):
     pblob = _port_blob("trim", "recip")  # a second stream: the recip map
     for blob in (jblob, pblob):
         ref = japi.decompress_segment(blob, fused=fused)
-        got = mt.decompress_segment(blob, fused=fused)
+        got = mt.decompress_segment(blob, fused=fused, device="cpu")
         for a, b in zip(ref.fields, got.fields):
             assert _same_bytes(a.data, b.data), hex(a.hd.field_code)
             assert a.valid and b.valid
@@ -124,7 +125,7 @@ def test_corrupt_block_is_skipped_not_fatal(fused, jax_blobs):
     UNSI data block invalidates that field."""
     blob = _flip_block_byte(jax_blobs["trim"], 2)   # POSN dimY
     blob = _flip_block_byte(blob, 15)               # UNSI lo plane
-    got = mt.decompress_segment(blob, fused=fused)
+    got = mt.decompress_segment(blob, fused=fused, device="cpu")
     ref = japi.decompress_segment(blob, fused=fused)
     pos = got.fields[0]
     assert not pos.valid
@@ -139,7 +140,7 @@ def test_corrupt_block_is_skipped_not_fatal(fused, jax_blobs):
 def test_corrupt_field_checksum_gives_invalid_field(jax_blobs):
     cs = tapi.wire_to_cseg(jax_blobs["trim"])
     cs.fields[2].checksum ^= 1
-    qs = tapi.decompress(cs)
+    qs = tapi.decompress(cs, device="cpu")
     assert [qf.valid for qf in qs.fields] == [True, True, False, True, True]
     seg = tapi.undo_quantize(qs)
     assert not seg.fields[2].valid and seg.fields[2].data is None
@@ -148,9 +149,9 @@ def test_corrupt_field_checksum_gives_invalid_field(jax_blobs):
 @pytest.mark.parametrize("fused", [False, True])
 def test_field_filter_matches_full_decode(fused, jax_blobs):
     blob = jax_blobs["trim"]
-    full = mt.decompress_segment(blob, fused=fused)
+    full = mt.decompress_segment(blob, fused=fused, device="cpu")
     only = mt.decompress_segment(blob, fused=fused,
-                                 fields={mt.FieldCode.POSN})
+                                 fields={mt.FieldCode.POSN}, device="cpu")
     assert _same_bytes(only.fields[0].data, full.fields[0].data)
     assert all(f is None for f in only.fields[1:])
 
@@ -163,16 +164,17 @@ def test_wide_unsi_range_matches_jax():
     hd = mnw.FieldHeader(mnw.FieldCode.UNSI, mnw.AlgoCode.TRIM,
                          VERSIONS["trim"], n)
     seg = mnw.Seg(fields=[mnw.Field(hd=hd, data=ui, acc=mnw.IntAccuracy())])
-    blob = mt.compress_segment(interop.seg_from_reference(seg))
+    blob = mt.compress_segment(interop.seg_from_reference(seg), device="cpu")
     assert blob == japi.compress_segment(seg)
-    got = mt.decompress_segment(blob).fields[0].data
+    got = mt.decompress_segment(blob, device="cpu").fields[0].data
     assert got.dtype == torch.int64
     np.testing.assert_array_equal(got.numpy().view(np.uint64), ui)
 
 
 def test_transcode_matches_jax(jax_blobs):
     v11 = VERSIONS["trim_v1_1"]
-    assert mt.transcode_segment(jax_blobs["trim"], mt.AlgoCode.TRIM, v11) \
+    assert mt.transcode_segment(jax_blobs["trim"], mt.AlgoCode.TRIM, v11,
+                                device="cpu") \
         == japi.transcode_segment(jax_blobs["trim"], mnw.AlgoCode.TRIM, v11)
 
 
@@ -187,13 +189,13 @@ def test_unported_modes_raise():
                                                          log10_scaled=1))
     for f in (deltas, log10):
         with pytest.raises(NotImplementedError):
-            mt.compress_segment(mt.Seg(fields=[f]))
+            mt.compress_segment(mt.Seg(fields=[f]), device="cpu")
     hd_i = mt.FieldHeader(mt.FieldCode.UNSI, mt.AlgoCode.TRIM,
                           VERSIONS["trim"], 2)
     big = mt.Field(hd=hd_i, data=np.array([1, 1 << 63], dtype=np.uint64),
                    acc=mt.IntAccuracy())
     with pytest.raises(ValueError):
-        mt.compress_segment(mt.Seg(fields=[big]))
+        mt.compress_segment(mt.Seg(fields=[big]), device="cpu")
 
 
 def test_import_leaves_jax_out():
@@ -219,3 +221,47 @@ def test_host_modules_are_unchanged_copies(path):
         ref = f.read()
     with open(os.path.join(REPO, "minnow_c_tpu_torch", path), "rb") as f:
         assert f.read() == ref
+
+
+def _entry_points():
+    from minnow_c_tpu_torch.drivers import gadget2
+    from minnow_c_tpu_torch.parallel import snapshot
+    from minnow_c_tpu_torch.quant import engine
+    return {"api.quantize": tapi.quantize, "api.decompress": tapi.decompress,
+            "transcode_segment": tapi.transcode_segment,
+            "compress_segment": tapi.compress_segment,
+            "decompress_segment": tapi.decompress_segment,
+            "compress_snapshot": snapshot.compress_snapshot,
+            "compress_snapshot_streaming":
+                snapshot.compress_snapshot_streaming,
+            "decompress_snapshot": snapshot.decompress_snapshot,
+            "gadget2.compress": gadget2.compress,
+            "gadget2.decompress": gadget2.decompress,
+            "engine.quantize": engine.quantize}
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_the_card(name):
+    """Every public entry point runs on the card unless the caller asks
+    for the CPU."""
+    import inspect
+    param = inspect.signature(_entry_points()[name]).parameters["device"]
+    assert param.default == "cuda"
+
+
+def test_numpy_input_without_a_device_goes_to_the_card():
+    """Numpy data with no ``device`` goes to ``cuda``: without a card the
+    call fails as torch fails on ``.to("cuda")``, never quietly on the
+    CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    n = 64
+    hd = mt.FieldHeader(mt.FieldCode.UNSF, mt.AlgoCode.TRIM,
+                        VERSIONS["trim"], n)
+    f = mt.Field(hd=hd, data=np.linspace(1, 2, n, dtype=np.float32),
+                 acc=mt.FloatAccuracy(delta=1e-3))
+    with pytest.raises((AssertionError, RuntimeError)):
+        mt.compress_segment(mt.Seg(fields=[f]))
+    blob = mt.compress_segment(mt.Seg(fields=[f]), device="cpu")
+    with pytest.raises((AssertionError, RuntimeError)):
+        mt.decompress_segment(blob)

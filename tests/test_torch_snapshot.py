@@ -233,7 +233,7 @@ def files():
                                   pos=arrays.get("pos"),
                                   vel=arrays.get("vel"),
                                   ids=arrays.get("ids"),
-                                  mass=arrays.get("mass"))
+                                  mass=arrays.get("mass"), device="cpu")
         out[name] = (arrays, fa.getvalue(), sa, fb.getvalue(), sb)
     return out
 
@@ -260,7 +260,8 @@ def test_decompress_snapshot_matches_jax(case, batched, files):
     and within the accuracy request (IDs exact)."""
     arrays, jbytes = files[case][:2]
     ref = jsnap.decompress_snapshot(io.BytesIO(jbytes), batched=batched)
-    got = mt.decompress_snapshot(io.BytesIO(jbytes), batched=batched)
+    got = mt.decompress_snapshot(io.BytesIO(jbytes), batched=batched,
+                                 device="cpu")
     _assert_same(ref, got)
     if "ids" in arrays:
         np.testing.assert_array_equal(got["ids"].numpy().view(np.uint64),
@@ -275,7 +276,8 @@ def test_jax_decodes_port_file_to_port_bits(files):
     for batched in (True, False):
         _assert_same(
             jsnap.decompress_snapshot(io.BytesIO(pbytes), batched=batched),
-            mt.decompress_snapshot(io.BytesIO(pbytes), batched=batched))
+            mt.decompress_snapshot(io.BytesIO(pbytes), batched=batched,
+                                   device="cpu"))
 
 
 @pytest.mark.parametrize("batched", [True, False])
@@ -286,14 +288,14 @@ def test_field_subset_and_region_match_jax(batched, files):
             jsnap.decompress_snapshot(io.BytesIO(jbytes), batched=batched,
                                       fields=sel),
             mt.decompress_snapshot(io.BytesIO(jbytes), batched=batched,
-                                   fields=sel))
+                                   fields=sel, device="cpu"))
     # a query box around block 2's bounding box, and no other block's
     hdr = list(jio.iter_headers(io.BytesIO(jbytes)))[2]
     box = (hdr.origin, hdr.width)
     ref = jsnap.decompress_snapshot(io.BytesIO(jbytes), batched=batched,
                                     box=box, periodic=64.0)
     got = mt.decompress_snapshot(io.BytesIO(jbytes), batched=batched,
-                                 box=box, periodic=64.0)
+                                 box=box, periodic=64.0, device="cpu")
     assert got["pos"].shape == (3, 4096)
     _assert_same(ref, got)
 
@@ -318,10 +320,11 @@ def test_unported_snapshot_modes_raise():
     for s in bad:
         with pytest.raises(NotImplementedError):
             mt.compress_snapshot(io.BytesIO(), pos, vel, None, s, 2,
-                                 mass=mass)
+                                 mass=mass, device="cpu")
     with pytest.raises(ValueError, match="spec.mass"):
         mt.compress_snapshot(io.BytesIO(), pos, vel, ids,
                              dataclasses.replace(spec, mass=None), 2,
-                             mass=mass)
+                             mass=mass, device="cpu")
     with pytest.raises(ValueError, match="divide"):
-        mt.compress_snapshot(io.BytesIO(), pos, vel, ids, spec, 3)
+        mt.compress_snapshot(io.BytesIO(), pos, vel, ids, spec, 3,
+                             device="cpu")
