@@ -8,8 +8,8 @@ imports nothing of JAX.  Phases, one progress line each; any failure raises
 and the script exits non-zero:
 
 1. device: card name, power limit, kernel build time; the registers and
-   spills of the tile kernels (K1 / K2 decode, K4 / K7 pack) and the SASS
-   instructions of their inner loops;
+   spills of the tile kernels (K1 / K2 decode, K4 / K7 pack, K5 / K8 recip
+   pack, K12, K9 scan) and the SASS instructions of their inner loops;
 2. each CUDA kernel (K1 fused decode, K4 pack, the rows kernels K2
    decode, K3 unpack, K6 stats, K7 pack, the delta kernels K9 scan, K10
    chunked decode, K11 its float mode, and the recip-mode encodes K5, K8 and
@@ -17,11 +17,17 @@ and the script exits non-zero:
    (K1 and K2 at every width 1-24, K4 and K7 at every width 0-32), row
    counts, rows that cross tile edges, ragged sizes, unaligned inputs and
    edge values, subnormals included (they flush to zeros of their sign, as
-   on XLA); K4's kernel at 2 * 16384 bins as the counterpart of K13
-   (pack_pallas_tiles);
+   on XLA); K9 up to 3 * 2^24 + 7 elements, from aligned and unaligned
+   storage, and 50 calls in a row at 2^24; K5 at every width at ragged n
+   up to 7,812,500 from aligned and unaligned storage; K8 at every width
+   1-24 over rows shorter than, equal to and longer than a tile; K4's
+   kernel at 2 * 16384 bins as the counterpart of K13 (pack_pallas_tiles);
 3. the frozen wire: Trim v1.0 / v1.1, Diff v1.0, Coil v1.0 / v1.1 and Octo
    v1.0 / v1.1 segments encoded from CUDA tensors and decoded on CUDA
-   (generic and fused) match tests/fixtures/wire_digests.json;
+   (generic and fused) match tests/fixtures/wire_digests.json; u64 fields
+   over their whole range (Unsi values past 2^63 and up to 2^64 - 1, IDs on
+   grids past 2^21 a side with the top bit set) encoded from CUDA tensors
+   equal the CPU's bytes and decode on CUDA to the same u64 bits;
 4. the segment path at full size: one segment of 2^24 particles (a 256^3
    N-body snapshot: lattice positions with Gaussian displacements,
    Gaussian velocities, shuffled lattice IDs) through compress_segment and
@@ -42,7 +48,8 @@ and the script exits non-zero:
    compressed and decompressed (generic and fused) on CUDA, with error
    bounds, exact IDs, fused == generic, ratios, wall times, rates, peak
    memory and launch counts; then K9, K10 and K11 timed against their plain
-   versions at that path's shapes, and torch.cumsum beside K9;
+   versions at that path's shapes, torch.cumsum beside K9, and K9 alone in
+   a torch.profiler trace;
 7. the recip scale mode at full size: (a) phase 5's snapshot through
    compress_snapshot(scale_mode="recip") (K8) and the batched read, with
    error bounds, exact IDs and a file size within 0.1% of phase 5's;
@@ -51,9 +58,19 @@ and the script exits non-zero:
    through the CLI (compress --scale-mode recip, info, verify, decompress:
    2 blocks of 7,812,500, so K5 per row, K4 and K1); (d) phase 4's
    position planes through fast_uniform_encode(scale_mode="recip") (K5);
-   (e) K5, K8 and K12 timed against their plain versions, and K12's
-   one-pass encode of phase 5's position blocks against the split CUDA
-   path (K6, the host's recip, K8).
+   (e) K5, K8 and K12 timed against their plain versions, K5 beside K4
+   and K8 beside K7 on the same bins (K8 at 16 and 12 bits over 192 rows
+   and at 14 over 64, in turns), K8 alone in a torch.profiler trace, and
+   K12's one-pass encode of phase 5's position blocks against the split
+   CUDA path (K6, the host's recip, K8).
+
+The phases run in the order 1, 2, 3, 4, 6, 7(c), 7(d), 5, 7(a), 7(b),
+7(e): a torch.profiler trace (phase 5's busy share, the kernels' device
+times) leaves the card's tracing hooks in place, which can add to every
+later CUDA-event time, so the paths whose kernels take well under a
+millisecond are timed before the first trace.  The script prints the
+floor of a single timed call (two events with nothing between) before the
+first trace and after the last.
 
 The launch counts of each path are set to 0 just before the path runs and
 read just after.  The last line is {"ok": true, "device": {...}}; the line
@@ -72,7 +89,6 @@ import hashlib
 import io
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -80,6 +96,8 @@ import time
 
 import numpy as np
 import torch
+
+from kernel_times import event_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "wire_digests.json")
@@ -117,19 +135,9 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after 20 ms of
+    warm-up calls (``kernel_times.event_ms``)."""
+    return event_ms(fn, 0.02, reps)
 
 
 # The card's published peaks (H100 SXM data sheet, at its 700 W limit): HBM
@@ -157,22 +165,29 @@ def bound(name: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(fn, kernel: str):
+def device_ms(fn, kernel: str, per_call: bool = False):
     """Device time per launch of the CUDA kernels whose name holds
     ``kernel`` in a torch.profiler trace of 5 calls, over the launches the
-    trace holds; None where it holds no device time."""
+    trace holds (``per_call``: per call of ``fn``, which launches each such
+    kernel once: over the launches of the kernel the trace holds most of);
+    None where none of three traces holds device time (a trace can come
+    back without some or all of the card's activity)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    total = sum(e.device_time_total for e in hits)
-    count = sum(e.count for e in hits)
-    return total / count / 1e3 if total > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel in e.key]
+        total = sum(e.device_time_total for e in hits)
+        if total > 0:
+            count = max(e.count for e in hits) if per_call else \
+                sum(e.count for e in hits)
+            return total / count / 1e3
+    return None
 
 
 def kernel_report(build_log: str) -> None:
@@ -182,15 +197,18 @@ def kernel_report(build_log: str) -> None:
     import re
     from minnow_c_tpu_torch.ops import cuda_lib
     for fn, spill, regs in re.findall(
-            r"Compiling entry function '(\S*(?:decode|pack)_tiles\S*)'.*?"
-            r"(\d+) bytes spill stores.*?Used (\d+) registers", build_log,
-            re.S):
-        w = re.search(r"kernelILi(\d+)E(?:Lb(\d))?", fn)
-        if w and int(w.group(1)) in (9, 12, 14, 16):
-            kind = "decode_tiles" if "decode" in fn else (
-                "pack_tiles" + ("(f32)" if w.group(2) == "1" else ""))
-            log(f"phase 1: ptxas: {kind}<{w.group(1)}>: {regs} registers, "
-                f"{spill} bytes spilled")
+            r"Compiling entry function '(\S*(?:_tiles|_fused|scan)_kernel"
+            r"\S*)'.*?(\d+) bytes spill stores.*?Used (\d+) registers",
+            build_log, re.S):
+        w = re.search(r"(decode_tiles|pack_tiles|pack_recip_tiles|"
+                      r"encode_recip_fused|scan)_kernel(?:ILi(\d+)E"
+                      r"(?:Lb(\d))?)?", fn)
+        if not w or (w.group(2) and int(w.group(2)) not in (9, 12, 14, 16)):
+            continue
+        kind = w.group(1) + ("(f32)" if w.group(3) == "1" else "") + (
+            f"<{w.group(2)}>" if w.group(2) else "")
+        log(f"phase 1: ptxas: {kind}: {regs} registers, {spill} bytes "
+            "spilled")
     tool = os.path.join(os.path.dirname(os.path.dirname(cuda_lib._nvcc())),
                         "bin", "cuobjdump")
     try:
@@ -202,7 +220,8 @@ def kernel_report(build_log: str) -> None:
         return
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name = part.split("\n", 1)[0]
-        w = re.search(r"(decode|pack)_tiles_kernelILi(\d+)E(Lb0)?", name)
+        w = re.search(
+            r"(decode|pack|pack_recip)_tiles_kernelILi(\d+)E(Lb0)?", name)
         if not w or w.group(2) not in ("12", "16") or \
                 (w.group(1) == "pack" and not w.group(3)):
             continue
@@ -476,9 +495,12 @@ def check_recip_kernels(dev, g) -> dict:
             worst[name] = max(worst[name], max_abs_err(a, b))
         cases += 1
 
-    for n in (1, 17, 33, (1 << 20) + 37):
-        for periodic in (False, True):
-            x = recip_plane(n, g, dev, periodic)
+    for n in (1, 17, 33, 100_003, (1 << 20) + 37, 7_812_500):
+        for periodic, offset in ((False, 0), (True, 0), (True, 1)):
+            # offset 1: storage one element in, 4-byte loads
+            store = torch.empty(n + offset, device=dev)
+            store[offset:] = recip_plane(n, g, dev, periodic)
+            x = store[offset:]
             u = kernels.undo_periodic(x, BOX) if periodic else x
             x0, x1 = kernels.minmax(u)
             recip = kernels.exact_recip((x1 - x0).item())
@@ -487,7 +509,8 @@ def check_recip_kernels(dev, g) -> dict:
                         x[0].item(), periodic)
                 same("K5", encode_cuda.encode_recip_cuda(x, *args),
                      encode_cuda.encode_recip_plain(x, *args),
-                     f"width={width} n={n} periodic={periodic}")
+                     f"width={width} n={n} periodic={periodic} "
+                     f"offset={offset}")
         const = torch.full((n,), 7.5, device=dev)
         same("K5", encode_cuda.encode_recip_cuda(const, 12, 7.5, np.inf, 0.0,
                                                  7.5, False),
@@ -510,10 +533,14 @@ def check_recip_kernels(dev, g) -> dict:
         same("K8", encode_cuda.encode_recip_rows_cuda(rows, *r_args),
              encode_cuda.encode_recip_rows_plain(rows, *r_args),
              f"subnormal differences width={width}")
-    for rows, n in ((1, 32), (70_000, 32), (3, (1 << 20) + 32), (192, 4096)):
+    # rows shorter than a tile, equal to it and longer; many rows of 32
+    for rows, n in ((1, 32), (70_000, 32), (700, 96), (7, 4064), (7, 4096),
+                    (7, 4128), (3, (1 << 20) + 32), (2, 1 << 21),
+                    (2, 7_812_512), (192, 4096)):
         for periodic in (False, True):
             x = torch.rand(rows, n, generator=g, device=dev) * BOX
             x[0] = recip_plane(n, g, dev, periodic)
+            x[-1, ::5] = 1e-40
             x0 = torch.rand(rows, generator=g, device=dev) * 4.0
             recip = 1.0 / (40.0 + 20.0 * torch.rand(rows, generator=g,
                                                     device=dev))
@@ -523,7 +550,7 @@ def check_recip_kernels(dev, g) -> dict:
                 recip[1] = float("inf")
                 x0[2] = 1e-40
             box = torch.full((rows,), BOX, device=dev)
-            for width in (1, 7, 16, 24):
+            for width in range(1, 25):
                 args = (width, x0, recip, box, x[:, 0].contiguous(), periodic)
                 same("K8", encode_cuda.encode_recip_rows_cuda(x, *args),
                      encode_cuda.encode_recip_rows_plain(x, *args),
@@ -537,7 +564,7 @@ def check_recip_kernels(dev, g) -> dict:
                 x[1] = 3.25
             anchors = x[:, :, 0].contiguous()
             box = BOX if periodic else 0.0
-            for width in (1, 14, 24):
+            for width in (1, 12, 14, 16, 24):
                 same("K12", encode_cuda.encode_recip_fused_blocks_cuda(
                     x, box, anchors, width, periodic),
                     encode_cuda.encode_recip_fused_blocks_plain(
@@ -613,11 +640,25 @@ def check_delta_kernels(dev, g) -> dict:
         worst[name] = max(worst[name], max_abs_err(got, want))
         cases += 1
 
-    for n in (1, 97, 4097, (1 << 20) + 5, 1 << 24):
-        x = torch.randint(-(1 << 31), 1 << 31, (n,), generator=g,
-                          device=dev, dtype=torch.int64).to(torch.int32)
-        same("K9", scan_cuda.cumsum_u32(x), scan_cuda.cumsum_u32_plain(x),
-             f"n={n}")
+    for n in (1, 31, 97, 4095, 4096, 4097, (1 << 20) + 5, 1 << 24,
+              3 * (1 << 24) + 7):
+        for offset in (0, 1):   # 1: storage one word in, 4-byte loads
+            store = torch.randint(-(1 << 31), 1 << 31, (n + offset,),
+                                  generator=g, device=dev,
+                                  dtype=torch.int64).to(torch.int32)
+            x = store[offset:]
+            same("K9", scan_cuda.cumsum_u32(x), scan_cuda.cumsum_u32_plain(x),
+                 f"n={n} offset={offset}")
+    # 50 calls in a row on one stream: a race in the look-back, or a status
+    # word or ticket left by the call before, would show
+    xs = [torch.randint(-(1 << 31), 1 << 31, (1 << 24,), generator=g,
+                        device=dev, dtype=torch.int64).to(torch.int32)
+          for _ in range(2)]
+    want = [scan_cuda.cumsum_u32_plain(x) for x in xs]
+    got = [scan_cuda.cumsum_u32(xs[k % 2]) for k in range(50)]
+    for k, y in enumerate(got):
+        same("K9", y, want[k % 2], f"call {k} of 50 at n=2^24")
+    del xs, want, got
     chunk = chunked_cuda.KERNEL_CHUNK
     for pattern, trim in (((7, 15, 7), 137), ((24,), 137),
                           ((0, 9, 0, 3), 137), ((1, 32, 5), 137),
@@ -712,6 +753,55 @@ def check_frozen_wire(mt, dev) -> None:
                                      f"(fused={fused}): {dig}")
         log(f"phase 3: {name} encode {enc[:16]}.. ({len(blob)} B) and "
             "decode (generic, fused) match the frozen digests on CUDA")
+
+
+def u64_cases():
+    """u64 fields over their whole range: Unsi values at 1, 2^63 + 12345
+    and 2^64 - 1, a range below 2^32 just under 2^64 (one plane), a range
+    past 2^32 across 2^63 (two planes); IDs on grids of 2^21 + 5 and
+    2642245 (the largest w with w^3 <= 2^64) a side, x and z across the
+    grid's seam, with 0, w^3 - 1 and 2^63 + 7 among them."""
+    rng = np.random.default_rng(SEED)
+    yield "Unsi edges", None, np.array(
+        [1, (1 << 63) + 12345, (1 << 64) - 1], np.uint64)
+    yield "Unsi one plane near 2^64", None, rng.integers(
+        0, 1 << 32, 1 << 16, dtype=np.uint64) + np.uint64(-(1 << 32) % 2**64)
+    yield "Unsi two planes across 2^63", None, rng.integers(
+        0, 1 << 41, 1 << 16, dtype=np.uint64) + np.uint64((1 << 63) - 2**40)
+    for w in ((1 << 21) + 5, 2642245):
+        n = 1 << 16
+        xs, zs = (rng.integers(w - k, w + k, n) % w for k in (6, 3))
+        ys = rng.integers(0, w, n)
+        ids = (xs.astype(np.uint64) + np.uint64(w) * ys.astype(np.uint64) +
+               np.uint64(w * w) * zs.astype(np.uint64))
+        ids[:3] = (0, w ** 3 - 1, (1 << 63) + 7)
+        yield f"Ptid width {w}", w, ids
+
+
+def check_u64_segments(mt, dev) -> None:
+    """Each u64 case as a Trim segment encoded from an int64 CUDA tensor of
+    its bits and decoded on CUDA (generic and fused): the expected u64
+    values, and the bytes of the same encode on the CPU."""
+    for name, w, vals in u64_cases():
+        code, acc = (mt.FieldCode.UNSI, mt.IntAccuracy()) if w is None else \
+            (mt.FieldCode.PTID, mt.IDAccuracy(width=w))
+        hd = mt.FieldHeader(code, mt.AlgoCode.TRIM, mt.semver.pack(1, 0, 0),
+                            vals.size)
+        t = torch.from_numpy(vals.view(np.int64))
+        blob = mt.compress_segment(mt.Seg(fields=[mt.Field(
+            hd=hd, data=t.to(dev), acc=acc)]))
+        if blob != mt.compress_segment(mt.Seg(fields=[mt.Field(
+                hd=hd, data=t, acc=acc)]), device="cpu"):
+            raise AssertionError(f"phase 3: {name}: CUDA encode != CPU")
+        for fused in (False, True):
+            got = mt.decompress_segment(blob, fused=fused).fields[0].data
+            if not got.is_cuda or not np.array_equal(
+                    got.cpu().numpy().view(np.uint64), vals):
+                raise AssertionError(f"phase 3: {name}: decode (fused="
+                                     f"{fused}) != the u64 values")
+        log(f"phase 3: {name}: {vals.size} u64 values encoded from CUDA, "
+            f"== the CPU encode ({len(blob)} B), decoded on CUDA (generic, "
+            "fused) to the same u64 bits")
 
 
 # ---------------------------------------------------------------------------
@@ -1270,7 +1360,7 @@ def time_delta_kernels(mt, data, dev):
         lambda: torch.cumsum(deltas, 0, dtype=torch.int32))
     log(f"phase 6: torch.cumsum(deltas, 0, dtype=torch.int32) beside K9: "
         f"{times['K9 library']:.4f} ms (CUDA events, median of 5)")
-    return times, errs
+    return times, errs, deltas
 
 
 # ---------------------------------------------------------------------------
@@ -1537,11 +1627,16 @@ def check_fast_recip(mt, dev):
     words, x0, r = enc[0]
     args = (level, x0.item(), kernels.exact_recip(r.item()), BOX,
             x[0].item(), True)
+    bins = kernels.recip_scaled_bins(x, *args[1:5], level, True)
+    if not torch.equal(encode_cuda.pack_cuda(bins, level), words):
+        raise AssertionError("phase 7(e): K4 on the recip bins != K5")
     t = {"K5": cuda_ms(lambda: encode_cuda.encode_recip_cuda(x, *args)),
          "K5 plain": cuda_ms(lambda: encode_cuda.encode_recip_plain(x,
-                                                                    *args))}
+                                                                    *args)),
+         "K5 K4": cuda_ms(lambda: encode_cuda.pack_cuda(bins, level))}
     log(f"phase 7(e): K5 at width {level}, n {n}: {t['K5']:.4f} ms, plain "
-        f"torch {t['K5 plain']:.4f} ms (CUDA events, median of 5)")
+        f"torch {t['K5 plain']:.4f} ms; K4 packing the same bins "
+        f"{t['K5 K4']:.4f} ms (CUDA events, median of 5)")
     # the recip map's float work: the unwrap's two subtractions and two
     # compares, (x - x0) * recip * 2^w, the clamp's compare: 8 an element
     note_work("K5", [x], [words], 8.0 * n)
@@ -1622,7 +1717,42 @@ def time_recip_rows(mt, data, dev):
     log(f"phase 7(e): one-pass K12 {times['K12']:.4f} ms vs the split CUDA "
         f"path (K6, host recip, K8) {times['K12 split']:.4f} ms (CUDA "
         "events, median of 5)")
+    times["K8 device"] = device_ms(fns["K8"][0], "pack_recip_tiles")
+    log(f"phase 7(e): K8 device time alone (torch.profiler, 5 calls): "
+        f"{times['K8 device']} ms against {times['K8']:.4f} ms with its "
+        "wrapper (CUDA events)")
+    times["K8 widths"] = time_recip_widths(rows, x0, recip, box, anchors)
     return times, errs, k12_launches
+
+
+def time_recip_widths(rows, x0, recip, box, anchors) -> dict:
+    """K8 at the recip write's shapes and widths (192 position rows of 2^21
+    at 16 and 12 bits, 64 rows at 14), each beside K7 packing the same
+    bins in the same run: K8 must equal K7 on the recip map's bins (the
+    plain map), and each pair is timed in turns (K8, K7, K7, K8; CUDA
+    events, median of 5 each)."""
+    from minnow_c_tpu_torch.ops import encode_cuda, kernels
+    out = {}
+    for width, r in ((16, rows.shape[0]), (12, rows.shape[0]), (14, 64)):
+        xs, s = rows[:r], (x0[:r], recip[:r], box[:r], anchors[:r])
+        bins = kernels.recip_scaled_bins(xs, *(t[:, None] for t in s), width,
+                                         True)
+
+        def k8():
+            return encode_cuda.encode_recip_rows_cuda(xs, width, *s, True)
+
+        def k7():
+            return encode_cuda.pack_rows_cuda(bins, width)
+
+        if not torch.equal(k8(), k7()):
+            raise AssertionError(f"K8 != K7 on the recip bins at width "
+                                 f"{width}, {r} rows")
+        t8a, t7a, t7b, t8b = (cuda_ms(f) for f in (k8, k7, k7, k8))
+        out[f"{width} bits, {r} rows"] = {"K8": [t8a, t8b], "K7": [t7a, t7b]}
+        del bins
+    log(f"phase 7(e): K8 beside K7 on the same bins by width: {out} ms "
+        "(CUDA events, median of 5, in turns)")
+    return out
 
 
 def main() -> int:
@@ -1631,7 +1761,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import minnow_c_tpu_torch as mt
-    from minnow_c_tpu_torch.ops import cuda_lib, encode_cuda
+    from minnow_c_tpu_torch.ops import cuda_lib, encode_cuda, scan_cuda
 
     dev = torch.device("cuda")
     card = nvidia_smi()
@@ -1651,21 +1781,18 @@ def main() -> int:
     recip_err = check_recip_kernels(dev, g)
     err13 = check_tiles_pack(dev, g)
     check_frozen_wire(mt, dev)
+    check_u64_segments(mt, dev)
+    # The CUDA-event floor: two events with nothing between.  A torch.profiler
+    # trace leaves the card's tracing hooks in place, and they add to every
+    # later event time; so the paths whose kernels are short (4, 6, 7(c),
+    # 7(d)) run and are timed before the first trace.
+    floor_ms = cuda_ms(lambda: None)
     reset_counts()
     seg, launches = check_main_path(mt, dev)
     times, e1, e4 = time_kernels(mt, seg, dev)
     del seg
-    snap_data, snap_launches = check_snapshot_path(mt, dev)
-    rows_times, rows_e = time_rows_kernels(mt, snap_data, dev)
-    # phase 7's parts on phase 5's snapshot run while it is on the card
-    stats_a, keep, blob_a, recip_launches = check_recip_snapshot(
-        mt, snap_data, dev)
-    check_streaming(mt, snap_data, stats_a, keep, blob_a, dev)
-    del keep, blob_a
-    recip_times, recip_e, k12_launches = time_recip_rows(mt, snap_data, dev)
-    del snap_data
     data, delta_launches = check_delta_path(mt, dev)
-    delta_times, delta_e = time_delta_kernels(mt, data, dev)
+    delta_times, delta_e, deltas = time_delta_kernels(mt, data, dev)
     del data
     cli_launches, cli_e = check_cli(dev)
     k5_times = check_fast_recip(mt, dev)
@@ -1676,6 +1803,32 @@ def main() -> int:
     log(f"phase 7(e): K13 as K4's kernel at width 17, n {2 * 16384}: "
         f"{t13['K13']:.4f} ms, plain torch {t13['K13 plain']:.4f} ms (CUDA "
         "events, median of 5)")
+    # phase 6's deltas wait on the host, out of phases 5 and 7's peak memory
+    deltas = deltas.cpu()
+    snap_data, snap_launches = check_snapshot_path(mt, dev)
+    rows_times, rows_e = time_rows_kernels(mt, snap_data, dev)
+    # phase 7's parts on phase 5's snapshot run while it is on the card
+    stats_a, keep, blob_a, recip_launches = check_recip_snapshot(
+        mt, snap_data, dev)
+    check_streaming(mt, snap_data, stats_a, keep, blob_a, dev)
+    del keep, blob_a
+    recip_times, recip_e, k12_launches = time_recip_rows(mt, snap_data, dev)
+    del snap_data
+    # the device times need traces: after phase 5's
+    deltas = deltas.to(dev)
+    delta_times["K9 device"] = device_ms(
+        lambda: scan_cuda.cumsum_u32(deltas), "scan_kernel")
+    delta_times["K9 library device"] = device_ms(
+        lambda: torch.cumsum(deltas, 0, dtype=torch.int32), "Scan",
+        per_call=True)
+    log(f"phase 6: K9 device time alone (torch.profiler, 5 calls): "
+        f"{delta_times['K9 device']} ms against {delta_times['K9']:.4f} ms "
+        f"with its wrapper (CUDA events); torch.cumsum's kernels "
+        f"{delta_times['K9 library device']} ms a call")
+    del deltas
+    log(f"CUDA-event floor (two events, nothing between, median of 5): "
+        f"{floor_ms:.4f} ms before the first torch.profiler trace, "
+        f"{cuda_ms(lambda: None):.4f} ms after the last")
 
     # (name, source, replaced Pallas function, launches on its path,
     #  max_abs_err, times with "<K>" / "<K> plain" / "<K> library" keys)
@@ -1690,7 +1843,7 @@ def main() -> int:
                rows_times),
         "K4": ("pack_uniform", "pack.cu", "encode_pallas.py:103",
                launches["K4"], max(err4, e4, cli_e["K4"]), times),
-        "K5": ("encode_recip", "encode_recip.cu", "encode_pallas.py:368",
+        "K5": ("encode_recip", "pack.cu", "encode_pallas.py:368",
                cli_launches["K5"], max(recip_err["K5"], cli_e["K5"]),
                k5_times),
         "K6": ("stats_rows", "stats.cu", "encode_pallas.py:501",
@@ -1699,8 +1852,8 @@ def main() -> int:
         "K7": ("pack_rows", "pack.cu", "encode_pallas.py:147",
                snap_launches["K7"], max(rows_err["K7"], rows_e["K7"]),
                rows_times),
-        "K8": ("encode_recip_rows", "encode_recip.cu",
-               "encode_pallas.py:395", recip_launches["K8"],
+        "K8": ("encode_recip_rows", "pack.cu", "encode_pallas.py:395",
+               recip_launches["K8"],
                max(recip_err["K8"], recip_e["K8"]), recip_times),
         "K9": ("cumsum_u32", "scan.cu", "scan_pallas.py:106",
                delta_launches["K9"], max(delta_err["K9"], delta_e["K9"]),
@@ -1732,9 +1885,14 @@ def main() -> int:
                "library_ms": t.get(k + " library")}
         if k in library_calls:
             row["library_call"] = library_calls[k]
-        if k in ("K2", "K7"):
+        if k in ("K2", "K7", "K8", "K9"):
             row["device_ms"] = t[k + " device"]
+        if k == "K9":
+            row["library_device_ms"] = t["K9 library device"]
+        if k in ("K2", "K7", "K8"):
             row["widths_ms"] = t[k + " widths"]
+        if k == "K5":
+            row["k4_same_bins_ms"] = t["K5 K4"]
         kernels.append(row)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

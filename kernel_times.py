@@ -1,0 +1,175 @@
+"""Times the recip-mode pack kernels (K5, K8, K12) and the u32 scan (K9) of
+one tree of the torch port on one CUDA card, each beside the kernel or
+library call it is held to, under two warm-ups.
+
+    python3 kernel_times.py [--tree DIR] [--rounds N]
+
+``--tree`` is a checkout whose ``minnow_c_tpu_torch`` is imported (default:
+the one beside this script); its kernels are built there from its own
+``csrc/``.  Comparing two versions of the code means running this script
+once for each tree, in one session on one card, in turns (a, b, b, a).
+
+The inputs are made on the card from fixed seeds, at the shapes of
+chip_smoke.py's kernels line:
+
+* K9: 2^24 u32 values, and ``torch.cumsum(x, 0, dtype=torch.int32)``;
+* K8: 192 rows of 2^21 positions (box 64, periodic, each row's x0 and
+  exact recip from its unwrapped range) at 16 bits, and K7 packing the
+  same bins;
+* K5: one plane of 2^24 positions at 16 bits, and K4 packing the same bins;
+* K12: the same positions as (64, 3, 2^21) blocks at 16 bits.
+
+Each time is chip_smoke.py's: CUDA events around one call, median of 5,
+after a warm-up.  The warm-up is either one call (``one_call``) or calls
+until 20 ms have passed (``20ms``); before each ``one_call`` timing the
+card idles 0.2 s, as it does between the host-bound phases of a path.
+Every round times each kernel both ways; the rounds' medians are listed.
+No torch.profiler trace runs before the last event time.  Then one trace
+gives the device time of K9's kernel, of the memset before it where the
+tree has one, and of torch.cumsum's kernels, per call.
+
+Prints the card's name and power limit, then one JSON object.  Needs a
+CUDA card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+BOX = 64.0
+ROWS, ROW_N = 192, 1 << 21
+PLANE_N = 1 << 24
+WIDTH = 16
+
+
+def event_ms(fn, warm_s: float, reps: int = 5) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` calls, after calls
+    that last ``warm_s`` seconds (one call at least)."""
+    t = time.perf_counter()
+    while True:
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t >= warm_s:
+            break
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(fn, names, calls: int = 5) -> dict:
+    """Device time per call of the CUDA activity whose name holds each of
+    ``names``, in one torch.profiler trace of ``calls`` calls (None where
+    the trace holds none), and the names of the activities counted."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        hits = [e for e in prof.key_averages() if name in e.key]
+        total = sum(e.device_time_total for e in hits)
+        out[name] = total / calls / 1e3 if total > 0 else None
+        out[name + " counted"] = sorted(e.key[:80] for e in hits)
+    return out
+
+
+def inputs(dev):
+    """The kernels' inputs and the calls to time, by name."""
+    from minnow_c_tpu_torch.ops import encode_cuda, kernels, scan_cuda
+    g = torch.Generator(device=dev).manual_seed(42)
+    deltas = torch.randint(-(1 << 31), 1 << 31, (PLANE_N,), generator=g,
+                           device=dev, dtype=torch.int64).to(torch.int32)
+    rows = torch.rand(ROWS, ROW_N, generator=g, device=dev) * BOX
+    anchors = rows[:, 0].contiguous()
+    x0, x1 = kernels.minmax(kernels.undo_periodic(rows, BOX))
+    recip = torch.from_numpy(kernels.exact_recip(
+        kernels.ftz(x1 - x0).cpu().numpy())).to(dev)
+    box = torch.full((ROWS,), BOX, device=dev)
+    k8 = (WIDTH, x0, recip, box, anchors, True)
+    bins8 = kernels.recip_scaled_bins(rows, x0[:, None], recip[:, None],
+                                      box[:, None], anchors[:, None], WIDTH,
+                                      True)
+    plane = rows[:PLANE_N // ROW_N].reshape(-1)
+    u0, u1 = kernels.minmax(kernels.undo_periodic(plane, BOX))
+    k5 = (WIDTH, u0.item(), float(kernels.exact_recip((u1 - u0).item())),
+          BOX, plane[0].item(), True)
+    bins5 = kernels.recip_scaled_bins(plane, *k5[1:5], WIDTH, True)
+    blocks = rows.reshape(ROWS // 3, 3, ROW_N)
+    k12 = (BOX, anchors.reshape(ROWS // 3, 3), WIDTH, True)
+    calls = {
+        "K9": lambda: scan_cuda.cumsum_u32(deltas),
+        "K9 library": lambda: torch.cumsum(deltas, 0, dtype=torch.int32),
+        "K8": lambda: encode_cuda.encode_recip_rows_cuda(rows, *k8),
+        "K8 K7": lambda: encode_cuda.pack_rows_cuda(bins8, WIDTH),
+        "K5": lambda: encode_cuda.encode_recip_cuda(plane, *k5),
+        "K5 K4": lambda: encode_cuda.pack_cuda(bins5, WIDTH),
+        "K12": lambda: encode_cuda.encode_recip_fused_blocks_cuda(blocks,
+                                                                  *k12),
+    }
+    # each kernel packs the same words as the kernel beside it
+    for a, b in (("K8", "K8 K7"), ("K5", "K5 K4")):
+        if not torch.equal(calls[a](), calls[b]()):
+            raise AssertionError(f"{a} != {b} on the same input")
+    return calls
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=os.path.dirname(
+        os.path.abspath(__file__)))
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA card", file=sys.stderr)
+        return 2
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    from minnow_c_tpu_torch.ops import cuda_lib
+    if not cuda_lib.__file__.startswith(tree):
+        raise RuntimeError(f"imported {cuda_lib.__file__}, not from {tree}")
+    t = time.perf_counter()
+    cuda_lib.lib()
+    build_s = time.perf_counter() - t
+    dev = torch.device("cuda")
+    calls = inputs(dev)
+    rounds = {"one_call": {k: [] for k in calls},
+              "20ms": {k: [] for k in calls}}
+    for _ in range(args.rounds):
+        for name, fn in calls.items():
+            time.sleep(0.2)
+            rounds["one_call"][name].append(event_ms(fn, 0.0))
+            rounds["20ms"][name].append(event_ms(fn, 0.02))
+    dev_ms = device_ms(calls["K9"], ("scan_kernel", "Memset"))
+    dev_ms.update(device_ms(calls["K9 library"], ("Scan",)))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card)
+    print(json.dumps({"tree": tree, "build_s": round(build_s, 1),
+                      "rounds": args.rounds, "ms": rounds,
+                      "k9_device_ms": dev_ms}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,7 +27,7 @@
 // 32t .. 32t+31, which occupy natural words t*w .. t*w+w-1 exactly, through
 // a 64-bit bit buffer.  The carry across chunks comes from a first pass
 // (chunk_totals_kernel) that only sums each chunk's deltas, an exclusive scan
-// of the chunk totals seeded with `first` (scan.cuh, K9's code), and the
+// of the chunk totals seeded with `first` (scan.cuh), and the
 // second pass, which re-unpacks, scans the chunk in-block, adds its carry
 // and writes once.  Width-0 chunks have no words and carry the sum through.
 // Nothing reads past the body: the wrapper checks that the body holds every

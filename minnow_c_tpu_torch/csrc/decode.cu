@@ -46,7 +46,8 @@
 // inside a tile is 32-bit: a tile's first row and its offset in that row are
 // found once per tile (one thread, one 64-bit division), and a quad past the
 // end of that row finds its row by a 32-bit division by the row length
-// through a precomputed magic number with one correction step.  Every float
+// through a precomputed magic number with one correction step (rows.cuh).
+// Every float
 // step names its rounding (__fadd_rn, __fmaf_rn, __fsub_rn) and the library
 // builds with -fmad=false -ftz=true; the grain's and the bin's floats are
 // built exactly from bits (dither.cuh).
@@ -60,6 +61,7 @@
 #include <utility>
 
 #include "dither.cuh"
+#include "rows.cuh"
 
 namespace {
 
@@ -199,15 +201,8 @@ decode_tiles_kernel(const DecodeArgs a) {
       uint32_t off = off0 + i;
       RowParams p = first;
       if (!one_row) {
-        // the quad's row and its offset in it: a 32-bit division through
-        // the magic number, one correction step
-        uint32_t q = __umulhi(off, a.n_magic);
-        off -= q * a.n;
-        if (off >= a.n) {
-          ++q;
-          off -= a.n;
-        }
-        p = row_params<W>(a, row0 + q);
+        // the quad's row and its offset in it (rows.cuh)
+        p = row_params<W>(a, row0 + mnw::split_row(off, a.n, a.n_magic));
       }
       float u[4];
       mnw::dither_quad(p.k0, p.k1, a.ctr0 + (off >> 2), u);

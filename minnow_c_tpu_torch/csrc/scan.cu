@@ -4,20 +4,33 @@
 // minnow_c_tpu/ops/scan_pallas.py:cumsum_u32 (_tile_prefix, _cumsum_kernel).
 // The delta codecs' decode runs it over the un-zigzagged deltas of a plane.
 //
-// Bound on the card: memory.  Per element it reads 4 bytes twice and writes
-// 4 bytes once.
+// Bound on the card: memory.  Per element it must read 4 bytes and write 4
+// (0.040 ms for 2^24 elements at 3.35 TB/s).
 //
-// Design (reduce, scan the sums, rescan): launch 1 sums each tile of 4096
-// elements (256 threads x 16); launch 2, one block, turns the tile sums into
-// each tile's carry (exclusive scan, scan.cuh); launch 3 rescans each tile
-// with its carry and writes.  A tile is staged in shared memory with one
-// pad word every 32, so both the coalesced global loads / stores and the
-// per-thread runs of 16 consecutive elements are free of bank conflicts.
-// The TPU kernel's tile cascade (2^19, 2^16, 2^14) and its n >= 2^14
-// cut-over exist for the TPU's per-grid-step latency and are dropped: every
-// n runs the same three launches.
-// Left for later work: a single-pass decoupled look-back scan, which reads
-// the input once.
+// Design: one launch, one read and one write of every element (a
+// single-pass scan with decoupled look-back).  A persistent grid of small
+// blocks (128 threads, 8 a SM, from the wrapper's plan) takes tiles of 4096
+// elements (128 threads x 32) by ticket from an atomic counter: tiles are
+// handed out in the order blocks ask, so a tile only ever waits on tiles
+// whose blocks are running, whatever the grid's residency.  A block takes
+// its next ticket and has that tile's 16-byte loads in flight in registers
+// while it scans the current one (4-byte loads when the input is not
+// 16-byte aligned, and for a ragged last tile).  A tile goes through shared
+// memory skewed by one word every 32 (conflict-free both for the loads'
+// stripes and for each thread's run of 32 consecutive elements), is summed
+// per thread and across the block (scan.cuh), and publishes its aggregate,
+// then, once its carry is known, its inclusive prefix.  Each goes out as one
+// 64-bit status word -- (kind << 32) | value -- so a flag and its value
+// never tear; the words carry no other data, so relaxed atomic loads and
+// stores at device scope order them enough.  One warp looks back over up to
+// 32 predecessors at a time: it waits (with a short sleep) until each has
+// published, sums the aggregates up to the nearest prefix, and stops there.
+// The ticket counter and the status words are cleared by one
+// cudaMemsetAsync on the launch's stream before the kernel (ops/scan_cuda.py
+// keeps the buffer per device and stream, so calls on two streams never
+// share one).
+// u32 addition wraps and is associative, so any blocking gives the same
+// bits.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -26,81 +39,206 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 16;
+constexpr int kThreads = 128;
+constexpr int kItems = 32;
 constexpr int kTile = kThreads * kItems;
+constexpr int kChunks = kItems / 4;  // 16-byte chunks a thread moves
+constexpr int kBlocksPerSm = 8;
+constexpr uint32_t kAggregate = 1u;
+constexpr uint32_t kPrefix = 2u;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
+struct ScanArgs {
+  const uint32_t* x;
+  uint32_t* out;       // 16-byte aligned
+  int64_t n;
+  uint32_t tiles;      // ceil(n / kTile), below 2^31
+  int vec16;           // x starts on a 16-byte boundary
+  unsigned* counter;   // the tickets; 0 on entry
+  uint64_t* status;    // one word per tile
+};
 
-__global__ void tile_sums_kernel(const uint32_t* __restrict__ x, int64_t n,
-                                 uint32_t* __restrict__ sums) {
-  __shared__ uint32_t warp_sums[32];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
-  uint32_t s = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + k * kThreads + threadIdx.x;
-    if (i < n) s += x[i];
-  }
-  uint32_t total;
-  mnw::block_exclusive_scan(s, warp_sums, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
+__device__ __forceinline__ uint32_t skew(uint32_t i) { return i + (i >> 5); }
+
+__device__ __forceinline__ void publish(uint64_t* p, uint64_t v) {
+  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
 }
 
-__global__ void tile_scan_kernel(const uint32_t* __restrict__ x, int64_t n,
-                                 const uint32_t* __restrict__ carries,
-                                 uint32_t* __restrict__ out) {
+__device__ __forceinline__ uint64_t observe(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint64_t status_word(uint32_t kind,
+                                                uint32_t value) {
+  return (static_cast<uint64_t>(kind) << 32) | value;
+}
+
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+  return v;
+}
+
+// The sum of every element before tile t (t >= 1), by warp 0: lane l reads
+// the status of tile t - 1 - l - 32 k in round k.
+__device__ uint32_t look_back(const ScanArgs& a, uint32_t t) {
+  const int lane = threadIdx.x & 31;
+  uint32_t carry = 0;
+  for (int64_t k = static_cast<int64_t>(t) - 1 - lane;; k -= 32) {
+    uint32_t kind, value;
+    bool again = false;
+    do {
+      if (again) __nanosleep(32);
+      if (k >= 0) {
+        const uint64_t w = observe(a.status + k);
+        kind = static_cast<uint32_t>(w >> 32);
+        value = static_cast<uint32_t>(w);
+      } else {  // before tile 0: a prefix of nothing
+        kind = kPrefix;
+        value = 0u;
+      }
+      again = __any_sync(kFull, kind == 0u);
+    } while (again);
+    const unsigned prefixes = __ballot_sync(kFull, kind == kPrefix);
+    if (prefixes) {
+      // the nearest predecessor with a prefix ends the walk
+      const int first = __ffs(prefixes) - 1;
+      return carry + warp_sum(lane <= first ? value : 0u);
+    }
+    carry += warp_sum(value);
+  }
+}
+
+// Loads tile t's chunk c (elements 4 * (c * kThreads + thread)) into r[c].
+__device__ __forceinline__ void load_tile(const ScanArgs& a, uint32_t t,
+                                          uint4 (&r)[kChunks]) {
+  const int64_t e0 = static_cast<int64_t>(t) * kTile;
+  const int64_t left = a.n - e0;
+  const int count = left < kTile ? static_cast<int>(left) : kTile;
+  const uint32_t* x = a.x + e0;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int i = 4 * (c * kThreads + threadIdx.x);
+    if (a.vec16 && i + 4 <= count) {
+      r[c] = __ldg(reinterpret_cast<const uint4*>(x + i));
+    } else {
+      r[c].x = i < count ? __ldg(x + i) : 0u;
+      r[c].y = i + 1 < count ? __ldg(x + i + 1) : 0u;
+      r[c].z = i + 2 < count ? __ldg(x + i + 2) : 0u;
+      r[c].w = i + 3 < count ? __ldg(x + i + 3) : 0u;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+scan_kernel(const ScanArgs a) {
   __shared__ uint32_t tile[kTile + kTile / 32];
   __shared__ uint32_t warp_sums[32];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = k * kThreads + threadIdx.x;
-    tile[padded(i)] = base + i < n ? x[base + i] : 0u;
-  }
+  __shared__ uint32_t ticket_s, next_s, carry_s;
+  if (threadIdx.x == 0) ticket_s = atomicAdd(a.counter, 1u);
   __syncthreads();
-  uint32_t v[kItems];
-  uint32_t s = 0;
+  uint32_t t = ticket_s;
+  uint4 r[kChunks];
+  if (t < a.tiles) load_tile(a, t, r);
+  while (t < a.tiles) {
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    s += tile[padded(threadIdx.x * kItems + j)];
-    v[j] = s;
-  }
-  uint32_t total;
-  const uint32_t ex = mnw::block_exclusive_scan(s, warp_sums, &total) +
-                      carries[blockIdx.x];
-  // Each thread rewrites only the elements it read itself.
+    for (int c = 0; c < kChunks; ++c) {
+      const int i = 4 * (c * kThreads + threadIdx.x);
+      tile[skew(i)] = r[c].x;
+      tile[skew(i + 1)] = r[c].y;
+      tile[skew(i + 2)] = r[c].z;
+      tile[skew(i + 3)] = r[c].w;
+    }
+    if (threadIdx.x == 0) next_s = atomicAdd(a.counter, 1u);
+    __syncthreads();
+    uint32_t s = 0;
 #pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    tile[padded(threadIdx.x * kItems + j)] = v[j] + ex;
-  }
-  __syncthreads();
+    for (int j = 0; j < kItems; ++j) s += tile[skew(threadIdx.x * kItems + j)];
+    uint32_t total;
+    const uint32_t ex = mnw::block_exclusive_scan(s, warp_sums, &total);
+    // the next tile's loads fly while this one looks back and stores
+    const uint32_t next = next_s;
+    if (next < a.tiles) load_tile(a, next, r);
+
+    if (threadIdx.x < 32) {
+      uint32_t carry = 0;
+      if (t == 0) {
+        if (threadIdx.x == 0) {
+          publish(a.status, status_word(kPrefix, total));
+        }
+      } else {
+        if (threadIdx.x == 0) {
+          publish(a.status + t, status_word(kAggregate, total));
+        }
+        carry = look_back(a, t);
+        if (threadIdx.x == 0) {
+          publish(a.status + t, status_word(kPrefix, carry + total));
+        }
+      }
+      if (threadIdx.x == 0) carry_s = carry;
+    }
+    __syncthreads();
+    // Each thread rescans only the elements it summed itself.
+    uint32_t run = carry_s + ex;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int i = k * kThreads + threadIdx.x;
-    if (base + i < n) out[base + i] = tile[padded(i)];
+    for (int j = 0; j < kItems; ++j) {
+      const uint32_t k = skew(threadIdx.x * kItems + j);
+      run += tile[k];
+      tile[k] = run;
+    }
+    __syncthreads();
+
+    const int64_t e0 = static_cast<int64_t>(t) * kTile;
+    const int64_t left = a.n - e0;
+    const int count = left < kTile ? static_cast<int>(left) : kTile;
+    uint32_t* out = a.out + e0;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int i = 4 * (c * kThreads + threadIdx.x);
+      const uint4 w = make_uint4(tile[skew(i)], tile[skew(i + 1)],
+                                 tile[skew(i + 2)], tile[skew(i + 3)]);
+      if (i + 4 <= count) {
+        *reinterpret_cast<uint4*>(out + i) = w;
+      } else {
+        if (i < count) out[i] = w.x;
+        if (i + 1 < count) out[i + 1] = w.y;
+        if (i + 2 < count) out[i + 2] = w.z;
+      }
+    }
+    __syncthreads();  // the tile's shared memory is free for the next
+    t = next;
   }
 }
 
 }  // namespace
 
-// scratch holds 2 * ceil(n / 4096) words: the tile sums, then the carries.
-extern "C" int mnw_cumsum_u32(const void* x, int64_t n, void* scratch,
+// scratch: 8 bytes of ticket counter then one 64-bit status word per tile,
+// all cleared here on the stream before the launch; tiles, grid (at most
+// tiles, and at most 8 blocks a SM) and vec16 come from the wrapper
+// (ops/scan_cuda.scan_plan).
+extern "C" int mnw_cumsum_u32(const void* x, int64_t n, int64_t tiles,
+                              unsigned grid, int vec16, void* scratch,
                               void* out, void* stream) {
+  if (n < 1 || tiles != (n + kTile - 1) / kTile || tiles >= (1ll << 31) ||
+      grid < 1 || grid > tiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto s = static_cast<cudaStream_t>(stream);
-  const int64_t tiles = (n + kTile - 1) / kTile;
-  auto* sums = static_cast<uint32_t*>(scratch);
-  uint32_t* carries = sums + tiles;
-  const auto* in = static_cast<const uint32_t*>(x);
-  tile_sums_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(in, n,
-                                                                      sums);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mnw::exclusive_scan_one_block<<<1, mnw::kScanOneBlockThreads, 0, s>>>(
-      sums, tiles, 0u, carries);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tile_scan_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, s>>>(
-      in, n, carries, static_cast<uint32_t*>(out));
+  auto* words = static_cast<uint64_t*>(scratch);
+  const cudaError_t rc =
+      cudaMemsetAsync(words, 0, sizeof(uint64_t) * (1 + tiles), s);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const ScanArgs a{static_cast<const uint32_t*>(x),
+                   static_cast<uint32_t*>(out),
+                   n,
+                   static_cast<uint32_t>(tiles),
+                   vec16,
+                   reinterpret_cast<unsigned*>(words),
+                   words + 1};
+  scan_kernel<<<grid, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

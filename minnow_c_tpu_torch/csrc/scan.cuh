@@ -46,10 +46,10 @@ __device__ __forceinline__ uint32_t block_exclusive_scan(uint32_t v,
 }
 
 // out[i] = init + vals[0] + ... + vals[i-1] for i < m: one block walks the
-// array a block-width at a time and carries the running sum.  K9 scans its
-// tile sums with it, K10 its chunk totals (with init = the plane's first
-// value).  Static: each source that includes this header gets its own copy
-// of the kernel, so the linked library holds no duplicate symbol.
+// array a block-width at a time and carries the running sum.  K10 scans its
+// chunk totals with it (with init = the plane's first value).  Static: each
+// source that includes this header gets its own copy of the kernel, so the
+// linked library holds no duplicate symbol.
 static __global__ void exclusive_scan_one_block(
     const uint32_t* __restrict__ vals, int64_t m, uint32_t init,
     uint32_t* __restrict__ out) {

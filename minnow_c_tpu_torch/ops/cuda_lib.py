@@ -92,17 +92,16 @@ def lib() -> ctypes.CDLL:
         l.mnw_stats_rows.restype = i32
         l.mnw_stats_rows.argtypes = [p, i64, i64, i64, p, p, i32, p, p, p,
                                      p]
-        l.mnw_encode_recip.restype = i32
-        l.mnw_encode_recip.argtypes = [p, i64, f32, f32, f32, f32, i32, i32,
-                                       p, i64, p]
-        l.mnw_encode_recip_rows.restype = i32
-        l.mnw_encode_recip_rows.argtypes = [p, i64, i64, i32, p, p, p, p, i32,
-                                            p, p]
+        l.mnw_pack_recip_tiles.restype = i32
+        l.mnw_pack_recip_tiles.argtypes = [p, i64, i32, i64, i32, i32, u32,
+                                           i32, u32, u32, p, p, p, p, f32,
+                                           f32, f32, f32, i32, p, i64, p]
         l.mnw_encode_recip_fused.restype = i32
         l.mnw_encode_recip_fused.argtypes = [p, i64, i64, i64, i64, f32, p,
-                                             i32, i32, p, p, p, p, p, p]
+                                             i32, i32, i32, i32, i32, u32, p,
+                                             p, p, p, p, p]
         l.mnw_cumsum_u32.restype = i32
-        l.mnw_cumsum_u32.argtypes = [p, i64, p, p, p]
+        l.mnw_cumsum_u32.argtypes = [p, i64, i64, u32, i32, p, p, p]
         l.mnw_chunked_decode.restype = i32
         l.mnw_chunked_decode.argtypes = [p, p, p, i64, i32, i64, i32, i32,
                                          u32, p, i32, u32, u32, f32, f32, f32,
@@ -111,6 +110,15 @@ def lib() -> ctypes.CDLL:
         l.mnw_cuda_error_string.argtypes = [i32]
         _lib = l
         return _lib
+
+
+def row_magic(n: int) -> int:
+    """The magic number of ``csrc/rows.cuh`` for rows of ``n`` elements,
+    2 <= n <= 2^31: floor(2^32 / n) (a u32), with which the kernels divide
+    an in-row offset below 2^32 by n in 32 bits (one correction step)."""
+    if not 2 <= n <= 1 << 31:
+        raise ValueError(f"a row of {n} elements is outside [2, 2^31]")
+    return (1 << 32) // n
 
 
 def sm_count(device) -> int:
@@ -125,18 +133,29 @@ def sm_count(device) -> int:
     return _sms[index]
 
 
+def current_stream(device: torch.device) -> tuple:
+    """(index, raw current stream) of CUDA ``device``."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return index, torch._C._cuda_getCurrentRawStream(index)
+
+
 def launch(what: str, entry, device: torch.device, *args) -> None:
     """Call the C entry point ``entry(*args, stream)`` on the current
-    stream of CUDA ``device``, made the current device for the call only
-    when it is not already (the guard costs host time on every launch);
-    raise if it returns a CUDA error code."""
-    index = device.index
-    current = torch.cuda.current_device()
-    if index is None or index == current:
-        rc = entry(*args, torch._C._cuda_getCurrentRawStream(current))
+    stream of CUDA ``device``; raise if it returns a CUDA error code."""
+    launch_on(what, entry, *current_stream(device), *args)
+
+
+def launch_on(what: str, entry, index: int, stream: int, *args) -> None:
+    """``entry(*args, stream)`` with device ``index`` made the current
+    device for the call only when it is not already (the guard costs host
+    time on every launch); raise if it returns a CUDA error code."""
+    if index == torch._C._cuda_getDevice():
+        rc = entry(*args, stream)
     else:
         with torch.cuda.device(index):
-            rc = entry(*args, torch._C._cuda_getCurrentRawStream(index))
+            rc = entry(*args, stream)
     check(rc, what)
 
 

@@ -65,7 +65,7 @@ def _launch_decode(words: torch.Tensor, total: int, n: int, width: int,
     if isinstance(keys, torch.Tensor):
         rows = (keys.data_ptr(), keys.stride(0), keys.stride(1),
                 x0.data_ptr(), dx.data_ptr(), 0, 0, 0.0, 0.0)
-        n_magic = (1 << 32) // n
+        n_magic = cuda_lib.row_magic(n)
     else:
         rows = (None, 0, 0, None, None, keys[0], keys[1], float(x0),
                 float(dx))

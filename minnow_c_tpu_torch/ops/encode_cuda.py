@@ -27,8 +27,12 @@
   ``exact_recip``, K8's map); no writer calls it, as none in the JAX
   package does.
 
-K4 and K7 are one CUDA kernel over the flat stream of bins, cut into
-tiles by ``pack_plan``.  Each ``*_cuda`` wrapper launches its CUDA kernel
+K4, K5, K7 and K8 are one CUDA tile kernel (``csrc/pack.cuh``) over the
+flat stream of bins or raw floats, cut into tiles by ``pack_plan``, under
+three element maps (mask, clamp of a pre-scaled float, the recip map of
+the element's row); K12's last step runs the same tile routine.  A row's
+elements are found with the magic number of ``cuda_lib.row_magic``.  Each
+``*_cuda`` wrapper launches its CUDA kernel
 for a CUDA tensor and runs the plain version only for a CPU tensor; there
 is no fallback from one to the other.
 """
@@ -264,30 +268,49 @@ def encode_recip_plain(x: torch.Tensor, width: int, x0, recip, box, anchor,
                                                 width, periodic), width)
 
 
+def _launch_recip(x: torch.Tensor, total: int, width: int, row_n: int,
+                  scalars, periodic: bool, out: torch.Tensor) -> None:
+    """One launch of the K5 / K8 kernel (K7's tile kernel with the recip
+    map) over the ``total`` raw floats of the contiguous ``x``.  Rows of
+    ``row_n`` elements: ``scalars`` the (R,) f32 tensors x0, recip, box and
+    anchor.  One plane (``row_n`` 0): ``scalars`` its four host values."""
+    plan = pack_plan(width, total, x.data_ptr(),
+                     cuda_lib.sm_count(x.device))
+    if row_n:
+        rows = (row_n, cuda_lib.row_magic(row_n),
+                *(t.data_ptr() for t in scalars), 0.0, 0.0, 0.0, 0.0)
+    else:
+        rows = (0, 0, None, None, None, None,
+                *(float(np.float32(v)) for v in scalars))
+    cuda_lib.launch(
+        "encode_recip", cuda_lib.lib().mnw_pack_recip_tiles, x.device,
+        x.data_ptr(), total, width, plan["tiles"], plan["tile"],
+        int(plan["vec16"]), plan["grid"], plan["smem_bytes"], *rows,
+        int(periodic), out.data_ptr(), out.numel())
+
+
 def encode_recip_cuda(x: torch.Tensor, width: int, x0, recip, box, anchor,
                       periodic: bool) -> torch.Tensor:
     """Recip-mode encode of one raw plane (n,) f32, any n, to
     ``ceil(n*width/32)`` words; ``x0``, ``recip`` = rn(1/range), ``box`` and
     ``anchor`` (the plane's raw element 0) are host scalars.  Semantics of
     the JAX package's ``encode_pallas_recip`` after its stats.  A CUDA
-    tensor launches K5 (counted in ``encode_recip_cuda.launches``); a CPU
-    tensor runs ``encode_recip_plain``."""
+    tensor launches K5, K8's kernel at one row (counted in
+    ``encode_recip_cuda.launches``); a CPU tensor runs
+    ``encode_recip_plain``."""
     if x.device.type == "cpu":
         return encode_recip_plain(x, width, x0, recip, box, anchor, periodic)
     if x.device.type != "cuda":
         raise ValueError(f"no recip encode for device {x.device}")
     _check_recip(x, width, 1)
-    x = x.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
     n = x.numel()
     n_words = packed_words(n, width)
     out = torch.empty(n_words, dtype=torch.int32, device=x.device)
     if n_words == 0:
         return out
-    cuda_lib.launch(
-        "encode_recip", cuda_lib.lib().mnw_encode_recip, x.device,
-        x.data_ptr(), n, float(np.float32(x0)), float(np.float32(recip)),
-        float(np.float32(box)), float(np.float32(anchor)), width,
-        int(periodic), out.data_ptr(), n_words)
+    _launch_recip(x, n, width, 0, (x0, recip, box, anchor), periodic, out)
     encode_recip_cuda.launches += 1
     return out
 
@@ -334,17 +357,15 @@ def encode_recip_rows_cuda(x: torch.Tensor, width: int, x0, recip, box,
     if x.device.type != "cuda":
         raise ValueError(f"no recip encode for device {x.device}")
     _check_recip(x, width, 2)
-    x = x.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
     rows, n = x.shape
-    x0, recip, box, anchor = _row_scalars(x, x0, recip, box, anchor)
+    scalars = _row_scalars(x, x0, recip, box, anchor)
     out = torch.empty((rows, n // 32 * width), dtype=torch.int32,
                       device=x.device)
     if rows == 0:
         return out
-    cuda_lib.launch(
-        "encode_recip_rows", cuda_lib.lib().mnw_encode_recip_rows, x.device,
-        x.data_ptr(), rows, n, width, x0.data_ptr(), recip.data_ptr(),
-        box.data_ptr(), anchor.data_ptr(), int(periodic), out.data_ptr())
+    _launch_recip(x, rows * n, width, n, scalars, periodic, out)
     encode_recip_rows_cuda.launches += 1
     return out
 
@@ -400,7 +421,7 @@ def encode_recip_fused_blocks_cuda(x: torch.Tensor, box, anchors,
     x, anchors = x.contiguous(), anchors.contiguous()
     b, d, n = x.shape
     items = b * d * -(-n // FUSED_SLICE)
-    scratch = torch.empty(2 * items + b, dtype=torch.float32,
+    scratch = torch.empty(2 * items + b * d, dtype=torch.float32,
                           device=x.device)
     barrier = torch.zeros(1, dtype=torch.int32, device=x.device)
     words = torch.empty((b, d, n // 32 * width), dtype=torch.int32,
@@ -409,11 +430,15 @@ def encode_recip_fused_blocks_cuda(x: torch.Tensor, box, anchors,
     mx = torch.empty((b, d), dtype=torch.float32, device=x.device)
     if b * d == 0:
         return words, mn, mx
+    plan = pack_plan(width, b * d * n, x.data_ptr(),
+                     cuda_lib.sm_count(x.device))
     cuda_lib.launch(
         "encode_recip_fused_blocks", cuda_lib.lib().mnw_encode_recip_fused,
         x.device, x.data_ptr(), b, d, n, FUSED_SLICE, float(np.float32(box)),
-        anchors.data_ptr(), width, int(periodic), scratch.data_ptr(),
-        barrier.data_ptr(), words.data_ptr(), mn.data_ptr(), mx.data_ptr())
+        anchors.data_ptr(), width, int(periodic), plan["tile"],
+        int(plan["vec16"]), plan["smem_bytes"], cuda_lib.row_magic(n),
+        scratch.data_ptr(), barrier.data_ptr(), words.data_ptr(),
+        mn.data_ptr(), mx.data_ptr())
     encode_recip_fused_blocks_cuda.launches += 1
     return words, mn, mx
 

@@ -8,6 +8,12 @@ Conventions shared by the port:
   32 bits.  torch has few uint32 ops and ``>>`` on int32 is arithmetic, so
   u32 arithmetic runs on ``int64`` values masked to 32 bits
   (``u32_to_i64`` / ``i64_to_u32`` convert between the two forms).
+* A u64 array (Ptid / Unsi values) is an ``int64`` tensor holding the same
+  64 bits: torch's uint64 dtype lacks the min, compare and division ops
+  the codec needs.  Add, subtract and multiply wrap mod 2^64 in int64 as
+  in u64; order, right shifts and division go through the ``u64_*``
+  helpers.  A u64 host scalar is a Python int in [0, 2^64)
+  (``u64_to_i64`` / ``i64_to_u64`` convert it to and from int64 bits).
 * Float scalars enter tensor math as 0-dim float32 tensors on the data's
   device (``f32_scalar``).  A CPU scalar divisor on a CUDA tensor makes
   torch multiply by its reciprocal instead of dividing, which is not the
@@ -51,13 +57,79 @@ def _f32(v, device) -> torch.Tensor:
 
 
 def u32_to_i64(x: torch.Tensor) -> torch.Tensor:
-    """u32 bits held in an int32 (or int64) tensor -> their value, int64."""
-    return x.to(torch.int64) & M32
+    """u32 bits held in an int32 (or int64) tensor -> their value, int64
+    (masked in place in the int64 copy, which halves the temporaries)."""
+    if x.dtype == torch.int64:
+        return x & M32
+    return x.to(torch.int64).bitwise_and_(M32)
 
 
 def i64_to_u32(x: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> int32 tensor holding the same bits."""
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+M64 = (1 << 64) - 1
+_U64_FLIP = -(1 << 63)  # the sign bit: x ^ it maps u64 order to int64 order
+
+
+def u64_to_i64(v: int) -> int:
+    """A Python int taken mod 2^64, as the int64 value of the same bits."""
+    v &= M64
+    return v - (1 << 64) if v >> 63 else v
+
+
+def i64_to_u64(v) -> int:
+    """An int64 value (Python int or 0-dim tensor) as the u64 value of its
+    bits, a Python int in [0, 2^64)."""
+    return int(v) & M64
+
+
+def u64_ge(x: torch.Tensor, y) -> torch.Tensor:
+    """``x >= y`` on u64 bits held in int64 (``y`` a tensor or an int64
+    scalar).  Against a scalar below 2^63 every x with its top bit set is
+    larger, which spares the flipped copy of x."""
+    if not isinstance(y, torch.Tensor) and y >= 0:
+        return (x < 0) | (x >= y)
+    return (x ^ _U64_FLIP) >= (y ^ _U64_FLIP)
+
+
+def u64_minmax(x: torch.Tensor, dim: int):
+    """(least, greatest) u64 value along ``dim`` of int64 bits.  Where no
+    value has its top bit set the int64 order is the u64 order; otherwise
+    the order goes through a copy with the sign bit flipped (waits for
+    the device once, to choose)."""
+    mn, mx = x.amin(dim=dim), x.amax(dim=dim)
+    if bool((mn < 0).any()):
+        f = x ^ _U64_FLIP
+        mn, mx = f.amin(dim=dim) ^ _U64_FLIP, f.amax(dim=dim) ^ _U64_FLIP
+    return mn, mx
+
+
+def u64_shr(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of u64 bits held in int64 by 0 < k < 64 (``>>``
+    on int64 is arithmetic: the sign-extended bits are masked off)."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def u64_divmod(x: torch.Tensor, d: int):
+    """``(x // d, x % d)`` of u64 bits held in int64 by a divisor
+    1 <= d < 2^64, as numpy's uint64 ``//`` and ``%`` give them.  Below
+    2^63, halving first puts the dividend where int64 division is exact:
+    q = 2 * ((x >> 1) // d) leaves a remainder below 2d, and one unsigned
+    correction step finishes.  From 2^63 on the quotient is 0 or 1."""
+    if not 1 <= d < 1 << 64:
+        raise ValueError(f"u64 divisor {d} not in [1, 2^64)")
+    if d >> 63:
+        q = u64_ge(x, u64_to_i64(d)).to(torch.int64)
+        return q, x - q * u64_to_i64(d)
+    # in place where it can be: the snapshot writer divides 2^27 IDs
+    q = u64_shr(x, 1).floor_divide_(d).bitwise_left_shift_(1)
+    r = (q * d).neg_().add_(x)
+    over = u64_ge(r, d)
+    q.add_(over)
+    r.sub_(over.to(torch.int64).mul_(d))
+    return q, r
 
 
 def minmax(x: torch.Tensor):
@@ -93,7 +165,8 @@ def periodic(x, L):
 
 
 def u64_periodic(x, L):
-    """util_U64Periodic (util.c:86-95) on int64 values."""
+    """util_U64Periodic (util.c:86-95) on int64 values.  Signed as the
+    reference's C: its inputs are grid coordinates below the ID width."""
     return torch.where(x >= L, x - L, x)
 
 
@@ -122,7 +195,9 @@ def unwrap_anchored(x, box, anchor):
 def u64_undo_periodic(x, L):
     """util_U64UndoPeriodic (util.c:115-143): signed unwrap around x[0],
     then shift everything up by L if any value went negative.  Works in
-    int64 like the reference (which views the u64 data as int64)."""
+    int64 like the reference (which views the u64 data as int64), so it
+    gives the reference's bits for any input; grid coordinates below the
+    ID width never reach the sign bit."""
     L = int(L)
     x0 = x[0]
     # Reference loop starts at i=1: element 0 is never unwrapped.

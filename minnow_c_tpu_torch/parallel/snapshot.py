@@ -364,8 +364,9 @@ def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device):
     with phase("ids.decompose", nbytes=_nbytes(ids)):
         ids = engine.as_tensor(ids, torch.int64, device).reshape(-1)
         qdims, x0g, _ = engine.id_decompose(ids, int(acc.width))
-        x0g = x0g.cpu().numpy().astype(np.uint64)  # global per-dim offset
-        qd = qdims.reshape(3, B, nb)
+        x0g = x0g.cpu().numpy().view(np.uint64)  # global per-dim offset
+        # the low 32 bits, as the reference's u32 cast keeps them
+        qd = qdims.bitwise_and_(kernels.M32).reshape(3, B, nb)
     # The stored per-block origin includes the global decompose offset,
     # so undoID's rewrap sees true unwrapped coordinates.
     with phase("ids.pack"):
@@ -403,8 +404,9 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
                       device="cuda") -> dict:
     """Compress a snapshot into ``fp`` as ``num_blocks`` chained standard
     segments.  Arrays (numpy, or tensors that stay on their device):
-    pos/vel (3, n) f32, ids (n,) u64 below 2^63, mass (n,) f32 (optional
-    scalar field, stored as UNSF; requires ``spec.mass``); n must divide
+    pos/vel (3, n) f32, ids (n,) u64 (an int64 tensor is read as u64
+    bits), mass (n,) f32 (optional scalar field, stored as UNSF; requires
+    ``spec.mass``); n must divide
     by num_blocks.  Numpy arrays go to ``device``, ``cuda`` unless the
     caller asks for ``cpu``.  Returns stats (bytes,
     depths).
@@ -860,11 +862,11 @@ def _decompress_snapshot_batched(segments, want,
                 else:
                     bins = torch.stack([bitpack.uniform_unpack(r, wbits, nb)
                                         for r in words_d])
-                x0d = torch.tensor([m[1][d] for m in metas],
-                                   dtype=torch.int64, device=device)
-                v = kernels.u32_to_i64(bins) + x0d[:, None]
-                dims.append(torch.where(v >= width, v - width, v))
-            ids = dims[0] + width * dims[1] + width * width * dims[2]
+                dims.append(kernels.u32_to_i64(bins))
+            x0 = torch.tensor([[kernels.u64_to_i64(m[1][d]) for m in metas]
+                               for d in range(3)], dtype=torch.int64,
+                              device=device)
+            ids = engine.id_recompose(dims, x0, width)
             out["ids"] = ids.reshape(-1)
         else:
             return None

@@ -11,10 +11,13 @@ This slice covers all five field types at uniform depth with the linear
 map.  Per-particle accuracies (Deltas mode) and the log10/symlog maps
 raise NotImplementedError; ROADMAP.md queue 1 lists them as the next step.
 
-Integer fields (Ptid, Unsi) hold u64 values.  They stay on int64 tensors,
-so values must lie below 2^63: ``as_tensor`` raises on larger input, and
-decode raises on a stream whose values would not fit.  Bins are u32 bits
-held in int32 tensors (see ``ops.kernels``).
+Integer fields (Ptid, Unsi) hold u64 values over their whole range, as
+int64 tensors that carry the u64 bits: an int64 tensor passed in is read
+as u64 bits, a numpy uint64 array is viewed as int64, and decoded fields
+are int64 tensors whose ``.numpy().view(np.uint64)`` equals the JAX
+package's uint64 output.  Every order, shift and division on them is
+unsigned (``kernels.u64_*``); add, subtract and multiply wrap mod 2^64.
+Bins are u32 bits held in int32 tensors (see ``ops.kernels``).
 
 Documented divergences from the reference are the JAX package's (see its
 module docstring); this port reproduces its bits.
@@ -46,7 +49,6 @@ from ..utils import native_order
 from ..utils.debug import debug_assert as _dbg
 
 MAX_DEPTH = 24  # f32 mantissa limit (quant.c:684-693)
-_I63 = 1 << 63
 
 NOT_PORTED_DELTAS = ("per-particle accuracies (Deltas mode) are not ported "
                      "to torch yet (ROADMAP.md queue 1)")
@@ -60,27 +62,16 @@ NOT_PORTED_MAPS = ("log10/symlog10 float maps are not ported to torch yet "
 
 def as_tensor(data, dtype: torch.dtype, device) -> torch.Tensor:
     """A field's data as a tensor of ``dtype``: a tensor keeps its device,
-    numpy input goes to ``device``.  ``dtype`` int64 takes u64 values,
-    which must lie below 2^63."""
+    numpy input goes to ``device``.  ``dtype`` int64 takes u64 values:
+    an int64 tensor is read as u64 bits, unsigned numpy arrays are viewed
+    as int64 bits."""
     if isinstance(data, torch.Tensor):
-        t = data
-    else:
-        a = native_order(np.asarray(data))
-        if dtype == torch.int64:
-            if a.dtype.kind == "u":
-                a = a.astype(np.uint64)
-                if a.size and int(a.max()) >= _I63:
-                    raise ValueError("u64 values >= 2^63 are not supported "
-                                     "by the torch port (int64 tensors)")
-                a = a.view(np.int64)
-            a = a.astype(np.int64, copy=False)
-        else:
-            a = a.astype(np.float32, copy=False)
-        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    if dtype == torch.int64 and t.numel() and bool(t.min() < 0):
-        raise ValueError("integer field values must be non-negative u64 "
-                         "below 2^63")
-    return t.to(dtype)
+        return data.to(dtype)
+    a = native_order(np.asarray(data))
+    if dtype == torch.int64 and a.dtype.kind == "u":
+        a = a.astype(np.uint64, copy=False).view(np.int64)
+    a = a.astype(np.int64 if dtype == torch.int64 else np.float32, copy=False)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -135,24 +126,49 @@ def undo_float_uniform(bins, x0, x1, depth: int, key):
 
 def id_decompose(ids, width: int):
     """Split Lagrangian IDs into 3D grid coordinates, unwrap each dim, and
-    subtract the minimum -- fully lossless (id(), quant.c:291-327)."""
+    subtract the minimum -- fully lossless (id(), quant.c:291-327).  ``ids``
+    are u64 bits in int64; the grid split divides and the minimum orders
+    them as u64.  As in the reference, z is ids // (w * w mod 2^64): past
+    w = 2^32 the product wraps (to 0 at multiples of 2^32, where the
+    quotient is all ones, as XLA divides by 0), and the reference's signed
+    unwrap takes w below 2^63."""
     w = int(width)
-    dims = torch.stack([ids % w, (ids // w) % w, ids // (w * w)])
-    dims = torch.stack([kernels.u64_undo_periodic(d, w) for d in dims])
-    x0 = dims.min(dim=1).values
-    x1 = dims.max(dim=1).values
+    if not 1 <= w < 1 << 63:
+        raise ValueError(f"ID grid width {w} not in [1, 2^63)")
+    q1, qx = kernels.u64_divmod(ids, w)
+    ww = (w * w) & kernels.M64
+    if ww == w * w:                         # (ids // w) // w = ids // w^2
+        qz, qy = kernels.u64_divmod(q1, w)
+    else:
+        qy = kernels.u64_divmod(q1, w)[1]
+        qz = kernels.u64_divmod(ids, ww)[0] if ww else \
+            torch.full_like(ids, -1)
+    del q1
+    dims = torch.stack([kernels.u64_undo_periodic(d, w)
+                        for d in (qx, qy, qz)])
+    del qx, qy, qz
+    x0, x1 = kernels.u64_minmax(dims, 1)
     return dims - x0[:, None], x0, x1
 
 
 def id_recompose(qdims, x0, width: int):
     """Inverse of id_decompose (undoID, quant.c:553-587): re-add the per-dim
-    minimum, re-wrap into [0, width), and recombine."""
-    w = int(width)
-    if w ** 3 > _I63:
-        raise ValueError(f"ID grid width {w} overflows int64 IDs")
-    dims = qdims + x0[:, None]
-    dims = torch.where(dims >= w, dims - w, dims)
-    return dims[0] + w * dims[1] + w * w * dims[2]
+    minimum, re-wrap into [0, width), and recombine.  ``qdims`` holds the
+    three dimensions' coordinates and ``x0`` their minima (broadcast over
+    the last axis), u64 bits in int64, taken one dimension at a time to
+    bound the temporaries; the sums and products wrap mod 2^64 as the
+    reference's u64 do, so every width id_decompose takes gives the
+    reference's bits, w^3 past 2^64 included."""
+    width = int(width)
+    w = kernels.u64_to_i64(width)
+    ids = None
+    for d in range(3):
+        v = qdims[d] + x0[d].unsqueeze(-1)
+        v.sub_(kernels.u64_ge(v, w) * w)
+        if d:
+            v.mul_(kernels.u64_to_i64(width ** d))
+        ids = v if ids is None else ids.add_(v)
+    return ids
 
 
 # ---------------------------------------------------------------------------
@@ -299,17 +315,20 @@ def _quantize_id(field: Field, device) -> QField:
     acc: IDAccuracy = field.acc
     ids = as_tensor(field.data, torch.int64, device).reshape(-1)
     qdims, x0, x1 = id_decompose(ids, int(acc.width))
-    quant = IDQuantization(width=int(acc.width),
-                           x0=tuple(int(v) for v in x0.tolist()),
-                           x1=tuple(int(v) for v in x1.tolist()))
-    # Coordinates after min-subtraction fit far below 2^32.
+    x0_h, x1_h = ([kernels.i64_to_u64(v) for v in t.tolist()]
+                  for t in (x0, x1))
+    quant = IDQuantization(width=int(acc.width), x0=tuple(x0_h),
+                           x1=tuple(x1_h))
+    # Coordinates after min-subtraction fit far below 2^32; stored as u32
+    # bins: int64 -> int32 keeps the low 32 bits, the reference's u32 cast.
     return QField(hd=field.hd, data=qdims.to(torch.int32), quant=quant)
 
 
 def _dequantize_id(qf: QField) -> Field:
     q: IDQuantization = qf.quant
     qdims = kernels.u32_to_i64(qf.data).reshape(3, -1)
-    x0 = torch.tensor(q.x0, dtype=torch.int64, device=qdims.device)
+    x0 = torch.tensor([kernels.u64_to_i64(v) for v in q.x0],
+                      dtype=torch.int64, device=qdims.device)
     ids = id_recompose(qdims, x0, q.width)
     return Field(hd=qf.hd, data=ids, acc=IDAccuracy(width=q.width))
 
@@ -350,23 +369,21 @@ def _dequantize_ufloat(qf: QField, field_index: int) -> Field:
 
 def _quantize_uint(field: Field, device) -> QField:
     ids = as_tensor(field.data, torch.int64, device).reshape(-1)
-    x0_h = int(ids.min())
-    x1_h = int(ids.max())
-    rel = ids - x0_h
+    x0, x1 = kernels.u64_minmax(ids, 0)
+    x0_h, x1_h = kernels.i64_to_u64(x0), kernels.i64_to_u64(x1)
+    rel = ids - x0
     quant = IntQuantization(x0=x0_h, x1=x1_h)
     if x1_h - x0_h <= 0xFFFFFFFF:
         return QField(hd=field.hd, data=kernels.i64_to_u32(rel), quant=quant)
     lo = kernels.i64_to_u32(rel & kernels.M32)
-    hi = kernels.i64_to_u32(rel >> 32)
+    hi = kernels.i64_to_u32(kernels.u64_shr(rel, 32))
     return QField(hd=field.hd, data=lo, data_hi=hi, quant=quant)
 
 
 def _dequantize_uint(qf: QField) -> Field:
     q: IntQuantization = qf.quant
-    if q.x1 >= _I63:
-        raise ValueError("u64 values >= 2^63 are not supported by the torch "
-                         "port (int64 tensors)")
     v = kernels.u32_to_i64(qf.data)
     if qf.data_hi is not None:
         v = v | (kernels.u32_to_i64(qf.data_hi) << 32)
-    return Field(hd=qf.hd, data=v + q.x0, acc=IntAccuracy())
+    return Field(hd=qf.hd, data=v + kernels.u64_to_i64(q.x0),
+                 acc=IntAccuracy())

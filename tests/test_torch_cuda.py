@@ -353,14 +353,57 @@ def chunked_stream(pattern, trim, seed):
     return body.astype(np.uint32).view(np.int32), widths, n
 
 
-@pytest.mark.parametrize("n", [1, 97, 4096, 4097, 16387, (1 << 20) + 5])
+def _u32_stream(dev, n: int, seed: int) -> torch.Tensor:
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-(1 << 31), 1 << 31, (n,), generator=g, device=dev,
+                         dtype=torch.int64).to(torch.int32)  # sums wrap
+
+
+@pytest.mark.parametrize("n", [1, 31, 97, 4095, 4096, 4097, 16387,
+                               (1 << 20) + 5, 1 << 24, 3 * (1 << 24) + 7])
 def test_scan_kernel_matches_plain(dev, n):
-    g = torch.Generator(device=dev).manual_seed(n)
-    x = torch.randint(-(1 << 31), 1 << 31, (n,), generator=g, device=dev,
-                      dtype=torch.int64).to(torch.int32)  # sums wrap
+    x = _u32_stream(dev, n, n)
     assert torch.equal(scan_cuda.cumsum_u32(x), scan_cuda.cumsum_u32_plain(x))
     assert torch.equal(scan_cuda.cumsum_u32_auto(x),
                        scan_cuda.cumsum_u32_plain(x))
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4097, (1 << 20) + 5])
+def test_scan_kernel_unaligned_input(dev, n):
+    """A stream whose storage starts one word in: K9's 4-byte loads."""
+    store = _u32_stream(dev, n + 1, 7 * n)
+    x = store[1:]
+    assert x.data_ptr() % 16 != 0
+    assert torch.equal(scan_cuda.cumsum_u32(x), scan_cuda.cumsum_u32_plain(x))
+
+
+def test_scan_kernel_back_to_back_calls(dev):
+    """50 calls in a row at 2^24 on one stream, each equal to the plain
+    version: a race in the look-back, or a status word or ticket left by
+    the call before, would show."""
+    xs = [_u32_stream(dev, 1 << 24, s) for s in range(2)]
+    want = [scan_cuda.cumsum_u32_plain(x) for x in xs]
+    got = [scan_cuda.cumsum_u32(xs[k % 2]) for k in range(50)]
+    for k, g in enumerate(got):
+        assert torch.equal(g, want[k % 2]), k
+
+
+def test_scan_kernel_on_two_streams(dev):
+    """Calls queued on two streams at once, each stream with its own status
+    words: every result equal to the plain version."""
+    xs = [_u32_stream(dev, (1 << 22) + 9 * s, 100 + s) for s in range(2)]
+    want = [scan_cuda.cumsum_u32_plain(x) for x in xs]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize(dev)
+    got = [[], []]
+    for _ in range(10):
+        for s, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[s].append(scan_cuda.cumsum_u32(xs[s]))
+    torch.cuda.synchronize(dev)
+    for s in range(2):
+        for g in got[s]:
+            assert torch.equal(g, want[s])
 
 
 @pytest.mark.parametrize("first", [0, 12345, (1 << 32) - 5])
@@ -550,6 +593,56 @@ def test_encode_recip_rows_kernel_matches_plain(dev, width, rows, n,
     assert torch.equal(got, encode_cuda.encode_recip_rows_plain(x, *args))
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 33, 100_003, 7_812_500])
+def test_encode_recip_kernel_ragged_and_unaligned(dev, n, offset):
+    """K5 (K8's kernel at one row) at every width, at ragged n, from a
+    plane whose storage starts one element in (``offset`` 1: the 4-byte
+    load path)."""
+    periodic = n % 2 == 1
+    store = torch.zeros(n + offset, device=dev)
+    store[offset:] = torch.from_numpy(_recip_plane(n, n + 3, periodic))
+    x = store[offset:]
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    u = kernels.undo_periodic(x, 64.0) if periodic else x
+    x0, x1 = kernels.minmax(u)
+    recip = kernels.exact_recip((x1 - x0).item())
+    for width in range(1, 25):
+        args = (width, x0.item(), recip, 64.0 if periodic else 0.0,
+                x[0].item(), periodic)
+        got = encode_cuda.encode_recip_cuda(x, *args)
+        assert torch.equal(got, encode_cuda.encode_recip_plain(x, *args))
+
+
+# rows shorter than a tile, equal to it and longer; many rows of 32
+RECIP_ROW_SHAPES = [(70_000, 32), (700, 96), (7, 4064), (7, 4096),
+                    (7, 4128), (2, 1 << 21), (2, 7_812_512)]
+
+
+@pytest.mark.parametrize("rows, n", RECIP_ROW_SHAPES)
+@pytest.mark.parametrize("width", range(1, 25))
+def test_encode_recip_rows_every_width_matches_plain(dev, width, rows, n):
+    """K8 at every width over rows across tile edges, periodic at even
+    widths: a constant row (recip inf), a subnormal x0 and subnormal
+    values, and values on the unwrap's +-half edge."""
+    periodic = width % 2 == 0
+    g = torch.Generator(device=dev).manual_seed(width * 7 + n)
+    x = torch.rand(rows, n, generator=g, device=dev) * 64.0
+    x[0] = torch.from_numpy(_recip_plane(n, width, periodic)).to(dev)
+    x[-1, ::5] = 1e-40
+    x0 = torch.rand(rows, generator=g, device=dev) * 4.0
+    recip = 1.0 / (40.0 + torch.rand(rows, generator=g, device=dev) * 20.0)
+    if rows > 2:
+        x[1] = 7.5
+        x0[1] = 7.5
+        recip[1] = float("inf")     # constant row: 0 * inf = NaN -> bin 0
+        x0[2] = 1e-40
+    box = torch.full((rows,), 64.0, device=dev)
+    args = (width, x0, recip, box, x[:, 0].contiguous(), periodic)
+    got = encode_cuda.encode_recip_rows_cuda(x, *args)
+    assert torch.equal(got, encode_cuda.encode_recip_rows_plain(x, *args))
+
+
 @pytest.mark.parametrize("periodic", [False, True])
 @pytest.mark.parametrize("blocks, dims, n", [(1, 1, 32), (3, 3, 2048),
                                             (2, 3, 4096 * 5 + 32),
@@ -563,7 +656,7 @@ def test_encode_recip_fused_kernel_matches_plain(dev, blocks, dims, n,
         x[1] = 3.25                  # a constant block: range 0, recip inf
     box = 64.0 if periodic else 0.0
     anchors = x[:, :, 0].contiguous()
-    for width in (1, 14, 24):
+    for width in (1, 12, 14, 16, 24):
         got = encode_cuda.encode_recip_fused_blocks_cuda(x, box, anchors,
                                                          width, periodic)
         want = encode_cuda.encode_recip_fused_blocks_plain(
@@ -696,3 +789,80 @@ def test_kernels_flush_subnormal_results_like_plain(dev):
                     encode_cuda.encode_recip_fused_blocks_plain(
                         tiny, 3e-38, anchors, 12, True)):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# u64 fields over their whole range on the card
+# ---------------------------------------------------------------------------
+
+def _u64_field(case: str):
+    """(field code, u64 values, accuracy): Unsi values around 2^63 and near
+    2^64, and IDs on grids past 2^21 a side with the top bit set."""
+    rng = np.random.default_rng(len(case))
+    if case == "unsi_edges":
+        return (mt.FieldCode.UNSI,
+                np.array([1, (1 << 63) + 12345, (1 << 64) - 1], np.uint64),
+                mt.IntAccuracy())
+    if case == "unsi_one_plane_near_top":
+        v = rng.integers(0, 1 << 32, 5000, dtype=np.uint64)
+        return (mt.FieldCode.UNSI, v + np.uint64((1 << 64) - (1 << 32)),
+                mt.IntAccuracy())
+    if case == "unsi_two_planes_across_2_63":
+        v = rng.integers(0, 1 << 41, 5000, dtype=np.uint64)
+        return (mt.FieldCode.UNSI, v + np.uint64((1 << 63) - (1 << 40)),
+                mt.IntAccuracy())
+    w = int(case.split("_")[1])
+    xs = rng.integers(w - 6, w + 6, 5000) % w
+    ys = rng.integers(0, w, 5000)
+    zs = rng.integers(w - 3, w + 3, 5000) % w
+    ids = np.array([int(x) + w * int(y) + w * w * int(z)
+                    for x, y, z in zip(xs, ys, zs)], np.uint64)
+    ids[:3] = (0, w ** 3 - 1, (1 << 63) + 7)
+    return mt.FieldCode.PTID, ids, mt.IDAccuracy(width=w)
+
+
+@pytest.mark.parametrize("case", ["unsi_edges", "unsi_one_plane_near_top",
+                                  "unsi_two_planes_across_2_63",
+                                  "ptid_2097157", "ptid_2642245"])
+def test_u64_segment_on_cuda_matches_cpu(dev, case):
+    """Encoded from an int64 CUDA tensor of the u64 bits, decoded on the
+    card: the CPU's bytes, and the u64 values back."""
+    code, vals, acc = _u64_field(case)
+    hd = mt.FieldHeader(code, mt.AlgoCode.TRIM, mt.semver.pack(1, 0, 0),
+                        vals.size)
+    t = torch.from_numpy(vals.view(np.int64))
+    blob = mt.compress_segment(mt.Seg(fields=[mt.Field(hd=hd, data=t.to(dev),
+                                                       acc=acc)]))
+    assert blob == mt.compress_segment(
+        mt.Seg(fields=[mt.Field(hd=hd, data=t, acc=acc)]), device="cpu")
+    for fused in (False, True):
+        got = mt.decompress_segment(blob, fused=fused, device=dev)
+        assert got.fields[0].data.is_cuda
+        assert np.array_equal(
+            got.fields[0].data.cpu().numpy().view(np.uint64), vals)
+
+
+@pytest.mark.parametrize("w", [(1 << 32) + 1, 1 << 32])
+def test_wide_id_grid_on_cuda_matches_cpu(dev, w):
+    """Grids wider than 2^32 a side, where w * w wraps mod 2^64 (to 0 at
+    w = 2^32): the grid split on the card equals the CPU's, and so do the
+    segment's bytes and its decode."""
+    from minnow_c_tpu_torch.quant import engine
+    vals = np.random.default_rng(w % 1000).integers(0, 1 << 64, 5000,
+                                                    dtype=np.uint64)
+    vals[:4] = (0, w - 1, (1 << 63) + 7, (1 << 64) - 1)
+    t = torch.from_numpy(vals.view(np.int64))
+    for a, b in zip(engine.id_decompose(t.to(dev), w),
+                    engine.id_decompose(t, w)):
+        assert torch.equal(a.cpu(), b)
+    hd = mt.FieldHeader(mt.FieldCode.PTID, mt.AlgoCode.TRIM,
+                        mt.semver.pack(1, 0, 0), vals.size)
+    acc = mt.IDAccuracy(width=w)
+    blob = mt.compress_segment(mt.Seg(fields=[mt.Field(hd=hd, data=t.to(dev),
+                                                       acc=acc)]))
+    assert blob == mt.compress_segment(
+        mt.Seg(fields=[mt.Field(hd=hd, data=t, acc=acc)]), device="cpu")
+    want = mt.decompress_segment(blob, device="cpu").fields[0].data
+    for fused in (False, True):
+        got = mt.decompress_segment(blob, fused=fused, device=dev)
+        assert torch.equal(got.fields[0].data.cpu(), want)

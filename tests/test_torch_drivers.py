@@ -23,17 +23,18 @@ from minnow_c_tpu_torch.drivers import gadget2 as tg2
 BOX = 64.0
 
 
-def gadget2_file(n: int, masses: str, seed: int = 0) -> bytes:
+def gadget2_file(n: int, masses: str, seed: int = 0,
+                 id_base: int = 0) -> bytes:
     """A format-1 Gadget-2 file of ``n`` particles: a random walk in the
-    box, N(0, 150) velocities, unique IDs.  ``masses``: "table" (one type
-    with a mass-table entry), "mixed" (a table type, and a per-particle
-    type whose masses take both signs) or "positive" (per-particle, all
-    positive)."""
+    box, N(0, 150) velocities, unique IDs from ``id_base`` up.  ``masses``:
+    "table" (one type with a mass-table entry), "mixed" (a table type, and
+    a per-particle type whose masses take both signs) or "positive"
+    (per-particle, all positive)."""
     rng = np.random.default_rng(seed)
     steps = rng.normal(0, 0.05, (3, n)).astype(np.float32)
     pos = (np.cumsum(steps, axis=1) + BOX / 2).astype(np.float32) % BOX
     vel = rng.normal(0, 150, (3, n)).astype(np.float32)
-    ids = rng.permutation(64 ** 3)[:n].astype(np.uint64)
+    ids = rng.permutation(64 ** 3)[:n].astype(np.uint64) + np.uint64(id_base)
     mass = None
     if masses == "table":
         npart, table = (0, n, 0, 0, 0, 0), (0.0, 1.0, 0.0, 0.0, 0.0, 0.0)
@@ -149,6 +150,34 @@ def test_cli_matches_jax(tmp_path, capsys, monkeypatch):
             (dirs["jax"] / f).read_bytes(), f
     assert (dirs["torch"] / "back.g2").read_bytes() == \
         (dirs["torch"] / "back_coil.g2").read_bytes()
+
+
+@pytest.mark.parametrize("mode", ["div", "recip"])
+def test_cli_u64_ids_match_jax(tmp_path, capsys, monkeypatch, mode):
+    """A Gadget-2 file whose 8-byte IDs carry the top bit (>= 2^63, an ID
+    grid of width 2^21 and more): compress, info and decompress through
+    both CLIs give the same files and lines, and the IDs come back."""
+    raw = gadget2_file(4096, "table", seed=6, id_base=1 << 63)
+    outs, files = {}, {}
+    for name, main in (("jax", jcli.main), ("torch", tcli.main)):
+        d = tmp_path / name
+        d.mkdir()
+        (d / "snap.g2").write_bytes(raw)
+        monkeypatch.chdir(d)
+        dev = ["--device", "cpu"] if name == "torch" else []
+        outs[name] = [_run(main, argv, capsys) for argv in (
+            ["compress", "snap.g2", "snap.g2.min", "--scale-mode", mode,
+             "--blocks", "4"] + dev,
+            ["info", "snap.g2.min"],
+            ["decompress", "snap.g2.min", "back.g2"] + dev)]
+        files[name] = [(d / f).read_bytes() for f in ("snap.g2.min",
+                                                       "back.g2")]
+    assert outs["torch"] == outs["jax"]
+    assert [rc for rc, _ in outs["torch"]] == [0, 0, 0]
+    assert files["torch"] == files["jax"]
+    _, _, _, ids = tg2.read_snapshot(io.BytesIO(files["torch"][1]))
+    _, _, _, ids0 = jg2.read_snapshot(io.BytesIO(raw))
+    assert ids0.min() >= 1 << 63 and np.array_equal(ids, ids0)
 
 
 def test_cli_refuses_unported_inputs(tmp_path, monkeypatch):

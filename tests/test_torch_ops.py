@@ -18,7 +18,8 @@ from minnow_c_tpu.ops import decode_pallas, encode_pallas
 from minnow_c_tpu.ops import fastpath as jfastpath
 from minnow_c_tpu.ops import kernels as jkernels
 from minnow_c_tpu.ops import native as jnative
-from minnow_c_tpu_torch.ops import bitpack, decode_cuda, encode_cuda, kernels
+from minnow_c_tpu_torch.ops import bitpack, cuda_lib, decode_cuda, encode_cuda
+from minnow_c_tpu_torch.ops import kernels, scan_cuda
 from minnow_c_tpu_torch.ops import fastpath
 from minnow_c_tpu_torch.ops import rng as trng
 
@@ -252,6 +253,83 @@ def test_u64_undo_periodic_matches_jax():
             np.int64))
 
 
+def _u64_values(seed: int, d: int = 1) -> np.ndarray:
+    """Random u64 values plus the edges of the range and of a divisor d."""
+    v = np.random.default_rng(seed).integers(0, 1 << 64, 20000,
+                                             dtype=np.uint64)
+    edges = [0, 1, 2, (1 << 32) - 1, 1 << 32, (1 << 63) - 1, 1 << 63,
+             (1 << 63) + 1, (1 << 64) - 2, (1 << 64) - 1]
+    edges += [m * d + e for m in (1, 2, 3, (1 << 64) // d - 1,
+                                  (1 << 64) // d) for e in (-1, 0, 1)]
+    return np.concatenate([v, np.array([e % (1 << 64) for e in edges],
+                                       np.uint64)])
+
+
+# 1 and the ID grid widths at their edges: 2^21 + 5, 2642245 (the largest w
+# with w^3 <= 2^64), 2^22 - 1; divisors past 2^32, and on both sides of 2^62
+# and 2^63 (the squares of wide grids wrap there)
+@pytest.mark.parametrize("d", [1, 2, 3, 7, (1 << 21) + 5, 2642245,
+                               (1 << 22) - 1, (1 << 32) + 1, (1 << 61) + 1,
+                               (1 << 62) + 3, (1 << 63) - 1, 1 << 63,
+                               (1 << 63) + 5, (1 << 64) - 1])
+def test_u64_divmod_matches_numpy(d):
+    x = _u64_values(d, d)
+    q, r = kernels.u64_divmod(torch.from_numpy(x.view(np.int64)), d)
+    np.testing.assert_array_equal(q.numpy().view(np.uint64),
+                                  x // np.uint64(d))
+    np.testing.assert_array_equal(r.numpy().view(np.uint64),
+                                  x % np.uint64(d))
+
+
+def test_u64_divmod_range():
+    x = torch.arange(4, dtype=torch.int64)
+    for d in (0, -1, 1 << 64):
+        with pytest.raises(ValueError, match="u64 divisor"):
+            kernels.u64_divmod(x, d)
+
+
+def test_u64_order_shift_and_wrap_match_numpy():
+    """Unsigned min / max / compare / logical shift through the helpers, and
+    int64 add, subtract, multiply and left shift wrapping as u64 does."""
+    x, y = _u64_values(1), _u64_values(2)
+    tx, ty = (torch.from_numpy(a.view(np.int64)) for a in (x, y))
+    pairs = np.stack([x, y])
+    low = pairs >> np.uint64(1)          # no value with its top bit set
+    for a in (pairs, low, low.T.copy()):
+        for dim in (0, 1):
+            mn, mx = kernels.u64_minmax(torch.from_numpy(a.view(np.int64)),
+                                        dim)
+            np.testing.assert_array_equal(mn.numpy().view(np.uint64),
+                                          a.min(axis=dim))
+            np.testing.assert_array_equal(mx.numpy().view(np.uint64),
+                                          a.max(axis=dim))
+    np.testing.assert_array_equal(kernels.u64_ge(tx, ty).numpy(), x >= y)
+    for c in (0, 1, (1 << 63) - 1, 1 << 63, (1 << 64) - 1):
+        np.testing.assert_array_equal(
+            kernels.u64_ge(tx, kernels.u64_to_i64(c)).numpy(),
+            x >= np.uint64(c))
+    for k in (1, 31, 32, 63):
+        np.testing.assert_array_equal(
+            kernels.u64_shr(tx, k).numpy().view(np.uint64),
+            x >> np.uint64(k))
+    with np.errstate(over="ignore"):
+        for got, want in ((tx + ty, x + y), (tx - ty, x - y),
+                          (tx * ty, x * y), (tx << 32, x << np.uint64(32)),
+                          (tx * 2642245 ** 2, x * np.uint64(2642245 ** 2))):
+            np.testing.assert_array_equal(got.numpy().view(np.uint64), want)
+    # int64 -> int32 keeps the low 32 bits (the u32 cast of ID bins), and
+    # u32_to_i64 leaves an int64 input as it was
+    np.testing.assert_array_equal(tx.to(torch.int32).numpy().view(np.uint32),
+                                  x.astype(np.uint32))
+    before = tx.clone()
+    np.testing.assert_array_equal(kernels.u32_to_i64(tx).numpy(),
+                                  (x & np.uint64(0xFFFFFFFF)).astype(np.int64))
+    assert torch.equal(tx, before)
+    for v in (0, 1, (1 << 63) - 1, 1 << 63, (1 << 64) - 1):
+        assert kernels.i64_to_u64(kernels.u64_to_i64(v)) == v
+        assert kernels.i64_to_u64(torch.tensor(kernels.u64_to_i64(v))) == v
+
+
 def test_fast_uniform_encode_matches_jax():
     """div mode through the pack wrapper's from_f32 path, recip through the
     recip bin map; both against the JAX package's XLA encode."""
@@ -295,7 +373,7 @@ def _plan_check(plan, width, total, ptr, rows_n=None):
         assert all((ptr + k * wpt * 4) % 16 == 0 for k in range(tiles))
     if rows_n is not None:   # the kernel's 32-bit row split of each quad
         n = rows_n
-        magic = (1 << 32) // n
+        magic = cuda_lib.row_magic(n)
         e0 = np.arange(tiles, dtype=np.int64) * tile
         i = np.arange(0, tile, 4, dtype=np.int64)
         off = ((e0 % n)[:, None] + i[None, :]).reshape(-1)
@@ -327,3 +405,90 @@ def test_tile_plans_cover_the_stream(width):
             assert plan["tile"] % 128 == 0
             assert plan["smem_bytes"] == 2 * (plan["words_per_tile"] +
                                               4) * 4 <= 48 * 1024
+
+
+# K8's row finding (csrc/pack.cuh RecipBins, rows.cuh) against a brute-force
+# model: per tile one 64-bit division for the first row and its offset, then
+# per 4-element chunk past that row the 32-bit magic division; every chunk
+# must land on the row and offset of its first element, and lie in one row.
+
+@pytest.mark.parametrize("rows, n", [(70_000, 32), (5000, 96), (40, 4064),
+                                     (40, 4096), (40, 4128), (3, 1 << 21),
+                                     (3, 7_812_512)])
+def test_recip_rows_split_matches_brute_force(rows, n):
+    total = rows * n
+    plan = encode_cuda.pack_plan(16, total, 1 << 20, 132)
+    tile, tiles = plan["tile"], plan["tiles"]
+    magic = cuda_lib.row_magic(n)
+    e0 = np.arange(tiles, dtype=np.int64) * tile
+    row0 = e0 // n                      # the tile's first row, once a tile
+    off0 = e0 - row0 * n
+    i = np.arange(0, tile, 4, dtype=np.int64)
+    e = (e0[:, None] + i[None, :]).reshape(-1)
+    keep = e < total
+    off = (off0[:, None] + i[None, :]).reshape(-1)[keep]
+    row = np.repeat(row0, i.size)[keep]
+    e = e[keep]
+    assert off.max() < 1 << 32
+    past = off >= n                     # chunks past the tile's first row
+    q = (off[past] * magic) >> 32       # __umulhi
+    r = off[past] - q * n
+    q = np.where(r >= n, q + 1, q)
+    r = np.where(r >= n, r - n, r)
+    row[past] += q
+    off[past] = r
+    assert (row == e // n).all() and (off == e % n).all()
+    assert ((e + 3) // n == e // n).all()
+
+
+def test_row_magic_range():
+    assert cuda_lib.row_magic(2) == 1 << 31
+    assert cuda_lib.row_magic(1 << 31) == 2
+    assert cuda_lib.row_magic(7_812_512) == (1 << 32) // 7_812_512
+    for n in (0, 1, (1 << 31) + 1):
+        with pytest.raises(ValueError):
+            cuda_lib.row_magic(n)
+
+
+# K9's plan (csrc/scan.cu) against a model of its tiles: every element in
+# exactly one tile, taken by ticket by a persistent grid no larger than the
+# tile count, one status word a tile, 16-byte loads only from 16-byte
+# boundaries, int32 in-tile offsets, 32-bit tickets.
+
+SCAN_NS = [1, 2, 31, 4095, 4096, 4097, 8191, 8192, 8193, (1 << 20) + 5,
+           1 << 24, 3 * (1 << 24) + 7, (1 << 31) - 1, 1 << 31, (1 << 31) + 1,
+           (1 << 31) + 4097, 1 << 40, ((1 << 31) - 1) * 4096]
+
+
+@pytest.mark.parametrize("n", SCAN_NS)
+def test_scan_plan_covers_the_stream(n):
+    for ptr in (1 << 20, (1 << 20) + 4, (1 << 20) + 8, (1 << 20) + 12):
+        plan = scan_cuda.scan_plan(n, ptr, 132)
+        tile, tiles, grid = plan["tile"], plan["tiles"], plan["grid"]
+        assert tile == 128 * 32 and plan["vec16"] == (ptr % 16 == 0)
+        assert (tiles - 1) * tile < n <= tiles * tile < (1 << 31) * tile
+        assert 1 <= grid == min(tiles, 132 * scan_cuda.BLOCKS_PER_SM)
+        assert tiles + grid - 1 < 1 << 32          # the last ticket
+        assert plan["status_words"] == 1 + tiles
+        last = n - (tiles - 1) * tile       # the ragged last tile's count
+        assert 1 <= last <= tile
+        if plan["vec16"]:
+            assert (ptr + 4 * tile) % 16 == 0   # every tile then is
+    with pytest.raises(ValueError):
+        scan_cuda.scan_plan(((1 << 31) - 1) * 4096 + 1, 1 << 20, 132)
+
+
+def test_scan_status_words_per_stream():
+    """K9's status words: one buffer a device and stream, kept between
+    calls, grown only when n grows (the C entry point clears it)."""
+    scan_cuda._scratch.clear()
+    words = scan_cuda.status_words((0, 7), 5, "cpu")
+    assert words.numel() == 5 and words.dtype == torch.int64
+    assert scan_cuda.status_words((0, 7), 3, "cpu") is words
+    assert scan_cuda.status_words((0, 7), 5, "cpu") is words
+    other = scan_cuda.status_words((0, 8), 5, "cpu")
+    assert other is not words
+    grown = scan_cuda.status_words((0, 7), 9, "cpu")
+    assert grown.numel() == 9 and grown is not words
+    assert scan_cuda.status_words((0, 7), 4, "cpu") is grown
+    scan_cuda._scratch.clear()

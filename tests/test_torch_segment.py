@@ -43,7 +43,7 @@ def _digest(seg) -> str:
 
 def _same_bytes(a, b) -> bool:
     """Decoded field data compared as raw bytes (u64 IDs decode to int64
-    tensors in the port: same bytes below 2^63)."""
+    tensors of the same bits in the port)."""
     a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
     b = b.numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
     return a.shape == b.shape and \
@@ -190,12 +190,150 @@ def test_unported_modes_raise():
     for f in (deltas, log10):
         with pytest.raises(NotImplementedError):
             mt.compress_segment(mt.Seg(fields=[f]), device="cpu")
+    # u64 values past 2^63 are ported: they round-trip as u64 bits
     hd_i = mt.FieldHeader(mt.FieldCode.UNSI, mt.AlgoCode.TRIM,
                           VERSIONS["trim"], 2)
-    big = mt.Field(hd=hd_i, data=np.array([1, 1 << 63], dtype=np.uint64),
-                   acc=mt.IntAccuracy())
-    with pytest.raises(ValueError):
-        mt.compress_segment(mt.Seg(fields=[big]), device="cpu")
+    big_v = np.array([1, 1 << 63], dtype=np.uint64)
+    big = mt.Field(hd=hd_i, data=big_v, acc=mt.IntAccuracy())
+    blob = mt.compress_segment(mt.Seg(fields=[big]), device="cpu")
+    got = mt.decompress_segment(blob, device="cpu").fields[0].data
+    np.testing.assert_array_equal(got.numpy().view(np.uint64), big_v)
+
+
+# u64 fields over their whole range: the port holds them as int64 tensors of
+# the same bits, and must write and read what the JAX package writes and
+# reads as uint64.
+
+def _unsi_values(case: str) -> np.ndarray:
+    rng = np.random.default_rng(len(case))
+    if case == "edges":
+        return np.array([1, (1 << 63) + 12345, (1 << 64) - 1], np.uint64)
+    if case == "one_plane_near_top":     # range <= 2^32 just below 2^64
+        v = rng.integers(0, 1 << 32, 3000, dtype=np.uint64)
+        v[:2] = (0, (1 << 32) - 1)
+        return v + np.uint64((1 << 64) - (1 << 32))
+    # two planes, range > 2^32 across 2^63
+    v = rng.integers(0, 1 << 41, 3000, dtype=np.uint64)
+    return v + np.uint64((1 << 63) - (1 << 40))
+
+
+def _id_values(w: int, n: int = 3000) -> np.ndarray:
+    """IDs on a grid of width w: x and z hugging the grid's seam, y
+    anywhere, and 0, w^3 - 1 and 2^63 + 7 (an ID with its top bit set)."""
+    rng = np.random.default_rng(w)
+    xs = rng.integers(w - 6, w + 6, n) % w
+    ys = rng.integers(0, w, n)
+    zs = rng.integers(w - 3, w + 3, n) % w
+    ids = np.array([int(x) + w * int(y) + w * w * int(z)
+                    for x, y, z in zip(xs, ys, zs)], np.uint64)
+    ids[:3] = (0, w ** 3 - 1, (1 << 63) + 7)
+    return ids
+
+
+def _check_u64_segment(code, algo, version, data, acc):
+    """Port and JAX encodes are byte-identical, and either package's
+    segment decodes in both to the input's u64 bits (generic and fused)."""
+    hd = mnw.FieldHeader(code, algo, version, data.size)
+    seg = mnw.Seg(fields=[mnw.Field(hd=hd, data=data, acc=acc)])
+    blob = japi.compress_segment(seg)
+    assert mt.compress_segment(interop.seg_from_reference(seg),
+                               device="cpu") == blob
+    assert np.array_equal(
+        np.asarray(japi.decompress_segment(blob).fields[0].data), data)
+    for fused in (False, True):
+        got = mt.decompress_segment(blob, fused=fused, device="cpu")
+        assert got.fields[0].data.dtype == torch.int64
+        assert np.array_equal(got.fields[0].data.numpy().view(np.uint64),
+                              data)
+    # an int64 tensor of the same bits is read as the same u64 values
+    tseg = mt.Seg(fields=[mt.Field(
+        hd=mt.FieldHeader(code, algo, version, data.size),
+        data=torch.from_numpy(data.view(np.int64)),
+        acc=interop.seg_from_reference(seg).fields[0].acc)])
+    assert mt.compress_segment(tseg, device="cpu") == blob
+
+
+@pytest.mark.parametrize("name", sorted(VERSIONS))
+@pytest.mark.parametrize("case", ["edges", "one_plane_near_top",
+                                  "two_planes_across_2_63"])
+def test_u64_unsi_matches_jax(case, name):
+    _check_u64_segment(mnw.FieldCode.UNSI, mnw.AlgoCode.TRIM, VERSIONS[name],
+                       _unsi_values(case), mnw.IntAccuracy())
+
+
+ID_CODECS = [("TRIM", (1, 0, 0)), ("TRIM", (1, 1, 0)), ("DIFF", (1, 0, 0)),
+             ("COIL", (1, 0, 0)), ("COIL", (1, 1, 0)), ("OCTO", (1, 0, 0)),
+             ("OCTO", (1, 1, 0))]
+
+
+@pytest.mark.parametrize("algo, version", ID_CODECS)
+@pytest.mark.parametrize("w", [(1 << 21) + 5, 2642245])
+def test_u64_ptid_matches_jax(w, algo, version):
+    """ID grids past 2^21 a side, up to 2642245 (the largest w with
+    w^3 <= 2^64): the grid split divides u64 values, and the recombine's
+    w * w * z passes 2^63."""
+    _check_u64_segment(mnw.FieldCode.PTID, getattr(mnw.AlgoCode, algo),
+                       mnw.semver.pack(*version), _id_values(w),
+                       mnw.IDAccuracy(width=w))
+
+
+def test_ptid_width_past_the_cube_root_of_2_64_matches_jax():
+    """A grid of width 2^22 (w^3 > 2^64): the reference's u64 arithmetic
+    wraps and still returns the IDs, and so does the port's."""
+    ids = np.arange(0, 7 * 3000, 7, dtype=np.uint64)
+    ids[:2] = ((1 << 63) + 7, (1 << 64) - 1)
+    _check_u64_segment(mnw.FieldCode.PTID, mnw.AlgoCode.TRIM,
+                       VERSIONS["trim"], ids, mnw.IDAccuracy(width=1 << 22))
+
+
+@pytest.mark.parametrize("w", [(1 << 32) + 1, 1 << 32, (1 << 33) + 7,
+                               (1 << 62) + 3, (1 << 63) - 1])
+def test_ptid_width_past_2_32_matches_jax(w):
+    """Grids wider than 2^32 a side: the reference's w * w wraps mod 2^64
+    (to 0 at w = 2^32, where XLA's quotient is all ones) and its u32 bins
+    keep the low 32 bits of each coordinate, so the IDs do not come back;
+    the port splits, writes and reads them to the reference's bits all the
+    same.  Where a dimension's range needs more than 32 bits both packages
+    refuse to write the segment."""
+    import jax.numpy as jnp
+    from minnow_c_tpu.quant import engine as jengine
+    from minnow_c_tpu_torch.quant import engine as tengine
+    ids = np.random.default_rng(w % 1000).integers(0, 1 << 64, 3000,
+                                                   dtype=np.uint64)
+    ids[:4] = (0, w - 1, (1 << 63) + 7, (1 << 64) - 1)
+    want = jengine.id_decompose(jnp.asarray(ids, dtype=jnp.uint64), w)
+    got = tengine.id_decompose(torch.from_numpy(ids.view(np.int64)), w)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy().view(np.uint64),
+                                      np.asarray(b))
+    hd = mnw.FieldHeader(mnw.FieldCode.PTID, mnw.AlgoCode.TRIM,
+                         VERSIONS["trim"], ids.size)
+    seg = mnw.Seg(fields=[mnw.Field(hd=hd, data=ids,
+                                    acc=mnw.IDAccuracy(width=w))])
+    tseg = interop.seg_from_reference(seg)
+    if w > 1 << 33:
+        with pytest.raises(OverflowError):
+            japi.compress_segment(seg)
+        with pytest.raises(ValueError, match="width"):
+            mt.compress_segment(tseg, device="cpu")
+        return
+    blob = japi.compress_segment(seg)
+    assert mt.compress_segment(tseg, device="cpu") == blob
+    ref = np.asarray(japi.decompress_segment(blob).fields[0].data)
+    for fused in (False, True):
+        got = mt.decompress_segment(blob, fused=fused, device="cpu")
+        np.testing.assert_array_equal(
+            got.fields[0].data.numpy().view(np.uint64), ref)
+
+
+def test_ptid_width_from_2_63_raises():
+    """The reference's signed unwrap takes grid widths below 2^63; the port
+    refuses the rest before any work."""
+    from minnow_c_tpu_torch.quant import engine as tengine
+    ids = torch.arange(8, dtype=torch.int64)
+    for w in (0, 1 << 63, (1 << 64) - 1):
+        with pytest.raises(ValueError, match="ID grid width"):
+            tengine.id_decompose(ids, w)
 
 
 def test_import_leaves_jax_out():

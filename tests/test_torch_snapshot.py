@@ -7,8 +7,7 @@ CPU tensors) are held against the Pallas kernels in interpret mode, as
 ``tests/test_pallas.py`` runs them; whole snapshots against the JAX
 package's ``compress_snapshot`` / ``decompress_snapshot``.  Tolerance:
 bitwise equality throughout -- file bytes, and arrays compared as their
-raw bytes (u64 IDs decode to int64 tensors in the port: the same bytes
-below 2^63).
+raw bytes (u64 IDs decode to int64 tensors of the same bits in the port).
 """
 
 import dataclasses
@@ -207,7 +206,29 @@ def _seam_case():
     return dict(ids=ids), dict(ids=("IDAccuracy", dict(width=W))), 4
 
 
-CASES = {"full": _full_case, "odd": _odd_case, "seam": _seam_case}
+def _u64_ids_case(w: int):
+    """u64 IDs on a grid of width w past 2^21: x and z across the seam, y
+    anywhere, and 0, w^3 - 1 and 2^63 + 7 (top bit set); 4 blocks of
+    1024 (32 | nb)."""
+    def make():
+        n = 4096
+        rng = np.random.default_rng(w)
+        xs = rng.integers(w - 6, w + 6, n) % w
+        ys = rng.integers(0, w, n)
+        zs = rng.integers(w - 3, w + 3, n) % w
+        ids = np.array([int(x) + w * int(y) + w * w * int(z)
+                        for x, y, z in zip(xs, ys, zs)], np.uint64)
+        ids[[5, 1500, 4000]] = (0, w ** 3 - 1, (1 << 63) + 7)
+        pos = rng.uniform(0, 64.0, (3, n)).astype(np.float32)
+        spec = dict(pos=("PositionAccuracy", dict(delta=1e-3, width=64.0)),
+                    ids=("IDAccuracy", dict(width=w)))
+        return dict(pos=pos, ids=ids), spec, 4
+    return make
+
+
+CASES = {"full": _full_case, "odd": _odd_case, "seam": _seam_case,
+         "u64_ids_2097157": _u64_ids_case((1 << 21) + 5),
+         "u64_ids_2642245": _u64_ids_case(2642245)}
 
 
 def _spec(pkg, spec, snap):
