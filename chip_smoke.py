@@ -8,16 +8,22 @@ imports nothing of JAX.  Phases, one progress line each; any failure raises
 and the script exits non-zero:
 
 1. device: card name, power limit, kernel build time; the registers and
-   spills of the tile kernels (K1 / K2 decode, K4 / K7 pack, K5 / K8 recip
-   pack, K12, K9 scan) and the SASS instructions of their inner loops;
+   spills of the tile kernels (K1 / K2 decode and K3 unpack, K4 / K7 pack,
+   K5 / K8 recip pack, K12, K9 scan) and of K6 stats, and the SASS
+   instructions of the tile kernels' inner loops;
 2. each CUDA kernel (K1 fused decode, K4 pack, the rows kernels K2
    decode, K3 unpack, K6 stats, K7 pack, the delta kernels K9 scan, K10
    chunked decode, K11 its float mode, and the recip-mode encodes K5, K8 and
    K12) against its plain torch version on the card, bitwise, over widths
-   (K1 and K2 at every width 1-24, K4 and K7 at every width 0-32), row
-   counts, rows that cross tile edges, ragged sizes, unaligned inputs and
-   edge values, subnormals included (they flush to zeros of their sign, as
-   on XLA); K9 up to 3 * 2^24 + 7 elements, from aligned and unaligned
+   (K1 and K2 at every width 1-24, K3 at every width 1-32, K4 and K7 at
+   every width 0-32), row counts, rows that cross tile edges, ragged sizes,
+   unaligned inputs and edge values, subnormals included (they flush to
+   zeros of their sign, as on XLA); K6 across its slices and 16-byte edges
+   (odd n, rows from storage one element in) and, with K12, on rows of
+   +-inf, NaN, subnormals, values that all wrap and -0.0, each edge value
+   in a row's scalar head, float4 body and scalar tail; K3 from words one
+   word off 16 bytes and on zero rows; K9 up to 3 * 2^24 + 7 elements,
+   from aligned and unaligned
    storage, and 50 calls in a row at 2^24; K5 at every width at ragged n
    up to 7,812,500 from aligned and unaligned storage; K8 at every width
    1-24 over rows shorter than, equal to and longer than a tile; K4's
@@ -40,9 +46,10 @@ and the script exits non-zero:
    the first and last block equal to decompress_segment bitwise, launch
    counts, wall times, rates, peak memory and the device's busy share (a
    torch.profiler trace of the card); then K2, K3, K6 and K7 timed
-   against their plain versions at that path's shapes, K2 and K7 also at
-   every width the path decodes and packs and alone in a torch.profiler
-   trace, and torch.aminmax beside K6;
+   against their plain versions at that path's shapes and alone in a
+   torch.profiler trace, K2 and K7 also at every width the path decodes
+   and packs, K3 at 1, 9, 17 and 32 bits, K6 also on the velocity rows
+   (not periodic), and torch.aminmax beside K6;
 6. the delta path at full size: the 2^24-particle snapshot of phase 4 in
    Lagrangian (ID) order through Diff v1.0, Coil v1.1 and Octo v1.1, each
    compressed and decompressed (generic and fused) on CUDA, with error
@@ -197,15 +204,17 @@ def kernel_report(build_log: str) -> None:
     import re
     from minnow_c_tpu_torch.ops import cuda_lib
     for fn, spill, regs in re.findall(
-            r"Compiling entry function '(\S*(?:_tiles|_fused|scan)_kernel"
-            r"\S*)'.*?(\d+) bytes spill stores.*?Used (\d+) registers",
-            build_log, re.S):
+            r"Compiling entry function '(\S*(?:_tiles|_fused|scan|"
+            r"stats_rows)_kernel\S*)'.*?(\d+) bytes spill stores.*?"
+            r"Used (\d+) registers", build_log, re.S):
         w = re.search(r"(decode_tiles|pack_tiles|pack_recip_tiles|"
-                      r"encode_recip_fused|scan)_kernel(?:ILi(\d+)E"
-                      r"(?:Lb(\d))?)?", fn)
+                      r"encode_recip_fused|scan|stats_rows)_kernel"
+                      r"(?:ILi(\d+)E(?:Lb(\d))?)?", fn)
         if not w or (w.group(2) and int(w.group(2)) not in (9, 12, 14, 16)):
             continue
-        kind = w.group(1) + ("(f32)" if w.group(3) == "1" else "") + (
+        # pack_tiles<W, true>: from f32; decode_tiles<W, false>: K3's bins
+        flag = {("pack_tiles", "1"): "(f32)", ("decode_tiles", "0"): "(bins)"}
+        kind = w.group(1) + flag.get((w.group(1), w.group(3)), "") + (
             f"<{w.group(2)}>" if w.group(2) else "")
         log(f"phase 1: ptxas: {kind}: {regs} registers, {spill} bytes "
             "spilled")
@@ -221,15 +230,19 @@ def kernel_report(build_log: str) -> None:
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name = part.split("\n", 1)[0]
         w = re.search(
-            r"(decode|pack|pack_recip)_tiles_kernelILi(\d+)E(Lb0)?", name)
-        if not w or w.group(2) not in ("12", "16") or \
-                (w.group(1) == "pack" and not w.group(3)):
+            r"(decode|pack|pack_recip)_tiles_kernelILi(\d+)E(Lb\d)?", name)
+        if not w or w.group(2) not in ("9", "12", "16") or \
+                (w.group(1) == "pack" and w.group(3) != "Lb0"):
+            continue
+        bins = w.group(1) == "decode" and w.group(3) == "Lb0"
+        if (w.group(2) == "9") != bins:
             continue
         ins = [(int(a, 16), i) for a, i in re.findall(
             r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", part)]
         # the inner loop: the shortest backward branch around the work
-        # (decode: the FFMAs of one quad; pack: the stores of 4 words)
-        mark = "FFMA" if w.group(1) == "decode" else "STG"
+        # (decode: the FFMAs of one quad; K3's bins and pack: the 16-byte
+        # store)
+        mark = "FFMA" if w.group(1) == "decode" and not bins else "STG"
         loops = []
         for addr, i in ins:
             m = re.search(r"BRA (0x[0-9a-f]+)", i)
@@ -240,7 +253,8 @@ def kernel_report(build_log: str) -> None:
                     loops.append(len(body))
         per = "one quad (4 elements)" if w.group(1) == "decode" else \
             "4 output words"
-        log(f"phase 1: SASS: {w.group(1)}_tiles<{w.group(2)}>: "
+        log(f"phase 1: SASS: {w.group(1)}_tiles{'(bins)' if bins else ''}"
+            f"<{w.group(2)}>: "
             f"{len(ins)} instructions, inner loop "
             f"{min(loops) if loops else 'not found'} per {per}")
 
@@ -401,19 +415,27 @@ def check_rows_kernels(dev, g) -> dict:
         worst[name] = max(worst[name], max_abs_err(got, want))
         cases += 1
 
+    def same_stats(x, what):
+        """K6 on the rows of x, plain and unwrapped in a box of BOX."""
+        box = torch.full((x.shape[0],), BOX, device=dev)
+        anchor = x[:, 0].contiguous()
+        for periodic in (False, True):
+            same("K6", encode_cuda.stats_rows_cuda(x, box, anchor, periodic),
+                 encode_cuda.stats_rows_plain(x, box, anchor, periodic),
+                 f"{what} periodic={periodic}")
+
     for rows, n in shapes:
         vals = u32_rows(rows, n, 32, g, dev)
         for width in range(0, 33):      # K7 at every width
             same("K7", encode_cuda.pack_rows_cuda(vals, width),
                  encode_cuda.pack_rows_plain(vals, width),
                  f"width={width} rows={rows} n={n}")
-        for width in range(1, 33):      # K3 at its width classes, K2 at all
+        for width in range(1, 33):      # K3 at every width, K2 at 1-24
             words = encode_cuda.pack_rows_plain(
                 u32_rows(rows, n, width, g, dev), width)
-            if width in (1, 7, 16, 24, 32):
-                same("K3", decode_cuda.unpack_rows_cuda(words, width, n),
-                     decode_cuda.unpack_rows_plain(words, width, n),
-                     f"width={width} rows={rows} n={n}")
+            same("K3", decode_cuda.unpack_rows_cuda(words, width, n),
+                 decode_cuda.unpack_rows_plain(words, width, n),
+                 f"width={width} rows={rows} n={n}")
             if width > 24:
                 continue
             keys = torch.randint(0, 1 << 32, (rows, 2), generator=g,
@@ -442,16 +464,75 @@ def check_rows_kernels(dev, g) -> dict:
             x[1] = torch.where(x[1] < BOX / 2, 0.0, -0.0)
             x[2, ::3] = -0.0
             x[2] = -x[2]
-        box = torch.full((rows,), BOX, device=dev)
-        for periodic in (False, True):
-            same("K6", encode_cuda.stats_rows_cuda(
-                x, box, x[:, 0].contiguous(), periodic),
-                encode_cuda.stats_rows_plain(x, box, x[:, 0].contiguous(),
-                                             periodic),
-                f"rows={rows} n={n} periodic={periodic}")
+        same_stats(x, f"rows={rows} n={n}")
+    # K3 from words whose storage starts one word in (4-byte copies), and
+    # zero rows (no launch)
+    n = 3 * tile + 96
+    for width in (1, 9, 17, 31, 32):
+        packed = encode_cuda.pack_rows_plain(u32_rows(5, n, width, g, dev),
+                                             width)
+        store = torch.zeros(packed.numel() + 1, dtype=torch.int32, device=dev)
+        store[1:] = packed.reshape(-1)
+        words = store[1:].view(5, -1)
+        same("K3", decode_cuda.unpack_rows_cuda(words, width, n),
+             decode_cuda.unpack_rows_plain(words, width, n),
+             f"unaligned words width={width}")
+        before = decode_cuda.unpack_rows_cuda.launches
+        if decode_cuda.unpack_rows_cuda(words[:0], width, n).shape != \
+                (0, n) or decode_cuda.unpack_rows_cuda.launches != before:
+            raise AssertionError("K3 on zero rows")
+    # K6 across its slices (2^15) and 16-byte edges: odd n and storage one
+    # element in give every row a scalar head and tail around its float4s
+    for rows, n in ((3, 1), (3, 3), (3, 5), (3, 4097), (3, 65_541),
+                    (70_000, 32)):
+        for offset in (0, 1):
+            store = torch.rand(rows * n + offset, generator=g,
+                               device=dev) * BOX
+            x = store[offset:].view(rows, n)
+            x[::4, n // 2] = float("nan")
+            x[1, ::3] = -0.0
+            x[2] = -x[2].abs()
+            same_stats(x, f"rows={rows} n={n} offset={offset}")
+    # the edge rows with their edge values in the scalar head, the float4
+    # body (slice 2 of 5) and the scalar tail
+    for where in EDGE_AT:
+        same_stats(edge_rows(where, dev), f"edge rows, edge in the {where}")
     log(f"phase 2: K2, K3, K6, K7 == plain bitwise in {cases} comparisons "
         f"(max_abs_err {worst})")
     return worst
+
+
+# K6's edge rows: 4 | n and 32 | n, so from storage one element in every
+# row starts 4 bytes past a 16-byte boundary: 3 scalars, float4s over 5
+# slices of 2^15, then 1 scalar
+EDGE_N = 2 * (1 << 16) + 32
+EDGE_AT = {"head": 1, "body": EDGE_N // 2, "tail": EDGE_N - 1}
+
+
+def edge_rows(where: str, dev) -> torch.Tensor:
+    """Six rows of EDGE_N with K6's edge values at EDGE_AT[where], from
+    storage one element in: +inf; -inf; NaN beside -inf; a subnormal
+    anchor among subnormals; a row whose every value wraps in a box of 64
+    (anchor 1, the rest in [34, 63), 33.5 at the edge, which wraps to the
+    min); -0.0 in a negative row."""
+    pos, n = EDGE_AT[where], EDGE_N
+    rng = np.random.default_rng(len(where))
+    x = rng.uniform(0, BOX, (6, n)).astype(np.float32)
+    x[0, pos] = np.inf
+    x[1, pos] = -np.inf
+    x[2, pos] = np.nan
+    x[2, pos - 1] = -np.inf
+    x[3] = (rng.uniform(-1, 1, n) * 1e-39).astype(np.float32)
+    x[3, 0] = 3e-39
+    x[3, pos] = -1.1e-38
+    x[4] = rng.uniform(34, 63, n).astype(np.float32)
+    x[4, 0] = 1.0
+    x[4, pos] = 33.5
+    x[5] = -rng.uniform(0.5, 1, n).astype(np.float32)
+    x[5, pos] = -0.0
+    store = torch.zeros(6 * n + 1, device=dev)
+    store[1:] = torch.from_numpy(x.reshape(-1)).to(dev)
+    return store[1:].view(6, n)
 
 
 def recip_plane(n: int, g, dev, periodic: bool) -> torch.Tensor:
@@ -570,6 +651,17 @@ def check_recip_kernels(dev, g) -> dict:
                     encode_cuda.encode_recip_fused_blocks_plain(
                         x, box, anchors, width, periodic),
                     f"width={width} blocks={blocks} dims={dims} n={n} "
+                    f"periodic={periodic}")
+    for where in EDGE_AT:   # K6's edge rows as two blocks of three
+        x = edge_rows(where, dev).view(2, 3, EDGE_N)
+        anchors = x[:, :, 0].contiguous()
+        for periodic in (False, True):
+            for width in (12, 16):
+                same("K12", encode_cuda.encode_recip_fused_blocks_cuda(
+                    x, BOX, anchors, width, periodic),
+                    encode_cuda.encode_recip_fused_blocks_plain(
+                        x, BOX, anchors, width, periodic),
+                    f"edge rows, edge in the {where}, width={width} "
                     f"periodic={periodic}")
     tiny = torch.rand(3, 3, 4096, generator=g, device=dev) * 3e-38
     for width in (1, 12):   # a box of 3e-38: subnormal unwraps
@@ -1158,13 +1250,27 @@ def time_rows_kernels(mt, data, dev):
     log(f"phase 5: torch.aminmax(rows, dim=1) beside K6: "
         f"{times['K6 library']:.4f} ms (nearest call, no unwrap, differs "
         "on +-0; CUDA events, median of 5)")
-    for k, kernel in (("K2", "decode_tiles"), ("K7", "pack_tiles")):
+    # K6 on the velocity rows, which the writer does not unwrap
+    vel = data[1].reshape(3, B, nb).transpose(0, 1).reshape(3 * B, nb)
+    v_anchor = vel[:, 0].contiguous()
+    if not all(torch.equal(bits(a), bits(b)) for a, b in zip(
+            encode_cuda.stats_rows_cuda(vel, box, v_anchor, False),
+            encode_cuda.stats_rows_plain(vel, box, v_anchor, False))):
+        raise AssertionError("K6 != plain on the velocity rows")
+    times["K6 vel"] = cuda_ms(
+        lambda: encode_cuda.stats_rows_cuda(vel, box, v_anchor, False))
+    log(f"phase 5: K6 at the {3 * B} velocity rows (not periodic): "
+        f"{times['K6 vel']:.4f} ms (CUDA events, median of 5)")
+    del vel, v_anchor
+    for k, kernel in (("K2", "decode_tiles"), ("K7", "pack_tiles"),
+                      ("K3", "decode_tiles"), ("K6", "stats_rows")):
         times[k + " device"] = device_ms(fns[k][0], kernel)
         log(f"phase 5: {k} device time alone (torch.profiler, 5 calls): "
             f"{times[k + ' device']} ms against {times[k]:.4f} ms with its "
             "wrapper (CUDA events)")
-    times["K2 widths"], times["K7 widths"] = time_rows_widths(
-        stats, B, nb, {"K2": times["K2"], "K7": times["K7"]}, depth, dev)
+    times["K2 widths"], times["K7 widths"], times["K3 widths"] = \
+        time_rows_widths(stats, B, nb, {"K2": times["K2"],
+                                        "K7": times["K7"]}, depth, dev)
     return times, errs
 
 
@@ -1172,9 +1278,10 @@ def time_rows_widths(stats, B: int, nb: int, at_depth: dict, depth: int,
                      dev):
     """K2 and K7 at every width the snapshot path decodes and packs:
     K2 over 64 rows of 2^21 at the velocity and mass depths, K7 over the
-    192 velocity rows and the 64 mass and ID rows, on random bins; each
-    checked against its plain version, then timed (CUDA events, median of
-    5).  ``at_depth`` holds the times at the position depth."""
+    192 velocity rows and the 64 mass and ID rows, on random bins; K3 over
+    64 rows at 1, 9 (the ID rows'), 17 and 32 bits; each checked against
+    its plain version, then timed (CUDA events, median of 5).
+    ``at_depth`` holds the times at the position depth."""
     from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
     k2 = {f"{depth} bits, {B} rows": at_depth["K2"]}
@@ -1203,11 +1310,22 @@ def time_rows_widths(stats, B: int, nb: int, at_depth: dict, depth: int,
         k7[f"{width} bits, {rows} rows"] = cuda_ms(
             lambda: encode_cuda.pack_rows_cuda(vals, width))
         del vals
+    k3 = {}
+    for width in (1, 9, 17, 32):
+        words = encode_cuda.pack_rows_cuda(u32_rows(B, nb, width, g, dev),
+                                           width)
+        if not torch.equal(decode_cuda.unpack_rows_cuda(words, width, nb),
+                           decode_cuda.unpack_rows_plain(words, width, nb)):
+            raise AssertionError(f"K3 != plain at width {width}")
+        k3[f"{width} bits, {B} rows"] = cuda_ms(
+            lambda: decode_cuda.unpack_rows_cuda(words, width, nb))
+        del words
     log(f"phase 5: K2 at n {nb} by width: "
         f"{ {k: round(v, 4) for k, v in k2.items()} } ms; K7 by width: "
-        f"{ {k: round(v, 4) for k, v in k7.items()} } ms (CUDA events, "
+        f"{ {k: round(v, 4) for k, v in k7.items()} } ms; K3 by width: "
+        f"{ {k: round(v, 4) for k, v in k3.items()} } ms (CUDA events, "
         "median of 5)")
-    return k2, k7
+    return k2, k7, k3
 
 
 # ---------------------------------------------------------------------------
@@ -1885,12 +2003,14 @@ def main() -> int:
                "library_ms": t.get(k + " library")}
         if k in library_calls:
             row["library_call"] = library_calls[k]
-        if k in ("K2", "K7", "K8", "K9"):
+        if k in ("K2", "K3", "K6", "K7", "K8", "K9"):
             row["device_ms"] = t[k + " device"]
         if k == "K9":
             row["library_device_ms"] = t["K9 library device"]
-        if k in ("K2", "K7", "K8"):
+        if k in ("K2", "K3", "K7", "K8"):
             row["widths_ms"] = t[k + " widths"]
+        if k == "K6":
+            row["velocity_rows_ms"] = t["K6 vel"]
         if k == "K5":
             row["k4_same_bins_ms"] = t["K5 K4"]
         kernels.append(row)

@@ -1,6 +1,7 @@
-"""Times the recip-mode pack kernels (K5, K8, K12) and the u32 scan (K9) of
-one tree of the torch port on one CUDA card, each beside the kernel or
-library call it is held to, under two warm-ups.
+"""Times the rows stats (K6), the rows unpack (K3), the recip-mode pack
+kernels (K5, K8, K12) and the u32 scan (K9) of one tree of the torch port
+on one CUDA card, each beside the kernel or library call it is held to,
+under two warm-ups.
 
     python3 kernel_times.py [--tree DIR] [--rounds N]
 
@@ -12,10 +13,14 @@ once for each tree, in one session on one card, in turns (a, b, b, a).
 The inputs are made on the card from fixed seeds, at the shapes of
 chip_smoke.py's kernels line:
 
+* K6: 192 rows of 2^21 positions (box 64, periodic), and
+  ``torch.aminmax(rows, dim=1)`` on them (the nearest library call: no
+  unwrap); ``K6 vel``: 192 rows of N(0, 300) velocities, not periodic;
+* K3: 64 rows of 2^21 bins packed at 9 bits (the snapshot's ID rows), and
+  at 1, 17 and 32 bits (``K3 w<width>``);
 * K9: 2^24 u32 values, and ``torch.cumsum(x, 0, dtype=torch.int32)``;
-* K8: 192 rows of 2^21 positions (box 64, periodic, each row's x0 and
-  exact recip from its unwrapped range) at 16 bits, and K7 packing the
-  same bins;
+* K8: the 192 position rows (each row's x0 and exact recip from its
+  unwrapped range) at 16 bits, and K7 packing the same bins;
 * K5: one plane of 2^24 positions at 16 bits, and K4 packing the same bins;
 * K12: the same positions as (64, 3, 2^21) blocks at 16 bits.
 
@@ -25,8 +30,12 @@ until 20 ms have passed (``20ms``); before each ``one_call`` timing the
 card idles 0.2 s, as it does between the host-bound phases of a path.
 Every round times each kernel both ways; the rounds' medians are listed.
 No torch.profiler trace runs before the last event time.  Then one trace
-gives the device time of K9's kernel, of the memset before it where the
-tree has one, and of torch.cumsum's kernels, per call.
+per call gives its device time: for K9 its kernel, the memset before it
+where the tree has one, and torch.cumsum's kernels; for K3, K6, K6 vel,
+torch.aminmax and K12 all the card's activity in the call (kernels and
+memsets).  Last, the host time per call of the K3, K6 and K9 wrappers and
+of torch.aminmax and torch.cumsum, on 32 elements (``host_us``): the host
+work that a single call's event time holds besides its device time.
 
 Prints the card's name and power limit, then one JSON object.  Needs a
 CUDA card; imports nothing of JAX.
@@ -48,6 +57,8 @@ BOX = 64.0
 ROWS, ROW_N = 192, 1 << 21
 PLANE_N = 1 << 24
 WIDTH = 16
+ID_WIDTH = 9                    # the snapshot's ID rows
+ID_WIDTHS = (1, ID_WIDTH, 17, 32)
 
 
 def event_ms(fn, warm_s: float, reps: int = 5) -> float:
@@ -71,10 +82,12 @@ def event_ms(fn, warm_s: float, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, names, calls: int = 5) -> dict:
-    """Device time per call of the CUDA activity whose name holds each of
-    ``names``, in one torch.profiler trace of ``calls`` calls (None where
-    the trace holds none), and the names of the activities counted."""
+def device_ms(fn, names=("",), calls: int = 5) -> dict:
+    """Device time per call of the card's activity (kernels, memsets)
+    whose name holds each of ``names`` (the default: all of it), in one
+    torch.profiler trace of ``calls`` calls (None where the trace holds
+    none), and the names of the activities counted."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -85,16 +98,51 @@ def device_ms(fn, names, calls: int = 5) -> dict:
         torch.cuda.synchronize()
     out = {}
     for name in names:
-        hits = [e for e in prof.key_averages() if name in e.key]
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key]
         total = sum(e.device_time_total for e in hits)
         out[name] = total / calls / 1e3 if total > 0 else None
         out[name + " counted"] = sorted(e.key[:80] for e in hits)
     return out
 
 
+def host_us(fn, calls: int = 2000) -> float:
+    """Host time per call of ``fn`` in microseconds: ``calls`` calls in a
+    row, then one synchronize, on inputs so small that the card never
+    holds the host back."""
+    for _ in range(200):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / calls * 1e6
+
+
+def tiny_calls(dev):
+    """The K3, K6 and K9 wrappers and their library calls on 32 elements
+    (one row), for ``host_us``."""
+    from minnow_c_tpu_torch.ops import (decode_cuda, encode_cuda, kernels,
+                                        scan_cuda)
+    x = torch.rand(1, 32, device=dev)
+    box, anchor = torch.full((1,), BOX, device=dev), x[:, 0].contiguous()
+    words = encode_cuda.pack_rows_cuda(kernels.i64_to_u32(torch.zeros(
+        1, 32, dtype=torch.int64, device=dev)), ID_WIDTH)
+    u = torch.zeros(32, dtype=torch.int32, device=dev)
+    return {
+        "K6": lambda: encode_cuda.stats_rows_cuda(x, box, anchor, True),
+        "K6 library": lambda: torch.aminmax(x, dim=1),
+        "K3": lambda: decode_cuda.unpack_rows_cuda(words, ID_WIDTH, 32),
+        "K9": lambda: scan_cuda.cumsum_u32(u),
+        "K9 library": lambda: torch.cumsum(u, 0, dtype=torch.int32),
+    }
+
+
 def inputs(dev):
     """The kernels' inputs and the calls to time, by name."""
-    from minnow_c_tpu_torch.ops import encode_cuda, kernels, scan_cuda
+    from minnow_c_tpu_torch.ops import (decode_cuda, encode_cuda, kernels,
+                                        scan_cuda)
     g = torch.Generator(device=dev).manual_seed(42)
     deltas = torch.randint(-(1 << 31), 1 << 31, (PLANE_N,), generator=g,
                            device=dev, dtype=torch.int64).to(torch.int32)
@@ -115,7 +163,22 @@ def inputs(dev):
     bins5 = kernels.recip_scaled_bins(plane, *k5[1:5], WIDTH, True)
     blocks = rows.reshape(ROWS // 3, 3, ROW_N)
     k12 = (BOX, anchors.reshape(ROWS // 3, 3), WIDTH, True)
+    vel = 300.0 * torch.randn(ROWS, ROW_N, generator=g, device=dev)
+    vel_anchors = vel[:, 0].contiguous()
+    unpack = {}
+    for width in ID_WIDTHS:
+        bins = torch.randint(0, 1 << width, (ROWS // 3, ROW_N), generator=g,
+                             device=dev, dtype=torch.int64)
+        unpack[width] = encode_cuda.pack_rows_cuda(kernels.i64_to_u32(bins),
+                                                   width)
     calls = {
+        "K6": lambda: encode_cuda.stats_rows_cuda(rows, box, anchors, True),
+        "K6 vel": lambda: encode_cuda.stats_rows_cuda(vel, box, vel_anchors,
+                                                      False),
+        "K6 library": lambda: torch.aminmax(rows, dim=1),
+        **{("K3" if w == ID_WIDTH else f"K3 w{w}"):
+           (lambda w=w: decode_cuda.unpack_rows_cuda(unpack[w], w, ROW_N))
+           for w in ID_WIDTHS},
         "K9": lambda: scan_cuda.cumsum_u32(deltas),
         "K9 library": lambda: torch.cumsum(deltas, 0, dtype=torch.int32),
         "K8": lambda: encode_cuda.encode_recip_rows_cuda(rows, *k8),
@@ -129,6 +192,21 @@ def inputs(dev):
     for a, b in (("K8", "K8 K7"), ("K5", "K5 K4")):
         if not torch.equal(calls[a](), calls[b]()):
             raise AssertionError(f"{a} != {b} on the same input")
+    # and K6, K3 equal their plain versions
+    for name, plain in (
+            ("K6", lambda: encode_cuda.stats_rows_plain(rows, box, anchors,
+                                                        True)),
+            ("K6 vel", lambda: encode_cuda.stats_rows_plain(
+                vel, box, vel_anchors, False)),
+            ("K3", lambda: decode_cuda.unpack_rows_plain(
+                unpack[ID_WIDTH], ID_WIDTH, ROW_N))):
+        got, want = calls[name](), plain()
+        got, want = (got, want) if isinstance(got, tuple) else \
+            ((got,), (want,))
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, want)):
+            raise AssertionError(f"{name} != its plain version")
+        del got, want
     return calls
 
 
@@ -160,6 +238,10 @@ def main() -> int:
             rounds["20ms"][name].append(event_ms(fn, 0.02))
     dev_ms = device_ms(calls["K9"], ("scan_kernel", "Memset"))
     dev_ms.update(device_ms(calls["K9 library"], ("Scan",)))
+    device = {"K9": dev_ms}
+    for name in ("K3", "K6", "K6 vel", "K6 library", "K12"):
+        device[name] = device_ms(calls[name])
+    host = {k: host_us(fn) for k, fn in tiny_calls(dev).items()}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -167,7 +249,7 @@ def main() -> int:
     print(card)
     print(json.dumps({"tree": tree, "build_s": round(build_s, 1),
                       "rounds": args.rounds, "ms": rounds,
-                      "k9_device_ms": dev_ms}))
+                      "device_ms": device, "host_us": host}))
     return 0
 
 

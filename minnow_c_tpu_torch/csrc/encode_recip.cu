@@ -21,7 +21,9 @@
 // Design: one cooperative launch of co-resident blocks that loop over their
 // work in three steps separated by grid-wide barriers (a counter in device
 // memory that the wrapper zeroes): partial min / max per (row, slice of
-// slice_len), one CTA each; per block, one CTA reduces its rows' partials to
+// slice_len), one CTA each, by K6's slice routine (minmax.cuh slice_keys:
+// 16-byte streaming loads, integer keys, one block reduction a slice);
+// per block, one CTA reduces its rows' partials to
 // their min / max, the range and the recip, written per row; then K8's tile
 // routine (pack.cuh) over the flat stream of rows, with the rows' scalars
 // read through L2 (__ldcg), since this launch wrote them.  The width is a
@@ -58,7 +60,8 @@ __device__ __forceinline__ void grid_barrier(unsigned int* count,
 
 struct FusedArgs {
   const float* x;
-  int64_t blocks, dims, n, slice_len;
+  int64_t blocks, dims, n;
+  int slice_len;  // a multiple of 4
   float box;
   const float* anchors;
   int periodic;
@@ -80,18 +83,20 @@ __global__ void __launch_bounds__(kThreads) encode_recip_fused_kernel(
   const int64_t slices = (a.n + a.slice_len - 1) / a.slice_len;
   const float half = mnw::half_box(a.box);
 
-  // 1. Partial min / max of every (row, slice).
+  // 1. Partial min / max of every (row, slice): K6's slice routine.
   for (int64_t it = blockIdx.x; it < rows * slices; it += gridDim.x) {
     const int64_t r = it / slices;
-    const int64_t lo = (it - r * slices) * a.slice_len;
-    const int64_t hi = lo + a.slice_len < a.n ? lo + a.slice_len : a.n;
-    const float anchor = a.periodic ? a.anchors[r] : 0.0f;
-    float mn, mx;
-    mnw::slice_minmax<kThreads>(a.x + r * a.n, lo, hi, a.periodic, a.box,
-                                half, anchor, mn, mx);
+    const int64_t sl = it - r * slices;
+    const float* row = a.x + r * a.n;
+    const mnw::KeyRange k =
+        a.periodic ? mnw::slice_keys<kThreads, true>(row, a.n, sl,
+                                                     a.slice_len, a.box,
+                                                     half, a.anchors[r])
+                   : mnw::slice_keys<kThreads, false>(row, a.n, sl,
+                                                      a.slice_len, 0.0f,
+                                                      0.0f, 0.0f);
     if (threadIdx.x == 0) {
-      a.pmin[it] = mn;
-      a.pmax[it] = mx;
+      mnw::key_range_to_floats(k, a.pmin[it], a.pmax[it]);
     }
   }
   grid_barrier(a.barrier, gridDim.x);
@@ -147,15 +152,16 @@ FusedKernel fused_table(int width, std::integer_sequence<int, Ws...>) {
 // wrapper's pack plan of the blocks * dims * n floats, n_magic from
 // cuda_lib.row_magic(n); width 1-24.
 extern "C" int mnw_encode_recip_fused(const void* x, int64_t blocks,
-                                      int64_t dims, int64_t n,
-                                      int64_t slice_len, float box,
-                                      const void* anchors, int width,
-                                      int periodic, int tile, int vec16,
-                                      int smem_bytes, uint32_t n_magic,
-                                      void* scratch, void* barrier, void* out,
-                                      void* out_mn, void* out_mx,
-                                      void* stream) {
-  if (width < 1 || width > 24) return static_cast<int>(cudaErrorInvalidValue);
+                                      int64_t dims, int64_t n, int slice_len,
+                                      float box, const void* anchors,
+                                      int width, int periodic, int tile,
+                                      int vec16, int smem_bytes,
+                                      uint32_t n_magic, void* scratch,
+                                      void* barrier, void* out, void* out_mn,
+                                      void* out_mx, void* stream) {
+  if (width < 1 || width > 24 || slice_len < 4 || slice_len % 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const FusedKernel kernel =
       fused_table(width, std::make_integer_sequence<int, 24>());
   int dev = 0, sms = 0, per_sm = 0;

@@ -85,19 +85,20 @@ def lib() -> ctypes.CDLL:
                                        p, i64, i64, p, p, u32, u32, f32, f32,
                                        u32, f32, i32, i32, u32, i32, p, p]
         l.mnw_unpack_rows.restype = i32
-        l.mnw_unpack_rows.argtypes = [p, i64, i64, i32, p, p]
+        l.mnw_unpack_rows.argtypes = [p, i64, i64, i64, i32, i32, i32, u32,
+                                      i32, p, p]
         l.mnw_pack_tiles.restype = i32
         l.mnw_pack_tiles.argtypes = [p, i64, i32, i32, i64, i32, i32, u32,
                                      i32, p, i64, p]
         l.mnw_stats_rows.restype = i32
-        l.mnw_stats_rows.argtypes = [p, i64, i64, i64, p, p, i32, p, p, p,
+        l.mnw_stats_rows.argtypes = [p, i64, i64, i32, p, p, i32, p, p, p,
                                      p]
         l.mnw_pack_recip_tiles.restype = i32
         l.mnw_pack_recip_tiles.argtypes = [p, i64, i32, i64, i32, i32, u32,
                                            i32, u32, u32, p, p, p, p, f32,
                                            f32, f32, f32, i32, p, i64, p]
         l.mnw_encode_recip_fused.restype = i32
-        l.mnw_encode_recip_fused.argtypes = [p, i64, i64, i64, i64, f32, p,
+        l.mnw_encode_recip_fused.argtypes = [p, i64, i64, i64, i32, f32, p,
                                              i32, i32, i32, i32, i32, u32, p,
                                              p, p, p, p, p]
         l.mnw_cumsum_u32.restype = i32

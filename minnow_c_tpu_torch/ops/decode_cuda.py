@@ -13,10 +13,12 @@
   ``unpack_pallas_rows``: the bare unpack of R streams to u32 bins.
 
 The rows kernels need ``rows_kernel_eligible``: 32 | n, so no row ends
-inside a word.  K1 and K2 are one CUDA kernel over the flat stream of
-words, cut into tiles by ``decode_plan``.  Each ``*_cuda`` wrapper launches
-its CUDA kernel for a CUDA tensor and runs the plain version only for a CPU
-tensor; there is no fallback from one to the other.
+inside a word.  K1, K2 and K3 are one CUDA tile kernel over the flat
+stream of words, cut into tiles by ``decode_plan``, under two element
+steps: the decoded floats (K1, K2) or the bare bins (K3).  Each
+``*_cuda`` wrapper launches its CUDA kernel for a CUDA tensor and runs the
+plain version only for a CPU tensor; there is no fallback from one to the
+other.
 """
 
 from __future__ import annotations
@@ -27,13 +29,13 @@ import torch
 from . import bitpack, cuda_lib, kernels
 from . import rng as _rng
 
-DECODE_TILE = 4096      # elements per tile of K1 / K2: a multiple of 128
+DECODE_TILE = 4096      # elements per tile of K1-K3: a multiple of 128
 BLOCKS_PER_SM = 4       # the persistent grid: blocks resident on each SM
-MAX_ROW = 1 << 31       # the kernel's in-tile offsets are 32-bit
+MAX_ROW = 1 << 31       # K1 / K2 find a quad's row in 32 bits
 
 
 def decode_plan(width: int, total: int, ptr: int, sms: int) -> dict:
-    """How K1 / K2 cut a flat stream of ``total`` elements packed at
+    """How K1-K3 cut a flat stream of ``total`` elements packed at
     ``width`` bits in u32 words at address ``ptr``, for a card
     of ``sms`` SMs: tile t holds elements [t*tile, (t+1)*tile) and words
     [t*words_per_tile, (t+1)*words_per_tile) (both cut at the stream's
@@ -176,9 +178,12 @@ def unpack_rows_cuda(words: torch.Tensor, width: int,
     out = torch.empty((rows, n), dtype=torch.int32, device=words.device)
     if rows == 0:
         return out
+    plan = decode_plan(width, rows * n, words.data_ptr(),
+                       cuda_lib.sm_count(words.device))
     cuda_lib.launch("unpack_rows", cuda_lib.lib().mnw_unpack_rows,
-                    words.device, words.data_ptr(), rows, n, width,
-                    out.data_ptr())
+                    words.device, words.data_ptr(), words.numel(), rows * n,
+                    plan["tiles"], plan["tile"], int(plan["vec16"]), width,
+                    plan["grid"], plan["smem_bytes"], out.data_ptr())
     unpack_rows_cuda.launches += 1
     return out
 

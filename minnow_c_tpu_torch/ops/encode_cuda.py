@@ -11,7 +11,11 @@
   32 | n.
 * K6 ``stats_rows_cuda`` / ``stats_rows_plain``, port of
   ``stats_pallas_rows``: per-row min and max of R streams after the
-  anchored periodic unwrap.
+  anchored periodic unwrap, in one launch of one block per (row, slice of
+  ``STATS_SLICE``); the block that takes a row's last ticket finishes the
+  row.  Its ticket counters and slice keys live in the per-stream scratch
+  of ``scan_cuda.status_words``; K12's first step runs the same slice
+  routine.
 * K5 ``encode_recip_cuda`` / ``encode_recip_plain``, port of
   ``encode_pallas_recip``'s kernel: the recip scale mode's whole bin map
   (anchored unwrap, ``((x - x0) * recip) * 2^w``, clamp) and the pack of one
@@ -45,9 +49,9 @@ import torch
 from . import cuda_lib, kernels
 from .bitpack import packed_words
 from .kernels import M32, i64_to_u32, scaled_to_bins, u32_to_i64
+from .scan_cuda import status_words
 
-STATS_SLICE = 4096  # elements per block of K6's first launch
-FUSED_SLICE = 65536  # elements per partial min / max of K12's first step
+STATS_SLICE = 32768  # elements per block of K6 and K12's first step: 4 | it
 PACK_TILE = 4096  # elements per tile of K4 / K7: a multiple of 1024
 BLOCKS_PER_SM = 4  # the persistent grid: blocks resident on each SM
 
@@ -225,17 +229,20 @@ def stats_rows_cuda(x: torch.Tensor, box: torch.Tensor,
     _check_stats(x, box, anchor)
     x, box, anchor = x.contiguous(), box.contiguous(), anchor.contiguous()
     rows, n = x.shape
-    slices = -(-n // STATS_SLICE)
-    partials = torch.empty(2 * rows * slices, dtype=torch.float32,
-                           device=x.device)
     mn = torch.empty(rows, dtype=torch.float32, device=x.device)
     mx = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows == 0:
         return mn, mx
-    cuda_lib.launch("stats_rows", cuda_lib.lib().mnw_stats_rows, x.device,
-                    x.data_ptr(), rows, n, STATS_SLICE, box.data_ptr(),
-                    anchor.data_ptr(), int(periodic), partials.data_ptr(),
-                    mn.data_ptr(), mx.data_ptr())
+    # rows u32 ticket counters, then each (row, slice)'s two i32 keys, in
+    # the stream's scratch words (shared with K9: one stream runs one
+    # kernel at a time)
+    index, stream = cuda_lib.current_stream(x.device)
+    ints = rows * (1 + 2 * -(-n // STATS_SLICE))
+    scratch = status_words((index, stream), -(-ints // 2), x.device)
+    cuda_lib.launch_on("stats_rows", cuda_lib.lib().mnw_stats_rows, index,
+                       stream, x.data_ptr(), rows, n, STATS_SLICE,
+                       box.data_ptr(), anchor.data_ptr(), int(periodic),
+                       scratch.data_ptr(), mn.data_ptr(), mx.data_ptr())
     stats_rows_cuda.launches += 1
     return mn, mx
 
@@ -420,7 +427,7 @@ def encode_recip_fused_blocks_cuda(x: torch.Tensor, box, anchors,
     _check_fused(x, anchors, width)
     x, anchors = x.contiguous(), anchors.contiguous()
     b, d, n = x.shape
-    items = b * d * -(-n // FUSED_SLICE)
+    items = b * d * -(-n // STATS_SLICE)
     scratch = torch.empty(2 * items + b * d, dtype=torch.float32,
                           device=x.device)
     barrier = torch.zeros(1, dtype=torch.int32, device=x.device)
@@ -434,7 +441,7 @@ def encode_recip_fused_blocks_cuda(x: torch.Tensor, box, anchors,
                      cuda_lib.sm_count(x.device))
     cuda_lib.launch(
         "encode_recip_fused_blocks", cuda_lib.lib().mnw_encode_recip_fused,
-        x.device, x.data_ptr(), b, d, n, FUSED_SLICE, float(np.float32(box)),
+        x.device, x.data_ptr(), b, d, n, STATS_SLICE, float(np.float32(box)),
         anchors.data_ptr(), width, int(periodic), plan["tile"],
         int(plan["vec16"]), plan["smem_bytes"], cuda_lib.row_magic(n),
         scratch.data_ptr(), barrier.data_ptr(), words.data_ptr(),

@@ -118,15 +118,6 @@ def _bins(dev, rows, n, width, seed):
     return kernels.i64_to_u32(b)
 
 
-@pytest.mark.parametrize("rows, n", ROW_SHAPES)
-@pytest.mark.parametrize("width", [1, 7, 16, 24, 32])
-def test_unpack_rows_kernel_matches_plain(dev, width, rows, n):
-    words = encode_cuda.pack_rows_plain(_bins(dev, rows, n, width, width),
-                                        width)
-    got = decode_cuda.unpack_rows_cuda(words, width, n)
-    assert torch.equal(got, decode_cuda.unpack_rows_plain(words, width, n))
-
-
 @pytest.mark.parametrize("periodic", [False, True])
 @pytest.mark.parametrize("rows, n", ROW_SHAPES)
 @pytest.mark.parametrize("width", [1, 9, 24])
@@ -153,22 +144,122 @@ def test_pack_rows_kernel_matches_plain(dev, width, rows, n):
     assert torch.equal(got, encode_cuda.pack_rows_plain(vals, width))
 
 
-@pytest.mark.parametrize("periodic", [False, True])
-@pytest.mark.parametrize("rows, n", ROW_SHAPES + [(5, 100_003)])
-def test_stats_rows_kernel_matches_plain(dev, rows, n, periodic):
-    g = torch.Generator(device=dev).manual_seed(n)
-    x = torch.rand(rows, n, generator=g, device=dev) * 64.0
-    x[::5, 7] = float("nan")
+def _same_stats(x: torch.Tensor) -> None:
+    """K6 equals its plain version on the rows of ``x``, bitwise, both
+    plain and unwrapped in a box of 64 around each row's element 0."""
+    box = torch.full((x.shape[0],), 64.0, device=x.device)
+    anchor = x[:, 0].contiguous()
+    for periodic in (False, True):
+        got = encode_cuda.stats_rows_cuda(x, box, anchor, periodic)
+        want = encode_cuda.stats_rows_plain(x, box, anchor, periodic)
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                periodic
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("rows, n", ROW_SHAPES + [
+    (5, 100_003), (3, 1), (3, 3), (3, 5), (3, 4097), (3, 65_541)])
+def test_stats_rows_kernel_matches_plain(dev, rows, n, offset):
+    """K6 across its slice (2^15 elements) and 16-byte edges: rows whose
+    starts are not 16-byte aligned (odd n; ``offset`` 1: storage one
+    element in) take a scalar head and tail around their float4s; NaN,
+    rows of +-0.0, negative rows."""
+    g = torch.Generator(device=dev).manual_seed(rows + n + offset)
+    store = torch.rand(rows * n + offset, generator=g, device=dev) * 64.0
+    x = store[offset:].view(rows, n)
+    x[::4, n // 2] = float("nan")
     if rows > 2:
         x[1] = torch.where(x[1] < 32, 0.0, -0.0)
         x[2, ::3] = -0.0
         x[2] = -x[2]
-    box = torch.full((rows,), 64.0, device=dev)
-    got = encode_cuda.stats_rows_cuda(x, box, x[:, 0].contiguous(), periodic)
-    want = encode_cuda.stats_rows_plain(x, box, x[:, 0].contiguous(),
-                                        periodic)
-    for a, b in zip(got, want):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    _same_stats(x)
+
+
+def _edge_rows(n: int, pos: int, seed: int) -> np.ndarray:
+    """Six rows with K6's edge values at index ``pos`` (not 0): +inf;
+    -inf; NaN beside -inf; a subnormal anchor among subnormals (the edge a
+    larger subnormal); a row whose every value wraps in a box of 64
+    (anchor 1, the rest in [34, 63); the edge 33.5 wraps to the min);
+    -0.0 in a negative row."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 64, (6, n)).astype(np.float32)
+    x[0, pos] = np.inf
+    x[1, pos] = -np.inf
+    x[2, pos] = np.nan
+    x[2, pos - 1] = -np.inf
+    x[3] = (rng.uniform(-1, 1, n) * 1e-39).astype(np.float32)
+    x[3, 0] = 3e-39
+    x[3, pos] = -1.1e-38
+    x[4] = rng.uniform(34, 63, n).astype(np.float32)
+    x[4, 0] = 1.0
+    x[4, pos] = 33.5
+    x[5] = -rng.uniform(0.5, 1, n).astype(np.float32)
+    x[5, pos] = -0.0
+    return x
+
+
+# 4 | n and 32 | n: from storage one element in, every row starts 4 bytes
+# past a 16-byte boundary, so K6 reads 3 scalars, float4s over 5 slices,
+# then 1 scalar
+EDGE_N = 2 * (1 << 16) + 32
+EDGE_AT = {"head": 1, "body": EDGE_N // 2, "tail": EDGE_N - 1}
+
+
+def _edge_tensor(dev, where: str) -> torch.Tensor:
+    store = torch.zeros(6 * EDGE_N + 1, device=dev)
+    store[1:] = torch.from_numpy(
+        _edge_rows(EDGE_N, EDGE_AT[where], len(where)).reshape(-1))
+    x = store[1:].view(6, EDGE_N)
+    assert x.data_ptr() % 16 == 4
+    return x
+
+
+@pytest.mark.parametrize("where", sorted(EDGE_AT))
+def test_stats_rows_kernel_edge_rows(dev, where):
+    _same_stats(_edge_tensor(dev, where))
+
+
+@pytest.mark.parametrize("where", sorted(EDGE_AT))
+def test_encode_recip_fused_kernel_edge_rows(dev, where):
+    """K12 on the same rows as two blocks of three: its first step is K6's
+    slice routine."""
+    x = _edge_tensor(dev, where).view(2, 3, EDGE_N)
+    anchors = x[:, :, 0].contiguous()
+    for periodic in (False, True):
+        for width in (12, 16):
+            got = encode_cuda.encode_recip_fused_blocks_cuda(
+                x, 64.0, anchors, width, periodic)
+            want = encode_cuda.encode_recip_fused_blocks_plain(
+                x, 64.0, anchors, width, periodic)
+            for a, b in zip(got, want):
+                assert torch.equal(a.view(torch.int32),
+                                   b.view(torch.int32)), (periodic, width)
+
+
+def test_stats_rows_kernel_on_two_streams(dev):
+    """Calls queued on two streams at once, each stream with its own
+    ticket counters: every result equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    xs = [torch.rand(24 + s, (1 << 18) + 3 * s, generator=g, device=dev)
+          for s in range(2)]
+    box = [torch.full((x.shape[0],), 64.0, device=dev) for x in xs]
+    want = [encode_cuda.stats_rows_plain(x, b, x[:, 0].contiguous(), True)
+            for x, b in zip(xs, box)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize(dev)
+    got = [[], []]
+    for _ in range(10):
+        for s, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[s].append(encode_cuda.stats_rows_cuda(
+                    xs[s], box[s], xs[s][:, 0].contiguous(), True))
+    torch.cuda.synchronize(dev)
+    for s in range(2):
+        for pair in got[s]:
+            for a, b in zip(pair, want[s]):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -197,6 +288,35 @@ def test_decode_tiles_every_width_matches_plain(dev, width, rows, n):
         words, keys, x0, kernels.bin_width(dx, width), 64.0, n, width,
         periodic)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("rows, n", TILE_SHAPES)
+@pytest.mark.parametrize("width", range(1, 33))
+def test_unpack_rows_kernel_matches_plain(dev, width, rows, n):
+    """K3 on K2's tile kernel at every width 1-32."""
+    words = encode_cuda.pack_rows_plain(_bins(dev, rows, n, width, 7 * n),
+                                        width)
+    got = decode_cuda.unpack_rows_cuda(words, width, n)
+    assert torch.equal(got, decode_cuda.unpack_rows_plain(words, width, n))
+
+
+@pytest.mark.parametrize("width", [1, 9, 17, 31, 32])
+def test_unpack_rows_kernel_unaligned_and_empty(dev, width):
+    """K3 from words whose storage starts one word in (the 4-byte copy
+    path), and zero rows (no launch)."""
+    n = 3 * TILE + 96
+    packed = encode_cuda.pack_rows_plain(_bins(dev, 5, n, width, width),
+                                         width)
+    store = torch.zeros(packed.numel() + 1, dtype=torch.int32, device=dev)
+    store[1:] = packed.reshape(-1)
+    words = store[1:].view(5, -1)
+    assert words.data_ptr() % 16 != 0
+    got = decode_cuda.unpack_rows_cuda(words, width, n)
+    assert torch.equal(got, decode_cuda.unpack_rows_plain(words, width, n))
+    before = decode_cuda.unpack_rows_cuda.launches
+    empty = torch.zeros((0, n // 32 * width), dtype=torch.int32, device=dev)
+    assert decode_cuda.unpack_rows_cuda(empty, width, n).shape == (0, n)
+    assert decode_cuda.unpack_rows_cuda.launches == before
 
 
 @pytest.mark.parametrize("rows, n", TILE_SHAPES)

@@ -52,7 +52,8 @@ def _u32(rng, shape, width: int = 32) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("width, n", [(1, SMALL), (7, BIG), (16, SMALL),
-                                      (24, BIG), (32, SMALL)])
+                                      (24, BIG), (32, SMALL), (9, BIG),
+                                      (31, SMALL)])
 def test_unpack_rows_plain_matches_pallas(width, n):
     words = _u32(np.random.default_rng(width), (ROWS, n * width // 32))
     ref = np.asarray(decode_pallas.unpack_pallas_rows(
@@ -126,10 +127,39 @@ def _stats_rows(n: int) -> np.ndarray:
     return x
 
 
+EDGE_N = 4132  # the length of the edge rows
+
+
+def _edge_rows(n: int) -> np.ndarray:
+    """Six rows of K6's edge values: +inf; -inf; NaN beside -inf; a
+    subnormal anchor among subnormals; a row whose every value wraps in a
+    box of 64 (anchor 1, the rest in [34, 63), 33.5 in the middle, which
+    wraps to the min); -0.0 in a negative row."""
+    rng = np.random.default_rng(n)
+    x = rng.uniform(0, 64, (6, n)).astype(np.float32)
+    mid = n // 2
+    x[0, mid] = np.inf
+    x[1, mid] = -np.inf
+    x[2, mid] = np.nan
+    x[2, mid - 1] = -np.inf
+    x[3] = (rng.uniform(-1, 1, n) * 1e-39).astype(np.float32)
+    x[3, 0] = 3e-39
+    x[3, mid] = -1.1e-38
+    x[4] = rng.uniform(34, 63, n).astype(np.float32)
+    x[4, 0] = 1.0
+    x[4, mid] = 33.5
+    x[5] = -rng.uniform(0.5, 1, n).astype(np.float32)
+    x[5, mid] = -0.0
+    return x
+
+
 @pytest.mark.parametrize("periodic, n", [(False, SMALL), (True, BIG),
-                                         (True, SMALL), (False, BIG)])
+                                         (True, SMALL), (False, BIG),
+                                         (False, EDGE_N), (True, EDGE_N)])
 def test_stats_rows_plain_matches_pallas(periodic, n):
-    x = _stats_rows(n)
+    """The mixed rows of ``_stats_rows`` at SMALL and BIG; the edge rows of
+    ``_edge_rows`` at EDGE_N."""
+    x = _edge_rows(n) if n == EDGE_N else _stats_rows(n)
     box = np.full(x.shape[0], 64.0, np.float32)
     mn, mx = encode_pallas.stats_pallas_rows(
         jnp.asarray(x), jnp.asarray(box), jnp.asarray(x[:, 0]), periodic,
@@ -140,7 +170,16 @@ def test_stats_rows_plain_matches_pallas(periodic, n):
     assert _bits(got[0]) == _bits(mn)
     assert _bits(got[1]) == _bits(mx)
     mn, mx = got[0].numpy(), got[1].numpy()
-    assert np.isnan(mn[1]) and np.signbit(mn[2]) and not np.signbit(mx[2])
+    if n != EDGE_N:
+        assert np.isnan(mn[1]) and np.signbit(mn[2]) and \
+            not np.signbit(mx[2])
+        return
+    assert mx[0] == np.inf and mn[1] == -np.inf
+    assert np.isnan(mn[2]) and np.isnan(mx[2])
+    assert mn[3] == 0 and np.signbit(mn[3]) and not np.signbit(mx[3])
+    assert mn[4] == (np.float32(33.5) - np.float32(64.0) if periodic
+                     else np.float32(1.0))
+    assert mx[5] == 0 and np.signbit(mx[5])
 
 
 @pytest.mark.parametrize("which", ["unpack", "decode", "pack", "stats"])
