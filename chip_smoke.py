@@ -9,8 +9,9 @@ and the script exits non-zero:
 
 1. device: card name, power limit, kernel build time; the registers and
    spills of the tile kernels (K1 / K2 decode and K3 unpack, K4 / K7 pack,
-   K5 / K8 recip pack, K12, K9 scan) and of K6 stats, and the SASS
-   instructions of the tile kernels' inner loops;
+   K5 / K8 recip pack, K12, K9 scan), of K6 stats and of K10 / K11 (with
+   their blocks resident an SM), and the SASS instructions of the tile
+   kernels' inner loops;
 2. each CUDA kernel (K1 fused decode, K4 pack, the rows kernels K2
    decode, K3 unpack, K6 stats, K7 pack, the delta kernels K9 scan, K10
    chunked decode, K11 its float mode, and the recip-mode encodes K5, K8 and
@@ -24,7 +25,10 @@ and the script exits non-zero:
    in a row's scalar head, float4 body and scalar tail; K3 from words one
    word off 16 bytes and on zero rows; K9 up to 3 * 2^24 + 7 elements,
    from aligned and unaligned
-   storage, and 50 calls in a row at 2^24; K5 at every width at ragged n
+   storage, and 50 calls in a row at 2^24; K10 at every width 0-32, over
+   640 chunks, ending one element into its last chunk and from a body one
+   word off 16 bytes, K11 on bins >= 2^31, and 50 calls of K10 and K11 in
+   turns; K5 at every width at ragged n
    up to 7,812,500 from aligned and unaligned storage; K8 at every width
    1-24 over rows shorter than, equal to and longer than a tile; K4's
    kernel at 2 * 16384 bins as the counterpart of K13 (pack_pallas_tiles);
@@ -55,8 +59,8 @@ and the script exits non-zero:
    compressed and decompressed (generic and fused) on CUDA, with error
    bounds, exact IDs, fused == generic, ratios, wall times, rates, peak
    memory and launch counts; then K9, K10 and K11 timed against their plain
-   versions at that path's shapes, torch.cumsum beside K9, and K9 alone in
-   a torch.profiler trace;
+   versions at that path's shapes, torch.cumsum beside K9, K9 alone and
+   K10 and K11 with their table copy and memset in a torch.profiler trace;
 7. the recip scale mode at full size: (a) phase 5's snapshot through
    compress_snapshot(scale_mode="recip") (K8) and the batched read, with
    error bounds, exact IDs and a file size within 0.1% of phase 5's;
@@ -104,6 +108,7 @@ import time
 import numpy as np
 import torch
 
+from kernel_times import device_ms as device_all_ms
 from kernel_times import event_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -205,10 +210,12 @@ def kernel_report(build_log: str) -> None:
     from minnow_c_tpu_torch.ops import cuda_lib
     for fn, spill, regs in re.findall(
             r"Compiling entry function '(\S*(?:_tiles|_fused|scan|"
-            r"stats_rows)_kernel\S*)'.*?(\d+) bytes spill stores.*?"
+            r"stats_rows|decode_chunk)_kernel\S*)'.*?(\d+) bytes spill "
+            r"stores.*?"
             r"Used (\d+) registers", build_log, re.S):
         w = re.search(r"(decode_tiles|pack_tiles|pack_recip_tiles|"
-                      r"encode_recip_fused|scan|stats_rows)_kernel"
+                      r"encode_recip_fused|scan|stats_rows|decode_chunk)"
+                      r"_kernel"
                       r"(?:ILi(\d+)E(?:Lb(\d))?)?", fn)
         if not w or (w.group(2) and int(w.group(2)) not in (9, 12, 14, 16)):
             continue
@@ -216,8 +223,14 @@ def kernel_report(build_log: str) -> None:
         flag = {("pack_tiles", "1"): "(f32)", ("decode_tiles", "0"): "(bins)"}
         kind = w.group(1) + flag.get((w.group(1), w.group(3)), "") + (
             f"<{w.group(2)}>" if w.group(2) else "")
+        if w.group(1) == "decode_chunk":  # K11 (floats) or K10 (bins)
+            kind += "(floats)" if "ILb1" in fn else "(bins)"
         log(f"phase 1: ptxas: {kind}: {regs} registers, {spill} bytes "
             "spilled")
+    lib = cuda_lib.lib()
+    log(f"phase 1: decode_chunk (K10 / K11): "
+        f"{lib.mnw_chunked_blocks_per_sm(0)} / "
+        f"{lib.mnw_chunked_blocks_per_sm(1)} blocks resident an SM")
     tool = os.path.join(os.path.dirname(os.path.dirname(cuda_lib._nvcc())),
                         "bin", "cuobjdump")
     try:
@@ -752,21 +765,44 @@ def check_delta_kernels(dev, g) -> dict:
         same("K9", y, want[k % 2], f"call {k} of 50 at n=2^24")
     del xs, want, got
     chunk = chunked_cuda.KERNEL_CHUNK
+    # every width 0-32 in one plane; 640 chunks (more tiles than one wave of
+    # blocks); a plane ending one element into its last chunk; full-range
+    # deltas in width-32 chunks (bins >= 2^31 for K11)
     for pattern, trim in (((7, 15, 7), 137), ((24,), 137),
                           ((0, 9, 0, 3), 137), ((1, 32, 5), 137),
                           ((0, 0), 5), ((4, 32, 32, 11), 0),
-                          ((11,) * 64, 1000)):
+                          ((11,) * 64, 1000), (tuple(range(33)), 137),
+                          ((11,) * 640, 1000), ((5, 9), chunk - 1),
+                          ((32, 32, 7), 137)):
         body, widths, n = chunked_stream(pattern, trim, len(pattern) + trim)
-        body = torch.from_numpy(body).to(dev)
+        store = torch.zeros(body.size + 1, dtype=torch.int32, device=dev)
+        store[1:] = torch.from_numpy(body).to(dev)
         for first in (0, (1 << 32) - 5):
-            for zigzag, prefix in ((True, True), (False, True),
-                                   (False, False)):
-                same("K10", chunked_cuda.decode_chunked_stream(
-                    body, widths, first, chunk, n, zigzag, prefix),
-                    chunked_cuda.decode_chunked_stream_plain(
-                        body, widths, first, chunk, n, zigzag, prefix),
-                    f"pattern={pattern} first={first} zigzag={zigzag} "
-                    f"prefix={prefix}")
+            # offset 1: the body one word into its storage, off 16 bytes
+            for offset in (0, 1):
+                b = store[1:] if offset else store[1:].clone()
+                for zigzag, prefix in ((True, True), (False, True),
+                                       (False, False)):
+                    same("K10", chunked_cuda.decode_chunked_stream(
+                        b, widths, first, chunk, n, zigzag, prefix),
+                        chunked_cuda.decode_chunked_stream_plain(
+                            b, widths, first, chunk, n, zigzag, prefix),
+                        f"pattern={pattern[:8]} first={first} "
+                        f"offset={offset} zigzag={zigzag} prefix={prefix}")
+        body = store[1:].clone()
+        del store
+        if pattern == (32, 32, 7):  # bins >= 2^31: an unsigned conversion
+            high = chunked_cuda.decode_chunked_stream_plain(
+                body, widths, (1 << 31) + 5, chunk, n)
+            if (high < 0).sum().item() < n // 4:
+                raise AssertionError("phase 2: too few bins >= 2^31")
+            for periodic in (False, True):
+                args = (body, widths, (1 << 31) + 5, chunk, n, (7, 8), 24,
+                        -2.0, 68.0, BOX, periodic)
+                same("K11", chunked_cuda.decode_chunked_stream_floats(*args),
+                     chunked_cuda.decode_chunked_stream_floats_plain(*args),
+                     f"pattern={pattern[:8]} bins >= 2^31 "
+                     f"periodic={periodic}")
         for depth in (14, 24):
             for periodic, x0, dx in ((False, 0.25, 63.0), (True, -2.0, 68.0),
                                      (False, 1e-40, 1e-36),
@@ -776,7 +812,23 @@ def check_delta_kernels(dev, g) -> dict:
                 same("K11", chunked_cuda.decode_chunked_stream_floats(*args),
                      chunked_cuda.decode_chunked_stream_floats_plain(*args),
                      f"pattern={pattern} depth={depth} periodic={periodic}")
-    log(f"phase 2: K9, K10, K11 == plain bitwise in {cases} comparisons "
+    # 50 calls in a row, K10 and K11 in turns, on 1024 chunks at 17 bits
+    body, widths, n = chunked_stream((17,) * 1024, 5, 17)
+    body = torch.from_numpy(body).to(dev)
+    fargs = (body, widths, 99, chunk, n, (1, 2), 17, 0.25, 63.5, BOX, True)
+    want = (chunked_cuda.decode_chunked_stream_plain(body, widths, 99, chunk,
+                                                     n),
+            chunked_cuda.decode_chunked_stream_floats_plain(*fargs))
+    got = [chunked_cuda.decode_chunked_stream(body, widths, 99, chunk, n)
+           if k % 2 == 0 else
+           chunked_cuda.decode_chunked_stream_floats(*fargs)
+           for k in range(50)]
+    for k, y in enumerate(got):
+        same("K11" if k % 2 else "K10", y, want[k % 2],
+             f"call {k} of 50 at 1024 chunks")
+    log(f"phase 2: K9, K10, K11 == plain bitwise in {cases} comparisons, "
+        "K10 at every width 0-32 and from a body one word off 16 bytes, "
+        "K11 on bins >= 2^31, 50 calls in a row of each "
         f"(max_abs_err {worst})")
     return worst
 
@@ -1439,22 +1491,15 @@ def time_delta_kernels(mt, data, dev):
     first, chunk, widths, body = c11._parse(
         c11.CoilV1_1()._encode_plane(bins, depth)[0])
     body = torch.from_numpy(body.astype(np.uint32).view(np.int32)).to(dev)
-    key, x0, dx = (1, 2), 0.25, 63.5
-    fargs = (body, widths, first, chunk, n, key, depth, x0, dx, BOX, True)
+    plane = (widths, first, chunk, n, depth)
+    k10, k11 = chunked_calls(body, *plane)
     fns = {
         "K9": (lambda: scan_cuda.cumsum_u32(deltas),
                lambda: scan_cuda.cumsum_u32_plain(deltas), f"n {n}"),
-        "K10": (lambda: chunked_cuda.decode_chunked_stream(
-                    body, widths, first, chunk, n),
-                lambda: chunked_cuda.decode_chunked_stream_plain(
-                    body, widths, first, chunk, n),
-                f"{widths.size} chunks of {chunk}, widths "
+        "K10": (*k10, f"{widths.size} chunks of {chunk}, widths "
                 f"{int(widths.min())}-{int(widths.max())} (mean "
                 f"{float(widths.mean()):.2f}), {body.numel()} words"),
-        "K11": (lambda: chunked_cuda.decode_chunked_stream_floats(*fargs),
-                lambda: chunked_cuda.decode_chunked_stream_floats_plain(
-                    *fargs), "the same plane, depth "
-                f"{depth}, periodic"),
+        "K11": (*k11, f"the same plane, depth {depth}, periodic"),
     }
     if not torch.equal(fns["K9"][0](), bins) or \
             not torch.equal(fns["K10"][0](), bins):
@@ -1478,7 +1523,22 @@ def time_delta_kernels(mt, data, dev):
         lambda: torch.cumsum(deltas, 0, dtype=torch.int32))
     log(f"phase 6: torch.cumsum(deltas, 0, dtype=torch.int32) beside K9: "
         f"{times['K9 library']:.4f} ms (CUDA events, median of 5)")
-    return times, errs, deltas
+    return times, errs, deltas, body, plane
+
+
+def chunked_calls(body, widths, first, chunk, n, depth):
+    """((K10, its plain version), (K11, its plain version)) on one chunked
+    plane: K10 with un-zigzag and prefix, K11 periodic."""
+    from minnow_c_tpu_torch.ops import chunked_cuda
+    fargs = (body, widths, first, chunk, n, (1, 2), depth, 0.25, 63.5, BOX,
+             True)
+    return ((lambda: chunked_cuda.decode_chunked_stream(body, widths, first,
+                                                        chunk, n),
+             lambda: chunked_cuda.decode_chunked_stream_plain(
+                 body, widths, first, chunk, n)),
+            (lambda: chunked_cuda.decode_chunked_stream_floats(*fargs),
+             lambda: chunked_cuda.decode_chunked_stream_floats_plain(
+                 *fargs)))
 
 
 # ---------------------------------------------------------------------------
@@ -1910,7 +1970,8 @@ def main() -> int:
     times, e1, e4 = time_kernels(mt, seg, dev)
     del seg
     data, delta_launches = check_delta_path(mt, dev)
-    delta_times, delta_e, deltas = time_delta_kernels(mt, data, dev)
+    delta_times, delta_e, deltas, body, plane = time_delta_kernels(mt, data,
+                                                                   dev)
     del data
     cli_launches, cli_e = check_cli(dev)
     k5_times = check_fast_recip(mt, dev)
@@ -1921,8 +1982,9 @@ def main() -> int:
     log(f"phase 7(e): K13 as K4's kernel at width 17, n {2 * 16384}: "
         f"{t13['K13']:.4f} ms, plain torch {t13['K13 plain']:.4f} ms (CUDA "
         "events, median of 5)")
-    # phase 6's deltas wait on the host, out of phases 5 and 7's peak memory
-    deltas = deltas.cpu()
+    # phase 6's deltas and chunked plane wait on the host, out of phases 5
+    # and 7's peak memory
+    deltas, body = deltas.cpu(), body.cpu()
     snap_data, snap_launches = check_snapshot_path(mt, dev)
     rows_times, rows_e = time_rows_kernels(mt, snap_data, dev)
     # phase 7's parts on phase 5's snapshot run while it is on the card
@@ -1943,7 +2005,16 @@ def main() -> int:
         f"{delta_times['K9 device']} ms against {delta_times['K9']:.4f} ms "
         f"with its wrapper (CUDA events); torch.cumsum's kernels "
         f"{delta_times['K9 library device']} ms a call")
-    del deltas
+    # K10 and K11: all the card's activity in a call (the table's copy, the
+    # memset, the kernel)
+    body = body.to(dev)
+    for k, (fast, _) in zip(("K10", "K11"), chunked_calls(body, *plane)):
+        delta_times[k + " device"] = device_all_ms(fast)[""]
+        log(f"phase 6: {k} device time a call (torch.profiler, 5 calls; "
+            f"copy, memset and kernel): {delta_times[k + ' device']} ms "
+            f"against {delta_times[k]:.4f} ms with its wrapper (CUDA "
+            "events)")
+    del deltas, body
     log(f"CUDA-event floor (two events, nothing between, median of 5): "
         f"{floor_ms:.4f} ms before the first torch.profiler trace, "
         f"{cuda_ms(lambda: None):.4f} ms after the last")
@@ -2003,7 +2074,7 @@ def main() -> int:
                "library_ms": t.get(k + " library")}
         if k in library_calls:
             row["library_call"] = library_calls[k]
-        if k in ("K2", "K3", "K6", "K7", "K8", "K9"):
+        if k in ("K2", "K3", "K6", "K7", "K8", "K9", "K10", "K11"):
             row["device_ms"] = t[k + " device"]
         if k == "K9":
             row["library_device_ms"] = t["K9 library device"]

@@ -1,7 +1,7 @@
 """Times the rows stats (K6), the rows unpack (K3), the recip-mode pack
-kernels (K5, K8, K12) and the u32 scan (K9) of one tree of the torch port
-on one CUDA card, each beside the kernel or library call it is held to,
-under two warm-ups.
+kernels (K5, K8, K12), the u32 scan (K9) and the chunked decode (K10, with
+its float mode K11) of one tree of the torch port on one CUDA card, each
+beside the kernel or library call it is held to, under two warm-ups.
 
     python3 kernel_times.py [--tree DIR] [--rounds N]
 
@@ -22,7 +22,14 @@ chip_smoke.py's kernels line:
 * K8: the 192 position rows (each row's x0 and exact recip from its
   unwrapped range) at 16 bits, and K7 packing the same bins;
 * K5: one plane of 2^24 positions at 16 bits, and K4 packing the same bins;
-* K12: the same positions as (64, 3, 2^21) blocks at 16 bits.
+* K12: the same positions as (64, 3, 2^21) blocks at 16 bits;
+* K10 and K11 (``K10 A``, ``K11 A``): a chunked plane of 1024 chunks of
+  16384 at 17 bits (chip_smoke.py's Coil v1.1 position plane), with
+  un-zigzag and prefix, K11 at depth 17, periodic; ``K10 B``, ``K11 B``:
+  8192 chunks at 17 bits (one field plane of a 512^3 snapshot in one
+  segment); ``K10 w<width>``: 1024 chunks at 1, 9, 24 and 32 bits.  The
+  bodies are random words (any word is a valid body), each call checked
+  bitwise against its plain version first.
 
 Each time is chip_smoke.py's: CUDA events around one call, median of 5,
 after a warm-up.  The warm-up is either one call (``one_call``) or calls
@@ -32,10 +39,13 @@ Every round times each kernel both ways; the rounds' medians are listed.
 No torch.profiler trace runs before the last event time.  Then one trace
 per call gives its device time: for K9 its kernel, the memset before it
 where the tree has one, and torch.cumsum's kernels; for K3, K6, K6 vel,
-torch.aminmax and K12 all the card's activity in the call (kernels and
-memsets).  Last, the host time per call of the K3, K6 and K9 wrappers and
+torch.aminmax, K12, K10 and K11 all the card's activity in the call
+(kernels, memsets, the table's copies).  Last, the host time per call of
+the K3, K6, K9 and K10 wrappers (K10: one chunk of 16384 at 17 bits) and
 of torch.aminmax and torch.cumsum, on 32 elements (``host_us``): the host
 work that a single call's event time holds besides its device time.
+``bound_ms``: the K10 and K11 calls' bytes (the body read once, the table
+once, the output written once) over 3.35 TB/s.
 
 Prints the card's name and power limit, then one JSON object.  Needs a
 CUDA card; imports nothing of JAX.
@@ -51,6 +61,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 BOX = 64.0
@@ -59,6 +70,11 @@ PLANE_N = 1 << 24
 WIDTH = 16
 ID_WIDTH = 9                    # the snapshot's ID rows
 ID_WIDTHS = (1, ID_WIDTH, 17, 32)
+CHUNK = 16384
+CHUNKS_A, CHUNKS_B = 1024, 8192
+DELTA_WIDTH = 17                # chip_smoke.py's Coil v1.1 position plane
+DELTA_WIDTHS = (1, 9, 24, 32)
+PEAK_BYTES_S = 3.35e12
 
 
 def event_ms(fn, warm_s: float, reps: int = 5) -> float:
@@ -122,7 +138,7 @@ def host_us(fn, calls: int = 2000) -> float:
 
 def tiny_calls(dev):
     """The K3, K6 and K9 wrappers and their library calls on 32 elements
-    (one row), for ``host_us``."""
+    (one row), and the K10 wrapper on one chunk, for ``host_us``."""
     from minnow_c_tpu_torch.ops import (decode_cuda, encode_cuda, kernels,
                                         scan_cuda)
     x = torch.rand(1, 32, device=dev)
@@ -130,13 +146,63 @@ def tiny_calls(dev):
     words = encode_cuda.pack_rows_cuda(kernels.i64_to_u32(torch.zeros(
         1, 32, dtype=torch.int64, device=dev)), ID_WIDTH)
     u = torch.zeros(32, dtype=torch.int32, device=dev)
+    from minnow_c_tpu_torch.ops import chunked_cuda
+    body, widths = chunked_body(1, DELTA_WIDTH, dev)
     return {
+        "K10": lambda: chunked_cuda.decode_chunked_stream(body, widths, 7,
+                                                          CHUNK, CHUNK),
         "K6": lambda: encode_cuda.stats_rows_cuda(x, box, anchor, True),
         "K6 library": lambda: torch.aminmax(x, dim=1),
         "K3": lambda: decode_cuda.unpack_rows_cuda(words, ID_WIDTH, 32),
         "K9": lambda: scan_cuda.cumsum_u32(u),
         "K9 library": lambda: torch.cumsum(u, 0, dtype=torch.int32),
     }
+
+
+def chunked_body(chunks: int, width: int, dev, seed: int = 5):
+    """Random packed words of ``chunks`` chunks at ``width`` bits on the
+    card, and the host width table."""
+    g = torch.Generator(device=dev).manual_seed(seed + width)
+    words = torch.randint(-(1 << 31), 1 << 31, (chunks * CHUNK // 32 * width,),
+                          generator=g, device=dev, dtype=torch.int64)
+    return words.to(torch.int32), np.full(chunks, width, np.uint8)
+
+
+def chunked_calls(dev) -> tuple:
+    """The K10 / K11 calls by name, each checked bitwise against its plain
+    version, and their bounds in ms."""
+    from minnow_c_tpu_torch.ops import chunked_cuda
+    calls, plains, bounds = {}, {}, {}
+
+    def add(name, chunks, width, floats):
+        body, widths = chunked_body(chunks, width, dev)
+        n = chunks * CHUNK
+        if floats:
+            args = (body, widths, 12345, CHUNK, n, (0x9E3779B9, 77),
+                    DELTA_WIDTH, -2.0, 68.0, BOX, True)
+            calls[name] = lambda: chunked_cuda.decode_chunked_stream_floats(
+                *args)
+            plains[name] = lambda: \
+                chunked_cuda.decode_chunked_stream_floats_plain(*args)
+        else:
+            calls[name] = lambda: chunked_cuda.decode_chunked_stream(
+                body, widths, 12345, CHUNK, n)
+            plains[name] = lambda: chunked_cuda.decode_chunked_stream_plain(
+                body, widths, 12345, CHUNK, n)
+        nbytes = body.numel() * 4 + widths.nbytes + n * 4
+        bounds[name] = nbytes / PEAK_BYTES_S * 1e3
+
+    for label, chunks in (("A", CHUNKS_A), ("B", CHUNKS_B)):
+        add(f"K10 {label}", chunks, DELTA_WIDTH, False)
+        add(f"K11 {label}", chunks, DELTA_WIDTH, True)
+    for width in DELTA_WIDTHS:
+        add(f"K10 w{width}", CHUNKS_A, width, False)
+    for name in calls:
+        got, want = calls[name](), plains[name]()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"{name} != its plain version")
+        del got, want
+    return calls, bounds
 
 
 def inputs(dev):
@@ -229,6 +295,8 @@ def main() -> int:
     build_s = time.perf_counter() - t
     dev = torch.device("cuda")
     calls = inputs(dev)
+    delta_calls, bounds = chunked_calls(dev)
+    calls.update(delta_calls)
     rounds = {"one_call": {k: [] for k in calls},
               "20ms": {k: [] for k in calls}}
     for _ in range(args.rounds):
@@ -239,7 +307,7 @@ def main() -> int:
     dev_ms = device_ms(calls["K9"], ("scan_kernel", "Memset"))
     dev_ms.update(device_ms(calls["K9 library"], ("Scan",)))
     device = {"K9": dev_ms}
-    for name in ("K3", "K6", "K6 vel", "K6 library", "K12"):
+    for name in ("K3", "K6", "K6 vel", "K6 library", "K12", *delta_calls):
         device[name] = device_ms(calls[name])
     host = {k: host_us(fn) for k, fn in tiny_calls(dev).items()}
     card = subprocess.run(
@@ -249,7 +317,8 @@ def main() -> int:
     print(card)
     print(json.dumps({"tree": tree, "build_s": round(build_s, 1),
                       "rounds": args.rounds, "ms": rounds,
-                      "device_ms": device, "host_us": host}))
+                      "device_ms": device, "host_us": host,
+                      "bound_ms": bounds}))
     return 0
 
 

@@ -18,13 +18,10 @@
 // 16-byte aligned, and for a ragged last tile).  A tile goes through shared
 // memory skewed by one word every 32 (conflict-free both for the loads'
 // stripes and for each thread's run of 32 consecutive elements), is summed
-// per thread and across the block (scan.cuh), and publishes its aggregate,
-// then, once its carry is known, its inclusive prefix.  Each goes out as one
-// 64-bit status word -- (kind << 32) | value -- so a flag and its value
-// never tear; the words carry no other data, so relaxed atomic loads and
-// stores at device scope order them enough.  One warp looks back over up to
-// 32 predecessors at a time: it waits (with a short sleep) until each has
-// published, sums the aggregates up to the nearest prefix, and stops there.
+// per thread and across the block, and publishes its aggregate, then, once
+// its carry is known, its inclusive prefix, as 64-bit status words; one warp
+// looks back over up to 32 predecessors at a time (scan.cuh: the look-back
+// code that K10 / K11 run too).
 // The ticket counter and the status words are cleared by one
 // cudaMemsetAsync on the launch's stream before the kernel (ops/scan_cuda.py
 // keeps the buffer per device and stream, so calls on two streams never
@@ -44,9 +41,6 @@ constexpr int kItems = 32;
 constexpr int kTile = kThreads * kItems;
 constexpr int kChunks = kItems / 4;  // 16-byte chunks a thread moves
 constexpr int kBlocksPerSm = 8;
-constexpr uint32_t kAggregate = 1u;
-constexpr uint32_t kPrefix = 2u;
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 struct ScanArgs {
   const uint32_t* x;
@@ -59,59 +53,6 @@ struct ScanArgs {
 };
 
 __device__ __forceinline__ uint32_t skew(uint32_t i) { return i + (i >> 5); }
-
-__device__ __forceinline__ void publish(uint64_t* p, uint64_t v) {
-  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t observe(const uint64_t* p) {
-  uint64_t v;
-  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ uint64_t status_word(uint32_t kind,
-                                                uint32_t value) {
-  return (static_cast<uint64_t>(kind) << 32) | value;
-}
-
-__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-  return v;
-}
-
-// The sum of every element before tile t (t >= 1), by warp 0: lane l reads
-// the status of tile t - 1 - l - 32 k in round k.
-__device__ uint32_t look_back(const ScanArgs& a, uint32_t t) {
-  const int lane = threadIdx.x & 31;
-  uint32_t carry = 0;
-  for (int64_t k = static_cast<int64_t>(t) - 1 - lane;; k -= 32) {
-    uint32_t kind, value;
-    bool again = false;
-    do {
-      if (again) __nanosleep(32);
-      if (k >= 0) {
-        const uint64_t w = observe(a.status + k);
-        kind = static_cast<uint32_t>(w >> 32);
-        value = static_cast<uint32_t>(w);
-      } else {  // before tile 0: a prefix of nothing
-        kind = kPrefix;
-        value = 0u;
-      }
-      again = __any_sync(kFull, kind == 0u);
-    } while (again);
-    const unsigned prefixes = __ballot_sync(kFull, kind == kPrefix);
-    if (prefixes) {
-      // the nearest predecessor with a prefix ends the walk
-      const int first = __ffs(prefixes) - 1;
-      return carry + warp_sum(lane <= first ? value : 0u);
-    }
-    carry += warp_sum(value);
-  }
-}
 
 // Loads tile t's chunk c (elements 4 * (c * kThreads + thread)) into r[c].
 __device__ __forceinline__ void load_tile(const ScanArgs& a, uint32_t t,
@@ -165,20 +106,7 @@ scan_kernel(const ScanArgs a) {
     if (next < a.tiles) load_tile(a, next, r);
 
     if (threadIdx.x < 32) {
-      uint32_t carry = 0;
-      if (t == 0) {
-        if (threadIdx.x == 0) {
-          publish(a.status, status_word(kPrefix, total));
-        }
-      } else {
-        if (threadIdx.x == 0) {
-          publish(a.status + t, status_word(kAggregate, total));
-        }
-        carry = look_back(a, t);
-        if (threadIdx.x == 0) {
-          publish(a.status + t, status_word(kPrefix, carry + total));
-        }
-      }
+      const uint32_t carry = mnw::tile_carry(a.status, t, total, 0u);
       if (threadIdx.x == 0) carry_s = carry;
     }
     __syncthreads();

@@ -19,6 +19,14 @@ width above 32, a body shorter than the table needs, or ``n`` beyond the
 table's chunks raise ValueError.  Each launches its CUDA kernel for a CUDA
 tensor and runs the plain version only for a CPU tensor; there is no
 fallback from one to the other.
+
+A launch is one pass over the body: one block a half-chunk tile
+(``TILE``), taken by ticket, the prefix carried across tiles by decoupled
+look-back (``csrc/scan.cuh``, K9's code) in the status words that
+``scan_cuda.status_words`` keeps per device and stream; the C entry point
+clears them with one ``cudaMemsetAsync`` before the launch.  The host
+makes one copy a call: the chunk table, which the C entry point builds in
+a pinned slot of the device and stream's ``_Staging``.
 """
 
 from __future__ import annotations
@@ -28,9 +36,10 @@ import torch
 
 from . import cuda_lib, kernels
 from .fastpath import undo_uniform
-from .scan_cuda import cumsum_u32_plain
+from .scan_cuda import cumsum_u32_plain, status_words
 
 KERNEL_CHUNK = 16384  # the kernels' (only) chunk size
+TILE = KERNEL_CHUNK // 2  # the kernels' tile: half a chunk, one status word
 
 
 # ---------------------------------------------------------------------------
@@ -92,10 +101,10 @@ def plane_from_cmajor(cmajor: np.ndarray, widths: np.ndarray,
 # K10 / K11
 # ---------------------------------------------------------------------------
 
-def _layout(body: torch.Tensor, widths, chunk: int, n: int):
+def _layout(body: torch.Tensor, widths, chunk: int, n: int) -> np.ndarray:
     """Validate a chunked stream before any decode; returns the width table
-    (int64) and each chunk's word offset (int64)."""
-    widths = np.asarray(widths, dtype=np.int64).reshape(-1)
+    (int64)."""
+    widths = np.asarray(widths).reshape(-1).astype(np.int64, copy=False)
     if chunk <= 0 or chunk % 128:
         raise ValueError(f"chunk {chunk} is not a positive multiple of 128")
     if widths.size and (widths.max() > 32 or widths.min() < 0):
@@ -103,15 +112,14 @@ def _layout(body: torch.Tensor, widths, chunk: int, n: int):
                          "width table")
     if body.dtype != torch.int32 or body.dim() != 1:
         raise TypeError("body must be a 1-D int32 tensor of u32 bits")
-    wpcs = chunk * widths // 32
-    if body.numel() < int(wpcs.sum()):
+    need = int(widths.sum()) * (chunk // 32)
+    if body.numel() < need:
         raise ValueError(f"chunk body of {body.numel()} words is shorter "
-                         f"than the {int(wpcs.sum())} its width table needs")
+                         f"than the {need} its width table needs")
     if not 0 <= n <= widths.size * chunk:
         raise ValueError(f"{n} elements do not fit {widths.size} chunks of "
                          f"{chunk}")
-    woff = np.concatenate([[0], np.cumsum(wpcs)[:-1]]).astype(np.int64)
-    return widths, woff
+    return widths
 
 
 def decode_chunked_stream_plain(body: torch.Tensor, widths, first: int,
@@ -121,7 +129,7 @@ def decode_chunked_stream_plain(body: torch.Tensor, widths, first: int,
     chunk unpack (``algos.chunked.unpack_chunks``), then the un-zigzag and
     the int64 cumsum masked to 32 bits, plus ``first``."""
     from ..algos.chunked import unpack_chunks
-    widths, _ = _layout(body, widths, chunk, n)
+    widths = _layout(body, widths, chunk, n)
     words = body.cpu().numpy().view(np.uint32)
     nat = plane_from_cmajor(words, widths, chunk)
     z = unpack_chunks(nat, widths.astype(np.uint8), chunk).reshape(-1)[:n]
@@ -151,26 +159,76 @@ def _check_chunk(chunk: int) -> None:
                          f"{KERNEL_CHUNK}")
 
 
-def _launch(body, widths, woff, first, chunk, n, zigzag, prefix, floats,
+STAGING_SLOTS = 4  # host tables a stream may have in flight
+
+
+class _Staging:
+    """One device and stream's chunk tables: ``STAGING_SLOTS`` pinned host
+    slots of ``cap`` words, each with the event after the last copy from
+    it, taken in turn, so the host waits on a copy only when the card is
+    that many calls behind; and the card's copy, which stream order keeps
+    from being rewritten before the kernel before has read it."""
+
+    def __init__(self, index: int, cap: int):
+        self.cap = cap
+        self.host = torch.empty(STAGING_SLOTS * cap, dtype=torch.int64,
+                                pin_memory=True)
+        self.table = torch.empty(cap, dtype=torch.int64,
+                                 device=torch.device("cuda", index))
+        with torch.cuda.device(index):
+            self.events = [cuda_lib.lib().mnw_chunked_event()
+                           for _ in range(STAGING_SLOTS)]
+        if not all(self.events):
+            raise RuntimeError("chunked decode: no CUDA event")
+        self.turn = 0
+
+    def slot(self) -> tuple:
+        """(host address, event) of the next slot."""
+        k = self.turn % STAGING_SLOTS
+        self.turn += 1
+        return self.host.data_ptr() + 8 * self.cap * k, self.events[k]
+
+
+_staging = {}   # (device index, stream) -> _Staging
+
+
+def _staging_for(key, need: int) -> _Staging:
+    """The staging buffers of one device and stream, grown (after the card
+    is done with the old ones) when a plane has more chunks."""
+    st = _staging.get(key)
+    if st is None or st.cap < need:
+        if st is not None:
+            torch.cuda.synchronize(key[0])
+        st = _staging[key] = _Staging(key[0], max(need, 1024))
+    return st
+
+
+def _launch(body, widths, first, chunk, n, zigzag, prefix, floats,
             key=(0, 0), x0=0.0, dx_bin=0.0, box=0.0, periodic=False):
+    """One launch of K10 (``floats`` false) or K11 after one copy of the
+    chunk table and one clear of the status words, all in the C entry
+    point (``csrc/chunked.cu``)."""
     dev = body.device
     out = torch.empty(n, dtype=torch.float32 if floats else torch.int32,
                       device=dev)
     if n == 0:
         return out
     used = -(-n // chunk)  # later chunks hold no output element
-    w_t = torch.from_numpy(widths[:used].astype(np.uint8)).to(dev)
-    o_t = torch.from_numpy(woff[:used]).to(dev)
-    scratch = torch.empty(2 * used, dtype=torch.int32, device=dev)
+    w8 = np.ascontiguousarray(widths[:used], dtype=np.uint8)
     body = body.contiguous()
+    index, stream = cuda_lib.current_stream(dev)
+    st = _staging_for((index, stream), used)
+    host, event = st.slot()
+    words = status_words((index, stream), 1 + -(-n // TILE), dev)
     k0, k1 = (int(k) & kernels.M32 for k in key)
-    cuda_lib.launch(
+    cuda_lib.launch_on(
         "chunked_decode_floats" if floats else "chunked_decode",
-        cuda_lib.lib().mnw_chunked_decode, dev, body.data_ptr(),
-        o_t.data_ptr(), w_t.data_ptr(), used, int(widths[:used].max()), n,
+        cuda_lib.lib().mnw_chunked_decode, index, stream, body.data_ptr(),
+        w8.ctypes.data, used, host, st.table.data_ptr(), event, n,
         int(zigzag), int(prefix), int(first) & kernels.M32,
-        scratch.data_ptr(), int(floats), k0, k1, float(np.float32(x0)),
-        float(dx_bin), float(np.float32(box)), int(periodic), out.data_ptr())
+        words.data_ptr(), int(floats), k0, k1, float(np.float32(x0)),
+        float(dx_bin), float(np.float32(box)), int(periodic),
+        out.data_ptr())
     return out
 
 
@@ -185,13 +243,13 @@ def decode_chunked_stream(body: torch.Tensor, widths, first: int, chunk: int,
     (counted in ``decode_chunked_stream.launches``); a CPU tensor runs
     ``decode_chunked_stream_plain``."""
     _check_chunk(chunk)
-    widths, woff = _layout(body, widths, chunk, n)
+    widths = _layout(body, widths, chunk, n)
     if body.device.type == "cpu":
         return decode_chunked_stream_plain(body, widths, first, chunk, n,
                                            zigzag, prefix)
     if body.device.type != "cuda":
         raise ValueError(f"no chunked decode for device {body.device}")
-    out = _launch(body, widths, woff, first, chunk, n, zigzag, prefix, False)
+    out = _launch(body, widths, first, chunk, n, zigzag, prefix, False)
     decode_chunked_stream.launches += 1
     return out
 
@@ -211,14 +269,14 @@ def decode_chunked_stream_floats(body: torch.Tensor, widths, first: int,
     in ``decode_chunked_stream_floats.launches``); a CPU tensor runs
     ``decode_chunked_stream_floats_plain``."""
     _check_chunk(chunk)
-    widths, woff = _layout(body, widths, chunk, n)
+    widths = _layout(body, widths, chunk, n)
     if body.device.type == "cpu":
         return decode_chunked_stream_floats_plain(
             body, widths, first, chunk, n, key, depth, x0, dx, box, periodic)
     if body.device.type != "cuda":
         raise ValueError(f"no chunked decode for device {body.device}")
-    out = _launch(body, widths, woff, first, chunk, n, True, True, True,
-                  key, x0, kernels.bin_width(dx, depth), box, periodic)
+    out = _launch(body, widths, first, chunk, n, True, True, True, key, x0,
+                  kernels.bin_width(dx, depth), box, periodic)
     decode_chunked_stream_floats.launches += 1
     return out
 

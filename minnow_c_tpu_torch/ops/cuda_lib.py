@@ -104,9 +104,13 @@ def lib() -> ctypes.CDLL:
         l.mnw_cumsum_u32.restype = i32
         l.mnw_cumsum_u32.argtypes = [p, i64, i64, u32, i32, p, p, p]
         l.mnw_chunked_decode.restype = i32
-        l.mnw_chunked_decode.argtypes = [p, p, p, i64, i32, i64, i32, i32,
-                                         u32, p, i32, u32, u32, f32, f32, f32,
-                                         i32, p, p]
+        l.mnw_chunked_decode.argtypes = [p, p, i64, p, p, p, i64, i32, i32,
+                                         u32, p, i32, u32, u32, f32, f32,
+                                         f32, i32, p, p]
+        l.mnw_chunked_blocks_per_sm.restype = i32
+        l.mnw_chunked_blocks_per_sm.argtypes = [i32]
+        l.mnw_chunked_event.restype = p
+        l.mnw_chunked_event.argtypes = []
         l.mnw_cuda_error_string.restype = ctypes.c_char_p
         l.mnw_cuda_error_string.argtypes = [i32]
         _lib = l

@@ -450,9 +450,13 @@ def test_snapshot_on_cuda_never_reaches_a_plain_version(dev, monkeypatch):
 CHUNK = chunked_cuda.KERNEL_CHUNK
 # (per-chunk widths of the zigzag deltas, elements cut from the last chunk):
 # mixed widths, one chunk, zero-width chunks, a width-32 chunk (deltas of
-# magnitude >= 2^30), and a plane that ends on a chunk boundary
+# magnitude >= 2^30), a plane that ends on a chunk boundary, every width
+# 0-32 in one plane, 640 chunks (more tiles than one wave of the persistent
+# grid), and a plane that ends one element into its last chunk
 PATTERNS = [((7, 15, 7), 137), ((24,), 137), ((0, 9, 0, 3), 137),
-            ((1, 32, 5), 137), ((0, 0), 5), ((4, 32, 32, 11), 0)]
+            ((1, 32, 5), 137), ((0, 0), 5), ((4, 32, 32, 11), 0),
+            (tuple(range(33)), 137), ((11,) * 640, 1000),
+            ((5, 9), CHUNK - 1)]
 
 
 def chunked_stream(pattern, trim, seed):
@@ -526,11 +530,22 @@ def test_scan_kernel_on_two_streams(dev):
             assert torch.equal(g, want[s])
 
 
+def on_card(body: np.ndarray, dev, offset: int = 0) -> torch.Tensor:
+    """The body on the card; ``offset`` 1: a view one word into its
+    storage (not 16-byte aligned: the kernels' 4-byte copies)."""
+    store = torch.zeros(body.size + offset, dtype=torch.int32, device=dev)
+    store[offset:] = torch.from_numpy(body).to(dev)
+    words = store[offset:]
+    assert not body.size or (words.data_ptr() % 16 == 0) == (offset == 0)
+    return words
+
+
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("first", [0, 12345, (1 << 32) - 5])
 @pytest.mark.parametrize("pattern, trim", PATTERNS)
-def test_chunked_kernel_matches_plain(dev, pattern, trim, first):
+def test_chunked_kernel_matches_plain(dev, pattern, trim, first, offset):
     body, widths, n = chunked_stream(pattern, trim, len(pattern) + trim)
-    body = torch.from_numpy(body).to(dev)
+    body = on_card(body, dev, offset)
     for zigzag, prefix in ((True, True), (False, True), (False, False)):
         got = chunked_cuda.decode_chunked_stream(body, widths, first, CHUNK,
                                                  n, zigzag, prefix)
@@ -541,18 +556,77 @@ def test_chunked_kernel_matches_plain(dev, pattern, trim, first):
 
 
 @pytest.mark.parametrize("periodic", [False, True])
-@pytest.mark.parametrize("pattern, trim", PATTERNS[:4])
+@pytest.mark.parametrize("pattern, trim", PATTERNS[:4] + PATTERNS[6:])
 @pytest.mark.parametrize("depth", [14, 24])
 def test_chunked_floats_kernel_matches_plain(dev, pattern, trim, depth,
                                              periodic):
     body, widths, n = chunked_stream(pattern, trim, depth)
-    body = torch.from_numpy(body).to(dev)
     x0, dx = (-2.0, 68.0) if periodic else (0.25, 63.0)
-    args = (body, widths, (1 << 24) - 3, CHUNK, n, (0xDEADBEEF, 7), depth,
-            x0, dx, 64.0, periodic)
+    for offset in (0, 1):
+        args = (on_card(body, dev, offset), widths, (1 << 24) - 3, CHUNK, n,
+                (0xDEADBEEF, 7), depth, x0, dx, 64.0, periodic)
+        got = chunked_cuda.decode_chunked_stream_floats(*args)
+        want = chunked_cuda.decode_chunked_stream_floats_plain(*args)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_chunked_floats_kernel_on_high_bins(dev, periodic):
+    """Bins >= 2^31 (full-range deltas in width-32 chunks): K11 turns a bin
+    into f32 as a u32, as its plain version and the JAX package's XLA tail
+    do."""
+    body, widths, n = chunked_stream((32, 32, 7), 137, 32)
+    body = torch.from_numpy(body).to(dev)
+    first = (1 << 31) + 12345
+    bins = chunked_cuda.decode_chunked_stream_plain(body, widths, first,
+                                                    CHUNK, n)
+    assert (bins < 0).sum() > n // 4      # u32 bits >= 2^31
+    args = (body, widths, first, CHUNK, n, (0xDEADBEEF, 7), 24, -2.0, 68.0,
+            64.0, periodic)
     got = chunked_cuda.decode_chunked_stream_floats(*args)
     want = chunked_cuda.decode_chunked_stream_floats_plain(*args)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_chunked_kernel_back_to_back_calls(dev):
+    """50 calls in a row on one stream, K10 and K11 in turns, each equal to
+    the plain version: a race in the look-back, or a status word or ticket
+    left by the call before, would show."""
+    body, widths, n = chunked_stream((17,) * 1024, 5, 17)
+    body = torch.from_numpy(body).to(dev)
+    fargs = (body, widths, 99, CHUNK, n, (1, 2), 17, 0.25, 63.5, 64.0, True)
+    want = (chunked_cuda.decode_chunked_stream_plain(body, widths, 99, CHUNK,
+                                                     n),
+            chunked_cuda.decode_chunked_stream_floats_plain(*fargs))
+    got = [chunked_cuda.decode_chunked_stream(body, widths, 99, CHUNK, n)
+           if k % 2 == 0 else
+           chunked_cuda.decode_chunked_stream_floats(*fargs)
+           for k in range(50)]
+    for k, g in enumerate(got):
+        assert torch.equal(g.view(torch.int32),
+                           want[k % 2].view(torch.int32)), k
+
+
+def test_chunked_kernel_on_two_streams(dev):
+    """Calls queued on two streams at once, each stream with its own status
+    words and tickets: every result equal to the plain version."""
+    planes = [chunked_stream((9 + s,) * 300, 77 * s, s) for s in range(2)]
+    planes = [(torch.from_numpy(b).to(dev), w, n) for b, w, n in planes]
+    want = [chunked_cuda.decode_chunked_stream_plain(b, w, 5, CHUNK, n)
+            for b, w, n in planes]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize(dev)
+    got = [[], []]
+    for _ in range(10):
+        for s, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                b, w, n = planes[s]
+                got[s].append(chunked_cuda.decode_chunked_stream(b, w, 5,
+                                                                 CHUNK, n))
+    torch.cuda.synchronize(dev)
+    for s in range(2):
+        for g in got[s]:
+            assert torch.equal(g, want[s])
 
 
 def test_chunked_kernels_refuse_malformed_streams(dev):

@@ -140,13 +140,19 @@ def _chunked(pattern, trim, seed=0):
     return np.concatenate(parts), widths, z[:n], n
 
 
-PATTERNS = [(7, 15, 7), (24,), (0, 9, 0, 3), (1, 32, 5)]
+PATTERNS = [(7, 15, 7), (24,), (0, 9, 0, 3), (1, 32, 5),
+            # two full width-32 chunks, three zero-width chunks trimmed by 3,
+            # one element of one chunk, a ragged chunk after a zero one
+            (32, 32), (0, 0, 0), (1,), (31, 0, 17)]
+# elements cut from the last chunk (default 137)
+TRIMS = {(32, 32): 0, (0, 0, 0): 3, (1,): CHUNK - 1, (31, 0, 17): CHUNK - 7}
 
 
-@pytest.mark.parametrize("first", [12345, (1 << 32) - 5])
+@pytest.mark.parametrize("first", [12345, (1 << 32) - 5, (1 << 32) - 1])
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_chunked_plain_matches_jax(pattern, first):
-    body, widths, _, n = _chunked(pattern, 137, len(pattern))
+    body, widths, _, n = _chunked(pattern, TRIMS.get(pattern, 137),
+                                  len(pattern))
     ref = np.asarray(chunked_pallas.decode_chunked_stream(
         body, widths, first, CHUNK, n, interpret=True))
     got = chunked_cuda.decode_chunked_stream(_u32_tensor(body), widths,
@@ -195,6 +201,41 @@ def test_chunked_floats_plain_matches_jax(depth, periodic):
         _u32_tensor(body), *args[1:], key, depth, x0, dx, W, periodic)
     np.testing.assert_array_equal(_bits(ref), _bits(two_stage))
     np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_chunked_floats_high_bins_follow_the_xla_tail(periodic):
+    """Bins >= 2^31 (a width-32 chunk; only a corrupt stream holds them,
+    since an encoder writes bins below 2^depth <= 2^24).  The JAX package's
+    two float tails part there: its XLA tail turns a bin into f32 as a u32
+    (``bins.astype(jnp.float32)``, ``algo_coil_v1_1.py:166``), its Pallas
+    kernel through int32 (``bins_lm.astype(jnp.int32)``,
+    ``chunked_pallas.py:70``).  The port follows the XLA tail, so its fused
+    and generic decodes agree: its K11 equals ``_coil11_undo_tail`` bitwise,
+    and the Pallas kernel differs from both."""
+    rng = np.random.default_rng(31)
+    n = CHUNK + 700
+    bins = (rng.integers(0, 1 << 31, n, dtype=np.uint64) +
+            (1 << 31)).astype(np.uint32)
+    zz = np.asarray(jkernels.u32_delta_zigzag(jnp.asarray(bins))).copy()
+    zz[0] = 0
+    zc, widths = jchunked.chunk_widths(zz, CHUNK)
+    assert widths.max() == 32
+    nat = np.frombuffer(jchunked.pack_chunks(zc, widths), dtype=np.uint32)
+    body = chunked_cuda.plane_to_cmajor(nat, widths, CHUNK)
+    key, depth, W = (0x9E3779B9, 12345), 24, 64.0
+    x0, dx = (-2.0, 68.0) if periodic else (0.25, 63.0)
+    args = (body, widths, int(bins[0]), CHUNK, n)
+    xla = np.asarray(jcoil11._coil11_undo_tail(
+        jnp.asarray(bins), jnp.asarray(key, jnp.uint32), n, depth, x0, dx,
+        jnp.float32(W), periodic))
+    pallas = np.asarray(chunked_pallas.decode_chunked_stream_floats(
+        *args, np.asarray(key, np.uint32), depth, x0, dx, W, periodic,
+        interpret=True))
+    got = chunked_cuda.decode_chunked_stream_floats(
+        _u32_tensor(body), *args[1:], key, depth, x0, dx, W, periodic)
+    np.testing.assert_array_equal(_bits(got), _bits(xla))
+    assert (_bits(pallas) != _bits(xla)).sum() > n // 2
 
 
 def test_cmajor_helpers_match_jax():
