@@ -32,9 +32,10 @@ and the script exits non-zero:
    up to 7,812,500 from aligned and unaligned storage; K8 at every width
    1-24 over rows shorter than, equal to and longer than a tile; K4's
    kernel at 2 * 16384 bins as the counterpart of K13 (pack_pallas_tiles);
-3. the frozen wire: Trim v1.0 / v1.1, Diff v1.0, Coil v1.0 / v1.1 and Octo
-   v1.0 / v1.1 segments encoded from CUDA tensors and decoded on CUDA
-   (generic and fused) match tests/fixtures/wire_digests.json; u64 fields
+3. the frozen wire: Trim v1.0 / v1.1 (with and without per-particle
+   accuracies), Diff v1.0, Coil v1.0 / v1.1 and Octo v1.0 / v1.1 segments
+   encoded from CUDA tensors and decoded on CUDA (generic and fused) match
+   27 entries of tests/fixtures/wire_digests.json; u64 fields
    over their whole range (Unsi values past 2^63 and up to 2^64 - 1, IDs on
    grids past 2^21 a side with the top bit set) encoded from CUDA tensors
    equal the CPU's bytes and decode on CUDA to the same u64 bits;
@@ -73,10 +74,32 @@ and the script exits non-zero:
    and K8 beside K7 on the same bins (K8 at 16 and 12 bits over 192 rows
    and at 14 over 64, in turns), K8 alone in a torch.profiler trace, and
    K12's one-pass encode of phase 5's position blocks against the split
-   CUDA path (K6, the host's recip, K8).
+   CUDA path (K6, the host's recip, K8);
+8. per-particle accuracies and the log maps at full size, in the recip
+   scale mode: (a) phase 5's
+   snapshot with positions at per-particle accuracies in contiguous runs
+   (a zoom run's particles sorted by type: the first 1/8 at 1e-4, the next
+   3/8 at 1e-3, the rest at 1e-2; Trim v1.1 block by block, K7 and K3 on
+   the chunk bodies), symlog velocities (t = 20, delta 1e-3) and
+   lognormal masses (0.5 dex) log10-mapped at log10(1 + 1e-4) (K6 and K8
+   on the mapped rows), through
+   compress_snapshot, the full read (per segment, as a file with a Deltas
+   field is read) and the batched read of the other fields (K2, K3), with
+   error bounds in mapped space, exact IDs and batched == per segment;
+   then the path's kernels against their plain versions at its shapes:
+   K7 and K3 on the Deltas chunk buckets of one block per accuracy, K6 and
+   K8 on the mapped rows, K2 on K8's words (unmapped, == the batched read)
+   and K1 on one velocity row;
+   (b) its first 16 blocks streamed with per-block pos_deltas, decoding to
+   (a)'s values bitwise; the maps on 2^20 values on the card against the
+   CPU (shares of mapped values, bins and unmapped values that differ);
+   (c) a 250^3 Gadget-2 file with a MASS record through the CLI (compress
+   --scale-mode recip, info, verify, decompress), masses within their
+   relative accuracy; K6, K5 and K1 against their plain versions on the
+   mapped masses (K1's decode, unmapped, == the CLI's masses).
 
 The phases run in the order 1, 2, 3, 4, 6, 7(c), 7(d), 5, 7(a), 7(b),
-7(e): a torch.profiler trace (phase 5's busy share, the kernels' device
+7(e), 8: a torch.profiler trace (phase 5's busy share, the kernels' device
 times) leaves the card's tracing hooks in place, which can add to every
 later CUDA-event time, so the paths whose kernels take well under a
 millisecond are timed before the first trace.  The script prints the
@@ -88,10 +111,11 @@ read just after.  The last line is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts (K1 and K4 from phase
 4, the rows kernels from phase 5, the delta kernels from phase 6, K5 from
 phase 7(c), K8 from 7(a), K12 from its one-pass run in 7(e), K13 as K4's
-kernel), errors, times, bounds (the bytes each input read once and each
-output written once at 3.35 TB/s, or the float operations at 67 TFLOP/s,
-whichever is longer), the share of the bound reached, and the library
-call's time where one computes the same function.
+kernel) and on phase 8's path ((a) + (b) + (c)), errors, times, bounds
+(the bytes each input read once and each output written once at 3.35
+TB/s, or the float operations at 67 TFLOP/s, whichever is longer), the
+share of the bound reached, and the library call's time where one
+computes the same function.
 """
 
 from __future__ import annotations
@@ -863,6 +887,29 @@ def reference_segment(mt, algo: int, version: int, dev):
     ])
 
 
+def deltas_segment(mt, algo: int, version: int, dev):
+    """The freeze test's Deltas-mode segment
+    (tests/test_freeze.py:deltas_segment: per-particle accuracies on
+    positions and a scalar field), rebuilt here with numpy and moved to the
+    card."""
+    n, W = 4096, 64.0
+    rng = np.random.default_rng(54321)
+    pos = rng.uniform(0, W, (3, n)).astype(np.float32)
+    uf = rng.uniform(1, 9, n).astype(np.float32)
+    deltas = rng.choice(np.array([1e-1, 1e-2, 1e-3], dtype=np.float32), n)
+
+    def field(code, data, acc):
+        hd = mt.FieldHeader(code, algo, version, n)
+        return mt.Field(hd=hd, data=torch.from_numpy(data).to(dev), acc=acc)
+
+    F = mt.FieldCode
+    return mt.Seg(fields=[
+        field(F.POSN, pos, mt.PositionAccuracy(delta=0.0, width=W,
+                                               deltas=deltas)),
+        field(F.UNSF, uf, mt.FloatAccuracy(delta=0.0, deltas=deltas)),
+    ])
+
+
 def decode_digest(seg) -> str:
     h = hashlib.sha256()
     for f in seg.fields:
@@ -875,13 +922,19 @@ def check_frozen_wire(mt, dev) -> None:
         want = json.load(f)
     A = mt.AlgoCode
     v10, v11 = mt.semver.pack(1, 0, 0), mt.semver.pack(1, 1, 0)
+    matched = 0
     for name, algo, version in (
             ("trim", A.TRIM, v10), ("trim_v1_1", A.TRIM, v11),
             ("diff", A.DIFF, v10), ("coil", A.COIL, v10),
             ("coil_v1_1", A.COIL, v11), ("octo", A.OCTO, v10),
-            ("octo_v1_1", A.OCTO, v11)):
-        blob = mt.compress_segment(reference_segment(mt, algo, version, dev),
-                                   seed=777)
+            ("octo_v1_1", A.OCTO, v11), ("trim_deltas", A.TRIM, v10),
+            ("trim_v1_1_deltas", A.TRIM, v11)):
+        if name.endswith("_deltas"):
+            blob = mt.compress_segment(
+                deltas_segment(mt, algo, version, dev), seed=888)
+        else:
+            blob = mt.compress_segment(
+                reference_segment(mt, algo, version, dev), seed=777)
         enc = hashlib.sha256(blob).hexdigest()
         if enc != want[f"{name}_encode_sha256"] or \
                 len(blob) != want[f"{name}_bytes"]:
@@ -895,8 +948,11 @@ def check_frozen_wire(mt, dev) -> None:
             if dig != want[f"{name}_decode_sha256"]:
                 raise AssertionError(f"{name}: decode digest differs "
                                      f"(fused={fused}): {dig}")
+        matched += 3
         log(f"phase 3: {name} encode {enc[:16]}.. ({len(blob)} B) and "
             "decode (generic, fused) match the frozen digests on CUDA")
+    log(f"phase 3: {matched} of the fixture's {len(want)} entries match on "
+        "CUDA (the rest are Sort and Cart, not ported)")
 
 
 def u64_cases():
@@ -1933,6 +1989,452 @@ def time_recip_widths(rows, x0, recip, box, anchors) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: per-particle accuracies and the log maps at full size
+# ---------------------------------------------------------------------------
+
+ZOOM_DELTAS = (1e-4, 1e-3, 1e-2)   # positions: first 1/8, next 3/8, rest
+SYMLOG_T, VEL_LOG_DELTA = 20.0, 1e-3
+MASS_LOG_DELTA = float(np.log10(1.0 + 1e-4))   # relative 1e-4
+ENV_SLOPE, ENV_CONST = 8e-8, 1.2e-6            # the unmap's error envelope
+
+
+def zoom_deltas(n: int) -> np.ndarray:
+    """Per-particle position accuracies in contiguous runs, as a zoom
+    run's particles sorted by type hold them."""
+    d = np.full(n, ZOOM_DELTAS[2], np.float32)
+    d[:n // 8] = ZOOM_DELTAS[0]
+    d[n // 8:n // 2] = ZOOM_DELTAS[1]
+    return d
+
+
+def log_spec(mt, deltas):
+    return mt.SnapshotSpec(
+        pos=mt.PositionAccuracy(delta=0.0, width=BOX, deltas=deltas),
+        vel=mt.VelocityAccuracy(delta=VEL_LOG_DELTA, sym_log10_scaled=2,
+                                sym_log10_threshold=SYMLOG_T),
+        ids=mt.IDAccuracy(width=SNAP_SIDE),
+        mass=mt.FloatAccuracy(delta=MASS_LOG_DELTA, log10_scaled=1))
+
+
+def symlog64(x: torch.Tensor) -> torch.Tensor:
+    x = x.double()
+    return torch.sign(x) * torch.log10(1.0 + x.abs() / SYMLOG_T)
+
+
+def log_errors(label: str, out: dict, want: dict, deltas) -> dict:
+    """Positions within their per-particle accuracy (periodic distance),
+    velocities and masses within their mapped-space accuracy plus the
+    unmap's envelope, IDs exact; returns each field's largest error over
+    its bound."""
+    worst = {}
+    dl = torch.from_numpy(deltas).to(want["pos"].device).double()
+    r = 0.0
+    for d in range(3):
+        e = (out["pos"][d].double() - want["pos"][d].double()).abs()
+        r = max(r, (torch.minimum(e, BOX - e) / dl).max().item())
+    worst["pos"] = r
+    for name, fn, delta in (("vel", symlog64, VEL_LOG_DELTA),
+                            ("mass", lambda x: torch.log10(x.double()),
+                             MASS_LOG_DELTA)):
+        ym = fn(want[name])
+        err = (fn(out[name]) - ym).abs()
+        worst[name] = (err / (delta + ENV_CONST + ENV_SLOPE * ym.abs())
+                       ).max().item()
+        del ym, err
+    if not all(v <= 1.0 for v in worst.values()):
+        raise AssertionError(f"{label}: error over its bound {worst}")
+    if not torch.equal(out["ids"], want["ids"]):
+        raise AssertionError(f"{label}: IDs did not come back exactly")
+    return worst
+
+
+def check_zoom_snapshot(mt, data, dev):
+    """(a) Phase 5's snapshot with zoom-run position accuracies, symlog
+    velocities and log10-mapped lognormal masses, in the recip scale mode
+    (K6 and K8 on the mapped rows; the Deltas positions bin with the
+    division map, as in the JAX package, and pack with K7):
+    compress_snapshot, the full read (per segment: the batched reader
+    leaves a file with a Deltas field to it, as the JAX package's does)
+    and the batched read of the other fields (K2, K3)."""
+    pos, vel, ids, _, _ = data
+    n = pos.shape[1]
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    mass = 10.0 ** (0.5 * torch.randn(n, generator=g, device=dev))
+    deltas = zoom_deltas(n)
+    raw = n * (3 * 4 + 3 * 4 + 8 + 4)
+    torch.cuda.synchronize()
+    reset_counts()
+    buf = io.BytesIO()
+    stats, t_enc, m_enc = timed(lambda: mt.compress_snapshot(
+        buf, pos, vel, ids, log_spec(mt, deltas), SNAP_BLOCKS, seed=SEED,
+        scale_mode="recip", mass=mass))
+    blob = buf.getvalue()
+    out, t_dec, m_dec = timed(lambda: mt.decompress_snapshot(
+        io.BytesIO(blob), batched=True, device=dev))
+    part, t_part, m_part = timed(lambda: mt.decompress_snapshot(
+        io.BytesIO(blob), batched=True, fields={"vel", "mass", "ids"},
+        device=dev))
+    launches = {k: fn.launches for k, fn in launch_counted().items()}
+    report("phase 8(a)", raw, ("compress_snapshot", t_enc, m_enc),
+           ("decompress_snapshot (all fields, per segment)", t_dec, m_dec))
+    report("phase 8(a)", n * (3 * 4 + 8 + 4),
+           ("decompress_snapshot(fields=vel, mass, ids; batched)", t_part,
+            m_part))
+    log(f"phase 8(a): {n} particles in {SNAP_BLOCKS} blocks, {raw} raw bytes "
+        f"-> {len(blob)} file bytes (ratio {raw / len(blob):.3f}); depths "
+        f"{ {k: v for k, v in stats.items() if k != 'bytes'} }")
+    log(f"phase 8(a): launches in the Deltas / log-map snapshot path: "
+        f"{launches}")
+    worst = log_errors("phase 8(a)", out, dict(pos=pos, vel=vel, ids=ids,
+                                               mass=mass), deltas)
+    for k in ("vel", "mass", "ids"):
+        if not torch.equal(bits(part[k]), bits(out[k])):
+            raise AssertionError(f"phase 8(a): batched {k} != per segment")
+    floor = {"K1": 4 * SNAP_BLOCKS, "K2": 4, "K3": 3 * SNAP_BLOCKS + 3,
+             "K6": 2, "K7": 3 * SNAP_BLOCKS + 3, "K8": 2}
+    if any(launches[k] < v for k, v in floor.items()):
+        raise AssertionError(f"phase 8(a) missed a kernel: {launches} "
+                             f"(want at least {floor})")
+    log(f"phase 8(a): largest error over its bound {worst} (positions "
+        f"within their per-particle accuracy {ZOOM_DELTAS}, velocities "
+        f"{VEL_LOG_DELTA} and masses log10(1 + 1e-4) in mapped space plus "
+        f"{ENV_SLOPE} * |y| + {ENV_CONST}); IDs exact; the batched read of "
+        f"vel, mass, ids == the per-segment read bitwise; launches at least "
+        f"{floor}")
+    nb = n // SNAP_BLOCKS
+    keep = {k: v[..., :STREAM_BLOCKS * nb].clone() for k, v in out.items()}
+    del out, buf
+    errs = check_zoom_kernels(data, mass, deltas, stats, part, dev)
+    del part
+    return mass, deltas, stats, keep, blob, launches, errs
+
+
+def check_zoom_kernels(data, mass, deltas, stats, part, dev) -> dict:
+    """(a) The path's kernels against their plain versions, bitwise, at
+    the shapes this path gives them: K7 and K3 on the Deltas chunk buckets
+    of one position block per accuracy (rows of 256 at each chunk width,
+    as Trim v1.1 packs and unpacks them), K6 on the mapped velocity and
+    mass rows, K8 on them at the written depths, K2 on K8's words as the
+    batched read decodes them (unmapped, each must equal that read's
+    velocities and masses) and K1 on one velocity row as the per-segment
+    read decodes it.  Returns each kernel's largest error."""
+    from minnow_c_tpu_torch.algos import chunked
+    from minnow_c_tpu_torch.algos.algo_trim_v1_1 import VERSION as TRIM11
+    from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
+    from minnow_c_tpu_torch.ops import rng as _rng
+    from minnow_c_tpu_torch.quant import engine
+    from minnow_c_tpu_torch.types import (AlgoCode, Field, FieldCode,
+                                          FieldHeader, PositionAccuracy)
+    pos, vel = data[0], data[1]
+    n = pos.shape[1]
+    B, nb, C = SNAP_BLOCKS, n // SNAP_BLOCKS, chunked.CHUNK
+    errs = {}
+
+    def same(k, got, want, where):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want)):
+            raise AssertionError(f"phase 8(a): {k} != plain {where}")
+        errs[k] = max([errs.get(k, 0.0)] +
+                      [max_abs_err(a, b) for a, b in zip(got, want)])
+
+    buckets = set()
+    for first in (0, n // 8, n // 2):          # one block per accuracy
+        sl = slice(first, first + nb)
+        qf = engine.quantize(Field(
+            hd=FieldHeader(FieldCode.POSN, AlgoCode.TRIM, TRIM11, nb),
+            data=pos[:, sl], acc=PositionAccuracy(
+                delta=0.0, width=BOX, deltas=deltas[sl])),
+            seed=SEED, scale_mode="recip", device=dev)
+        widths = np.asarray(qf.quant.depths).reshape(-1, C).max(axis=1)
+        for d in range(3):
+            zc = qf.data.reshape(3, -1)[d].reshape(-1, C)
+            for wv in (int(w) for w in np.unique(widths) if w):
+                rows = zc[torch.from_numpy(np.nonzero(widths == wv)[0]).to(
+                    dev)]
+                where = f"on Deltas chunk rows {tuple(rows.shape)} at {wv}"
+                words = encode_cuda.pack_rows_cuda(rows, wv)
+                same("K7", words, encode_cuda.pack_rows_plain(rows, wv),
+                     where)
+                got = decode_cuda.unpack_rows_cuda(words, wv, C)
+                same("K3", got, decode_cuda.unpack_rows_plain(words, wv, C),
+                     where)
+                if not torch.equal(got, rows):
+                    raise AssertionError(f"phase 8(a): K3 of K7 != the bins "
+                                         f"{where}")
+                buckets.add((tuple(rows.shape), wv))
+        del qf
+    # the mapped rows as the writer forms them; field 1 is vel, 3 mass
+    for name, fi, x, mode, t in (
+            ("vel", 1, vel.reshape(3, B, nb).transpose(0, 1).reshape(
+                3 * B, nb), 2, SYMLOG_T),
+            ("mass", 3, mass.reshape(B, nb), 1, 0.0)):
+        D, depth = x.shape[0] // B, stats[f"{name}_depth"]
+        where = f"on the mapped {name} rows {tuple(x.shape)}"
+        rows = engine.map_float(x, mode, t)
+        zeros = torch.zeros(rows.shape[0], device=dev)
+        anchor = rows[:, 0].contiguous()
+        mn, mx = encode_cuda.stats_rows_cuda(rows, zeros, anchor, False)
+        same("K6", (mn, mx), encode_cuda.stats_rows_plain(
+            rows, zeros, anchor, False), where)
+        x0 = mn.cpu().numpy().reshape(B, D)
+        if name == "vel":
+            rng = kernels.ftz(mx - mn).reshape(B, D).amax(dim=1).cpu().numpy()
+            # the reader's bin range: f32(x0 + max over dims of x1 - x0) - x0
+            x1 = (x0 + rng[:, None]).astype(np.float32)
+            md = np.max(x1 - x0, axis=1).astype(np.float64)
+            dx = (np.float32(x0.astype(np.float64) + md[:, None]) - x0
+                  ).astype(np.float32)
+        else:
+            rng = mx.cpu().numpy() - x0[:, 0]
+            dx = rng[:, None]
+        recip = torch.from_numpy(np.repeat(np.atleast_1d(
+            kernels.exact_recip(rng)), D)).to(dev)
+        args = (depth, mn, recip, zeros, anchor, False)
+        words = encode_cuda.encode_recip_rows_cuda(rows, *args)
+        same("K8", words, encode_cuda.encode_recip_rows_plain(rows, *args),
+             f"{where} at {depth} bits")
+        words = words.reshape(B, D, -1)
+        for d in range(D):
+            key = _rng.field_key(SEED, fi, d)
+            wd = words[:, d].contiguous()
+            keys = torch.tensor(key, dtype=torch.int64, device=dev).expand(
+                B, 2)
+            x0d, dxd = (torch.from_numpy(np.ascontiguousarray(v[:, d])).to(
+                dev) for v in (x0, dx))
+            got = decode_cuda.decode_rows_cuda(wd, keys, depth, nb, x0d, dxd)
+            same("K2", got, decode_cuda.decode_rows_plain(
+                wd, keys, x0d, kernels.bin_width(dxd, depth), 0.0, nb, depth),
+                f"{where} (dim {d}) at {depth} bits")
+            read = part[name][d] if name == "vel" else part[name]
+            if not torch.equal(bits(engine.unmap_float(got, mode, t).reshape(
+                    -1)), bits(read)):
+                raise AssertionError(f"phase 8(a): K2's decode of K8's "
+                                     f"words, unmapped, != the batched read "
+                                     f"of {name} (dim {d})")
+            if name == "vel" and d == 0:
+                k1 = decode_cuda.decode_cuda(wd[0], key, depth, nb, x0[0, 0],
+                                             dx[0, 0], 0.0, False)
+                same("K1", k1, decode_cuda.decode_plain(
+                    wd[0], *key, np.float32(x0[0, 0]),
+                    kernels.bin_width(dx[0, 0], depth), np.float32(0.0), nb,
+                    depth, 0, False), f"on a mapped velocity row of {nb}")
+                if not torch.equal(bits(k1), bits(got[0])):
+                    raise AssertionError("phase 8(a): K1 != K2's row 0")
+        del rows, words
+    log(f"phase 8(a): at the path's shapes, K7 and K3 on the Deltas chunk "
+        f"buckets {sorted(buckets, key=lambda b: b[1])} (one block per "
+        f"accuracy, three dims), K6 and K8 on the mapped velocity ({3 * B}, "
+        f"{nb}) and mass ({B}, {nb}) rows at {stats['vel_depth']} and "
+        f"{stats['mass_depth']} bits, K2 on K8's words and K1 on a velocity "
+        f"row == their plain versions bitwise; K2's decode, unmapped, == the "
+        f"batched read of vel and mass; errors {errs}")
+    return errs
+
+
+def check_zoom_streaming(mt, data, mass, deltas, stats_a, keep, blob_a,
+                         dev):
+    """(b) The first STREAM_BLOCKS blocks of (a) through the streaming
+    writer, each with its own ``pos_deltas``, velocities and masses at
+    (a)'s depths: (a)'s decoded values, bitwise."""
+    from minnow_c_tpu_torch.segment import io as seg_io
+    pos, vel, ids, _, _ = data
+    nb = pos.shape[1] // SNAP_BLOCKS
+    n = STREAM_BLOCKS * nb
+    raw = n * (3 * 4 + 3 * 4 + 8 + 4)
+    depths = {k: stats_a[f"{k}_depth"] for k in ("vel", "mass")}
+
+    def blocks():
+        for b in range(STREAM_BLOCKS):
+            sl = slice(b * nb, (b + 1) * nb)
+            yield {"pos": pos[:, sl], "vel": vel[:, sl], "ids": ids[sl],
+                   "mass": mass[sl], "pos_deltas": deltas[sl]}
+
+    torch.cuda.synchronize()
+    reset_counts()
+    buf = io.BytesIO()
+    _, t_enc, m_enc = timed(lambda: mt.compress_snapshot_streaming(
+        buf, blocks(), log_spec(mt, None), seed=SEED, depths=depths,
+        scale_mode="recip"))
+    out, t_dec, m_dec = timed(lambda: mt.decompress_snapshot(
+        io.BytesIO(buf.getvalue()), batched=True, device=dev))
+    launches = {k: fn.launches for k, fn in launch_counted().items()}
+    report("phase 8(b)", raw, ("compress_snapshot_streaming", t_enc, m_enc),
+           ("decompress_snapshot", t_dec, m_dec))
+    log(f"phase 8(b): launches in the streaming path: {launches}")
+    for k in ("pos", "vel", "mass"):
+        if not torch.equal(bits(out[k]), bits(keep[k])):
+            raise AssertionError(f"phase 8(b): streaming {k} != (a)'s decode")
+    if not torch.equal(out["ids"], ids[:n]):
+        raise AssertionError("phase 8(b): IDs did not come back exactly")
+    if any(launches[k] < 3 * STREAM_BLOCKS for k in ("K7", "K3")) or \
+            launches["K8"] < 2 * STREAM_BLOCKS:
+        raise AssertionError(f"phase 8(b) missed K7, K3 or K8: {launches}")
+    segs = [sg for _, sg in seg_io.iter_segments(io.BytesIO(buf.getvalue()))]
+    segs_a = [sg for _, sg in seg_io.iter_segments(io.BytesIO(blob_a))]
+    same = sum(a == b for a, b in zip(segs, segs_a))
+    log(f"phase 8(b): {STREAM_BLOCKS} blocks with per-block pos_deltas, vel "
+        f"and mass at depths {depths}: pos, vel, mass == (a)'s decode "
+        f"bitwise, IDs exact; {same} of {STREAM_BLOCKS} segments "
+        "byte-identical to (a)'s")
+    return launches
+
+
+def check_cli_masses(dev):
+    """(c) A Gadget-2 file with a MASS record (lognormal, all positive, so
+    the CLI log10-maps them) through the CLI on the card: compress
+    (recip), info, verify, decompress."""
+    from minnow_c_tpu_torch import __main__ as cli
+    from minnow_c_tpu_torch.drivers import gadget2
+    pos, vel, ids = cli_snapshot(dev)
+    n = ids.size
+    mass = (10.0 ** (0.5 * np.random.default_rng(SEED).standard_normal(
+        n))).astype(np.float32)
+    hdr = gadget2.Gadget2Header(
+        npart=(0, n, 0, 0, 0, 0), mass=(0.0,) * 6, time=1.0, redshift=0.0,
+        box_size=BOX, omega0=0.3, omega_lambda=0.7, hubble_param=0.7)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst, back = (os.path.join(tmp, f)
+                          for f in ("snap.g2", "snap.g2.min", "back.g2"))
+        with open(src, "wb") as f:
+            gadget2.write_snapshot(f, hdr, pos, vel, ids, mass=mass)
+        raw = os.path.getsize(src)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        walls = {}
+        for name, argv in (
+                ("compress", ["compress", src, dst, "--scale-mode", "recip",
+                              "--device", dev.type]),
+                ("info", ["info", dst]), ("verify", ["verify", dst]),
+                ("decompress", ["decompress", dst, back, "--device",
+                                dev.type])):
+            t = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t
+            if rc != 0:
+                raise AssertionError(f"phase 8(c): {name} exited {rc}")
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: fn.launches for k, fn in launch_counted().items()}
+        size = os.path.getsize(dst)
+        with open(back, "rb") as f:
+            _, p2, v2, i2, m2 = gadget2.read_snapshot_ext(f)
+    e = np.abs(p2.astype(np.float64) - pos)
+    ep = float(np.minimum(e, BOX - e).max())
+    ev = float(np.abs(v2.astype(np.float64) - vel).max())
+    em = float(np.abs(m2.astype(np.float64) / mass - 1.0).max())
+    lm = np.log10(mass.astype(np.float64))
+    em_bound = float((np.abs(np.log10(m2.astype(np.float64)) - lm) /
+                      (MASS_LOG_DELTA + ENV_CONST + ENV_SLOPE * np.abs(lm))
+                      ).max())
+    rt = walls["compress"] + walls["decompress"]
+    log(f"phase 8(c): {n} particles with per-particle masses, Gadget-2 file "
+        f"{raw} bytes -> {size} bytes (ratio {raw / size:.3f}); walls "
+        f"{ {k: round(v, 4) for k, v in walls.items()} } s; compress "
+        f"{raw / walls['compress'] / 1e9:.3f} GB/s, decompress "
+        f"{raw / walls['decompress'] / 1e9:.3f} GB/s, round trip "
+        f"{raw / rt / 1e9:.3f} GB/s of the Gadget-2 file; peak device "
+        f"memory {peak / 2**30:.3f} GiB")
+    log(f"phase 8(c): launches in the CLI path: {launches}")
+    if ep > POS_DELTA or ev > VEL_DELTA or em_bound > 1.0 or \
+            not np.array_equal(i2, ids):
+        raise AssertionError(f"phase 8(c): position error {ep}, velocity "
+                             f"error {ev}, mass error {em_bound} of its "
+                             "bound, or IDs not exact")
+    floor = {"K5": 14, "K4": 6, "K1": 14}
+    if any(launches[k] < v for k, v in floor.items()):
+        raise AssertionError(f"phase 8(c) missed a kernel: {launches} "
+                             f"(want at least {floor})")
+    log(f"phase 8(c): max position error {ep:.6g} <= {POS_DELTA}, velocity "
+        f"{ev:.6g} <= {VEL_DELTA}, mass relative error {em:.6g} (log10 "
+        f"map, {em_bound:.4f} of log10(1 + 1e-4) plus the unmap's "
+        f"envelope), IDs exact; launches at least {floor}")
+    return launches, check_cli_mass_kernels(mass, m2, dev)
+
+
+def check_cli_mass_kernels(mass, m2, dev, blocks: int = 2) -> dict:
+    """(c) K6, K5 and K1 against their plain versions, bitwise, on the
+    CLI's log10-mapped masses (``blocks`` blocks, as ``gadget2.compress``
+    picks them; 32 does not divide a block): K6 on the mapped rows, K5 on
+    block 0 at the written depth, K1's decode of its words.  x0, recip,
+    depth, dither key and bin width are derived as the writer and the
+    reader derive them; K1's decode, unmapped, must equal the CLI's
+    decoded masses of block 0."""
+    from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
+    from minnow_c_tpu_torch.ops import rng as _rng
+    from minnow_c_tpu_torch.quant import engine
+    nb = mass.size // blocks
+    rows = engine.map_float(torch.from_numpy(mass).to(dev).reshape(
+        blocks, nb), 1, 0.0)
+    zeros = torch.zeros(blocks, device=dev)
+    anchor = rows[:, 0].contiguous()
+    errs = {}
+    mn, mx = encode_cuda.stats_rows_cuda(rows, zeros, anchor, False)
+    want = encode_cuda.stats_rows_plain(rows, zeros, anchor, False)
+    if not all(torch.equal(bits(a), bits(b)) for a, b in zip((mn, mx),
+                                                               want)):
+        raise AssertionError("phase 8(c): K6 != plain on the mapped masses")
+    errs["K6"] = max(max_abs_err(a, b) for a, b in zip((mn, mx), want))
+    x0, x1 = mn.cpu().numpy(), mx.cpu().numpy()
+    rng = x1 - x0
+    depth = engine.delta_to_depth(MASS_LOG_DELTA, 0.0, float(rng.max()))
+    args = (depth, x0[0], kernels.exact_recip(rng)[0], 0.0,
+            rows[0, 0].item(), False)
+    words = encode_cuda.encode_recip_cuda(rows[0], *args)
+    want = encode_cuda.encode_recip_plain(rows[0], *args)
+    errs["K5"] = max_abs_err(words, want)
+    key = _rng.field_key(0, 3, 0)     # the CLI's seed 0; field 3 is mass
+    got = decode_cuda.decode_cuda(words, key, depth, nb, x0[0], rng[0], 0.0,
+                                  False)
+    want_k1 = decode_cuda.decode_plain(words, *key, np.float32(x0[0]),
+                                       kernels.bin_width(rng[0], depth),
+                                       np.float32(0.0), nb, depth, 0, False)
+    if not torch.equal(words, want) or not torch.equal(bits(got),
+                                                       bits(want_k1)):
+        raise AssertionError(f"phase 8(c): K5 or K1 != plain on the mapped "
+                             f"masses at n {nb}")
+    errs["K1"] = max_abs_err(got, want_k1)
+    cli = torch.from_numpy(np.ascontiguousarray(m2[:nb])).to(dev)
+    if not torch.equal(bits(engine.unmap_float(got, 1, 0.0)), bits(cli)):
+        raise AssertionError("phase 8(c): K1's decode of K5's words, "
+                             "unmapped, != the CLI's decoded masses")
+    log(f"phase 8(c): at n {nb} (32 does not divide it): K6 on the mapped "
+        f"masses ({blocks}, {nb}), K5 at {depth} bits and K1's decode of its "
+        f"words == their plain versions bitwise; K1's decode, unmapped, == "
+        f"the CLI's decoded masses of block 0")
+    return errs
+
+
+def card_vs_cpu_maps(vel, mass) -> None:
+    """The maps' bits on the card against the CPU on 2^20 values each:
+    the share of mapped values, of bins (the field's depth over the CPU's
+    range) and of unmapped values that differ."""
+    from minnow_c_tpu_torch.ops import kernels
+    from minnow_c_tpu_torch.quant import engine
+    m = 1 << 20
+    for name, x, mode, t, delta in (
+            ("symlog velocities", vel[0, :m], 2, SYMLOG_T, VEL_LOG_DELTA),
+            ("log10 masses", mass[:m], 1, 0.0, MASS_LOG_DELTA)):
+        on_card = engine.map_float(x, mode, t)
+        on_cpu = engine.map_float(x.cpu(), mode, t)
+        x0, x1 = (v.item() for v in kernels.minmax(on_cpu))
+        depth = engine.delta_to_depth(delta, x0, x1)
+        dx = np.float32(x1) - np.float32(x0)
+        b_card = kernels.uniform_bin_index(on_card, depth, x0, dx).cpu()
+        b_cpu = kernels.uniform_bin_index(on_cpu, depth, x0, dx)
+        u_card = engine.unmap_float(on_cpu.to(x.device), mode, t).cpu()
+        u_cpu = engine.unmap_float(on_cpu, mode, t)
+        share = [(bits(a) != bits(b)).double().mean().item()
+                 for a, b in ((on_card.cpu(), on_cpu), (b_card, b_cpu),
+                              (u_card, u_cpu))]
+        log(f"phase 8: {name}, {m} values, card against CPU: "
+            f"{share[0]:.6%} of mapped values, {share[1]:.6%} of bins (at "
+            f"{depth} bits) and {share[2]:.6%} of unmapped values differ")
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1993,7 +2495,17 @@ def main() -> int:
     check_streaming(mt, snap_data, stats_a, keep, blob_a, dev)
     del keep, blob_a
     recip_times, recip_e, k12_launches = time_recip_rows(mt, snap_data, dev)
-    del snap_data
+    # phase 8 on phase 5's snapshot while it is on the card
+    mass8, deltas8, stats8, keep8, blob8, p8a, e8 = check_zoom_snapshot(
+        mt, snap_data, dev)
+    p8b = check_zoom_streaming(mt, snap_data, mass8, deltas8, stats8, keep8,
+                               blob8, dev)
+    card_vs_cpu_maps(snap_data[1], mass8)
+    del keep8, blob8, mass8, deltas8, snap_data
+    p8c, e8c = check_cli_masses(dev)
+    e8 = {k: max(e8.get(k, 0.0), e8c.get(k, 0.0)) for k in {*e8, *e8c}}
+    p8 = {k: p8a[k] + p8b[k] + p8c[k] for k in p8a}
+    log(f"phase 8: launches on its path ((a) + (b) + (c)): {p8}")
     # the device times need traces: after phase 5's
     deltas = deltas.to(dev)
     delta_times["K9 device"] = device_ms(
@@ -2069,7 +2581,7 @@ def main() -> int:
         row = {"name": name if "(K" in name else f"{name} ({k})",
                "route": "cuda", "source": f"minnow_c_tpu_torch/csrc/{src}",
                "replaces": f"minnow_c_tpu/ops/{rep_}", "launches": n_launch,
-               "max_abs_err": err, "ms": t[k], "plain_ms": t[k + " plain"],
+               "max_abs_err": max(err, e8.get(k, 0.0)), "ms": t[k], "plain_ms": t[k + " plain"],
                "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / t[k],
                "library_ms": t.get(k + " library")}
         if k in library_calls:
@@ -2084,6 +2596,8 @@ def main() -> int:
             row["velocity_rows_ms"] = t["K6 vel"]
         if k == "K5":
             row["k4_same_bins_ms"] = t["K5 K4"]
+        # K13 is K4's kernel: its phase 8 launches are K4's
+        row["phase8_launches"] = p8["K4" if k == "K13" else k]
         kernels.append(row)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,7 +13,9 @@ Decode is a u32 prefix sum (K9, ``ops.scan_cuda``, on CUDA): the running
 sum telescopes to the original bins.  The fused float decode
 (``decompress_field_fused``) unpacks with K3, un-zigzags, scans with K9 and
 runs the engine's dither + undo tail on the device.  Per-particle-depth
-(Deltas) fields raise NotImplementedError, as in Trim.
+(Deltas) fields keep Trim v1.0's raw per-element-width planes, and the
+fused decode declines them and log-mapped fields (the generic decode
+takes them), as in the JAX package.
 
 This module is FROZEN at v1.0.
 """

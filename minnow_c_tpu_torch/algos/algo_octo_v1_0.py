@@ -11,7 +11,8 @@ dim splits into:
 
 Per-field blocks: ``meta | morton | loX | loY | loZ``.  Scalar fields fall
 back to Coil v1.0 plane coding (Octo derives from Coil); per-particle-depth
-(Deltas) fields raise NotImplementedError, as in Trim.  The ID field (Ptid)
+(Deltas) fields take Trim v1.0's layout and raw per-element-width planes,
+as in the JAX package.  The ID field (Ptid)
 uses its per-dim widths, splitting each at the same k rule.  The Morton
 interleave runs on int64 tensors holding the u32 values.
 

@@ -18,8 +18,12 @@ only that dimension (header_format.tex:186-196).
 
 Planes are packed on the device of the field's bins (the pack kernel on
 CUDA) and cross to the host as words for LZ4; decode moves the words to
-``device`` and keeps everything after LZ4 there.  The per-particle-depth
-(Deltas) planes are not ported yet and raise NotImplementedError.
+``device`` and keeps everything after LZ4 there.  Per-particle-depth
+(Deltas) planes pack each element at its own depth into one contiguous
+bitstream (``bitpack.pack`` / ``unpack``, torch ops on the device).
+The fused decode declines them: the JAX package's ``_undo_var_fused`` is
+the generic dequantize step for step, with no kernel, so the generic path
+decodes them to the same bits.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 
 from .. import semver
 from ..ops import bitpack
-from ..quant.engine import NOT_PORTED_DELTAS
+from ..quant import engine
 from ..segment.stream import Reader, Writer
 from ..types import (
     AlgoCode,
@@ -68,6 +72,18 @@ def _unpack_plane(words: np.ndarray, width: int, n: int, device):
     return bitpack.uniform_unpack(_words_tensor(words, device), width, n)
 
 
+def _pack_plane_var(bins: torch.Tensor, depths: np.ndarray) -> np.ndarray:
+    """Per-element-depth pack of one plane on its device; host u32 words."""
+    words = bitpack.pack(bins, engine.depths_tensor(depths, bins.device),
+                         bitpack.var_packed_words(depths))
+    return words.cpu().numpy().view(np.uint32)
+
+
+def _unpack_plane_var(words: np.ndarray, depths: np.ndarray, device):
+    return bitpack.unpack(_words_tensor(words, device),
+                          engine.depths_tensor(depths, device))
+
+
 def _payload_words(payload: np.ndarray) -> np.ndarray:
     return np.frombuffer(payload.tobytes(), dtype="<u4").astype(
         np.uint32, copy=False)
@@ -92,6 +108,18 @@ class TrimV1_0:
         """Inverse of _encode_plane.  Returns bins on ``device``."""
         return _unpack_plane(words, width, n, device)
 
+    def _encode_plane_var(self, bins, depths: np.ndarray):
+        """Per-particle-depth plane (Deltas mode): v1.0 packs exact
+        per-element widths (one contiguous bitstream)."""
+        return _pack_plane_var(bins, depths), 0
+
+    def _decode_plane_var(self, words: np.ndarray, depths: np.ndarray,
+                          n: int, device):
+        return _unpack_plane_var(words, depths, device)
+
+    def _depths_block(self, depths: np.ndarray) -> bytes:
+        return self._block(np.asarray(depths, dtype=np.uint8), 8)
+
     # -- compress ----------------------------------------------------------
 
     def compress(self, qf: QField) -> List[bytes]:
@@ -113,8 +141,6 @@ class TrimV1_0:
 
     def _compress_3dim_float(self, qf: QField, is_pos: bool) -> List[bytes]:
         q = qf.quant
-        if q.depths is not None:
-            raise NotImplementedError(NOT_PORTED_DELTAS)
         w = Writer()
         for v in q.x0:
             w.f32(v)
@@ -123,7 +149,7 @@ class TrimV1_0:
         if is_pos:
             w.f32(q.width)
         w.u8(q.depth)
-        w.u8(0)
+        w.u8(0 if q.depths is None else 1)
         if not is_pos:
             w.u8(q.sym_log10_scaled)
             w.u8(0)
@@ -134,8 +160,13 @@ class TrimV1_0:
         blocks = [self._block(w.data)]
         bins = qf.data.reshape(3, -1)
         for i in range(3):
-            words, wstore = self._encode_plane(bins[i], q.depth)
+            if q.depths is None:
+                words, wstore = self._encode_plane(bins[i], q.depth)
+            else:
+                words, wstore = self._encode_plane_var(bins[i], q.depths)
             blocks.append(self._block(words, wstore))
+        if q.depths is not None:
+            blocks.append(self._depths_block(q.depths))
         return blocks
 
     def _compress_id(self, qf: QField) -> List[bytes]:
@@ -156,19 +187,23 @@ class TrimV1_0:
 
     def _compress_ufloat(self, qf: QField) -> List[bytes]:
         q: FloatQuantization = qf.quant
-        if q.depths is not None:
-            raise NotImplementedError(NOT_PORTED_DELTAS)
         w = Writer()
         w.f32(q.x0).f32(q.x1)
         w.u8(q.depth)
-        w.u8(0)
+        w.u8(0 if q.depths is None else 1)
         w.u8(q.log10_scaled)
         w.u8(0)
         w.f32(q.sym_log10_threshold)
         w.u64(q.seed)
         blocks = [self._block(w.data)]
-        words, wstore = self._encode_plane(qf.data.reshape(-1), q.depth)
-        blocks.append(self._block(words, wstore))
+        bins = qf.data.reshape(-1)
+        if q.depths is None:
+            words, wstore = self._encode_plane(bins, q.depth)
+            blocks.append(self._block(words, wstore))
+        else:
+            words, wstore = self._encode_plane_var(bins, q.depths)
+            blocks += [self._block(words, wstore),
+                       self._depths_block(q.depths)]
         return blocks
 
     def _compress_uint(self, qf: QField) -> List[bytes]:
@@ -193,11 +228,12 @@ class TrimV1_0:
                                field_index: int, device):
         """words -> Field in one fused pass per plane (unpack + dither +
         undo + rewrap): the decode kernel (``ops.decode_cuda``) on CUDA, its
-        plain twin (``ops.fastpath.fast_uniform_decode``) on the CPU.
-        Returns None when the field is ineligible (non-Trim plane coding,
-        corrupt blocks, depth 0, fewer than 32 particles) -- callers fall
-        back to the generic path.  Output bits are identical to decompress
-        + dequantize (same dither spec and keys)."""
+        plain twin (``ops.fastpath.fast_uniform_decode``) on the CPU, then
+        the unmap of a log-mapped field.  Returns None when the field is
+        ineligible (non-Trim plane coding, corrupt blocks, depth 0, fewer
+        than 32 particles, per-particle depths: no kernel runs those) --
+        callers fall back to the generic path.  Output bits are identical
+        to decompress + dequantize (same dither spec and keys)."""
         code = hd.field_code
         if type(self)._decode_plane is not TrimV1_0._decode_plane:
             return None  # derived codec changed the plane wire
@@ -234,11 +270,9 @@ class TrimV1_0:
             r.u8()
             threshold = r.f32()
             seed = r.u64()
-            if has_depths:
-                raise NotImplementedError(NOT_PORTED_DELTAS)
-            if depth < 1 or n < 32 or len(blocks) < 2:
-                return None
             key = _rng.field_key(seed, field_index, 0)
+            if has_depths or depth < 1 or n < 32 or len(blocks) < 2:
+                return None
             x = plane(blocks[1], key, depth, x0,
                       np.float32(x1) - np.float32(x0), 0.0, False)
             x = unmap_float(x, log10_scaled, float(threshold))
@@ -263,13 +297,11 @@ class TrimV1_0:
         else:
             r.u16()
         seed = r.u64()
-        if has_depths:
-            raise NotImplementedError(NOT_PORTED_DELTAS)
-        if depth < 1 or n < 32 or len(blocks) < 4:
-            return None
         x0a = np.asarray(x0, dtype=np.float32)
         x1a = np.asarray(x1, dtype=np.float32)
         max_diff = float(np.float32(np.max(x1a - x0a)))
+        if has_depths or depth < 1 or n < 32 or len(blocks) < 4:
+            return None
         dims = []
         for d in range(3):
             key = _rng.field_key(seed, field_index, d)
@@ -310,9 +342,10 @@ class TrimV1_0:
             return self._decompress_uint(hd, blocks, device)
         raise ValueError(f"unrecognized field code {code:#x}")
 
-    def _decode_dims(self, hd, blocks, device):
-        """The three dimension planes; a missing block becomes a zero
-        plane marked invalid.  Returns (stacked bins, dim_valid)."""
+    def _decode_dims(self, hd, blocks, device, depths=None):
+        """The three dimension planes (at per-particle ``depths`` when
+        given); a missing block becomes a zero plane marked invalid.
+        Returns (stacked bins, dim_valid)."""
         n = hd.particle_len
         dims = []
         dim_valid = []
@@ -323,8 +356,10 @@ class TrimV1_0:
                 dim_valid.append(False)
                 continue
             payload, w, _ = decode_block(blk)
-            dims.append(self._decode_plane(_payload_words(payload), w, n,
-                                           device))
+            words = _payload_words(payload)
+            dims.append(self._decode_plane(words, w, n, device)
+                        if depths is None else
+                        self._decode_plane_var(words, depths, n, device))
             dim_valid.append(True)
         return torch.stack(dims), tuple(dim_valid)
 
@@ -345,15 +380,20 @@ class TrimV1_0:
         else:
             r.u16()
         seed = r.u64()
+        depths = None
         if has_depths:
-            raise NotImplementedError(NOT_PORTED_DELTAS)
+            if len(blocks) < 5 or blocks[4] is None:
+                return QField(hd=hd, data=None, quant=None, valid=False)
+            depths = _depths(blocks[4])
 
-        data, dim_valid = self._decode_dims(hd, blocks, device)
+        data, dim_valid = self._decode_dims(hd, blocks, device, depths)
         if is_pos:
             quant = PositionQuantization(x0=x0, x1=x1, width=width,
-                                         depth=depth, seed=seed)
+                                         depth=depth, depths=depths,
+                                         seed=seed)
         else:
             quant = VelocityQuantization(x0=x0, x1=x1, depth=depth,
+                                         depths=depths,
                                          sym_log10_scaled=symlog,
                                          sym_log10_threshold=threshold,
                                          seed=seed)
@@ -385,15 +425,22 @@ class TrimV1_0:
         r.u8()
         threshold = r.f32()
         seed = r.u64()
+        depths = None
         if has_depths:
-            raise NotImplementedError(NOT_PORTED_DELTAS)
-        quant = FloatQuantization(x0=x0, x1=x1, depth=depth,
+            if len(blocks) < 3 or blocks[2] is None:
+                return QField(hd=hd, data=None, quant=None, valid=False)
+            depths = _depths(blocks[2])
+        quant = FloatQuantization(x0=x0, x1=x1, depth=depth, depths=depths,
                                   log10_scaled=log10_scaled,
                                   sym_log10_threshold=threshold, seed=seed)
         if len(blocks) < 2 or blocks[1] is None:
             return QField(hd=hd, data=None, quant=quant, valid=False)
         payload, w, _ = decode_block(blocks[1])
-        data = self._decode_plane(_payload_words(payload), w, n, device)
+        words = _payload_words(payload)
+        if depths is None:
+            data = self._decode_plane(words, w, n, device)
+        else:
+            data = self._decode_plane_var(words, depths, n, device)
         return QField(hd=hd, data=data, quant=quant)
 
     def _decompress_uint(self, hd: FieldHeader, blocks, device) -> QField:
@@ -415,6 +462,12 @@ class TrimV1_0:
             data_hi = _unpack_plane(_payload_words(payload_hi), w_hi, n,
                                     device)
         return QField(hd=hd, data=data, quant=quant, data_hi=data_hi)
+
+
+def _depths(block: bytes) -> np.ndarray:
+    """The per-particle depths block as host u8 (a writable copy)."""
+    dp, _, _ = decode_block(block)
+    return np.array(dp, dtype=np.uint8)
 
 
 registry.register(TrimV1_0())

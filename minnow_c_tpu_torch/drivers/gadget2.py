@@ -28,7 +28,6 @@ from typing import BinaryIO, Optional, Tuple
 import numpy as np
 
 from ..parallel import snapshot
-from ..quant.engine import NOT_PORTED_MAPS
 from ..types import (FloatAccuracy, IDAccuracy, PositionAccuracy,
                      VelocityAccuracy)
 
@@ -219,9 +218,7 @@ def compress(in_fp: BinaryIO, out_fp: BinaryIO,
     driver's duty) are compressed as a UNSF field: log10-mapped when all
     masses are positive (``mass_rel_delta`` is then the relative
     accuracy), else linear with an absolute delta of
-    ``mass_rel_delta * max|m|``.  The log10 map is not ported yet: a file
-    whose per-particle masses are all positive raises NotImplementedError
-    before anything is written.  The arrays are encoded on ``device``,
+    ``mass_rel_delta * max|m|``.  The arrays are encoded on ``device``,
     ``cuda`` unless the caller asks for ``cpu``."""
     hdr, pos, vel, ids, mass = read_snapshot_ext(in_fp)
     n = ids.shape[0]
@@ -249,13 +246,14 @@ def compress(in_fp: BinaryIO, out_fp: BinaryIO,
     mass_acc = None
     if mass is not None:
         if (mass > 0).all():
-            # The JAX driver log10-maps all-positive masses (relative
-            # accuracy).
-            raise NotImplementedError(
-                "all-positive per-particle masses are compressed through "
-                f"the log10 map: {NOT_PORTED_MAPS}")
-        mass_acc = FloatAccuracy(
-            delta=float(mass_rel_delta * np.abs(mass).max()))
+            # log10 map: quantize log10(m) so the accuracy is relative;
+            # delta on the mapped axis = log10(1 + rel) ~= rel / ln(10).
+            mass_acc = FloatAccuracy(
+                delta=float(np.log10(1.0 + mass_rel_delta)),
+                log10_scaled=1)
+        else:
+            mass_acc = FloatAccuracy(
+                delta=float(mass_rel_delta * np.abs(mass).max()))
     spec = snapshot.SnapshotSpec(
         pos=PositionAccuracy(delta=pos_delta, width=hdr.box_size),
         vel=VelocityAccuracy(delta=vel_delta),

@@ -1,6 +1,9 @@
-"""L1 compute kernels as torch ops: periodic wrap/unwrap and the uniform bin
-maps of the reference's ``src/util.c``, bit-identical to the JAX package's
-``minnow_c_tpu/ops/kernels.py`` on every device.
+"""L1 compute kernels as torch ops: periodic wrap/unwrap, the uniform and
+per-element-depth bin maps of the reference's ``src/util.c`` and the
+log10 / exp2 of the float maps, as the JAX package's
+``minnow_c_tpu/ops/kernels.py`` and ``quant/engine.py`` compute them:
+bit-identical on every device, except log10 / exp2, whose bits follow
+torch's ``log`` / ``exp`` (see ``log10_f32``).
 
 Conventions shared by the port:
 
@@ -316,6 +319,89 @@ def recip_scaled_bins(x, x0, recip, box, anchor, level: int,
     x = unwrap_anchored(x, box, anchor) if periodic else ftz(x)
     q = ftz(ftz(x - _f32(x0, dev)) * _f32(recip, dev))
     return scaled_to_bins(q * float(1 << level), level).to(torch.int32)
+
+
+def _exact_pow2_f32(level: torch.Tensor) -> torch.Tensor:
+    """2^level as exact f32 for an integer tensor of per-element depths
+    (level <= 24): an integer shift converted to f32, never ``exp2``, which
+    is approximate even at integer inputs on XLA's CPU backend and would
+    shift bins against the C-exact ``(float)(1 << level)``
+    (util.c:160-166)."""
+    return (torch.ones_like(level, dtype=torch.int64)
+            << level.to(torch.int64)).to(torch.float32)
+
+
+def bin_index(x, level: torch.Tensor, x0, dx) -> torch.Tensor:
+    """Per-element-depth bin indices (util_BinIndex, util.c:145-170) as u32
+    bits in int32: ``level`` is an integer tensor of depths on x's device.
+    ``delta = (x - x0) / dx`` (IEEE); below 0 bins to 0, from 1 on to
+    2^level - 1, NaN (a constant plane) to 0 through an explicit mask --
+    torch's cast of NaN is undefined -- and the rest truncate
+    ``delta * 2^level``, an exact power-of-two scaling."""
+    dev = x.device
+    delta = exact_div(ftz(x) - _f32(x0, dev), _f32(dx, dev))
+    inside = (delta >= 0) & (delta < 1)  # False for NaN
+    si = torch.where(inside, delta * _exact_pow2_f32(level), 0.0).to(
+        torch.int64)
+    top = (torch.ones_like(si) << level.to(torch.int64)) - 1
+    return i64_to_u32(torch.where(delta >= 1, top, si))
+
+
+def _undo_bin_index(idx, nbins, x0, dx, key) -> torch.Tensor:
+    """``x0 + w*idx + u*w`` with ``w = dx / nbins``, each operation rounded
+    on its own as the JAX package's op-by-op ``undo_bin_index`` /
+    ``undo_uniform_bin_index`` round them."""
+    from . import rng as _rng
+    dev = idx.device
+    w = ftz(_f32(dx, dev) / nbins)
+    offset = ftz(_f32(x0, dev) + ftz(w * u32_to_i64(idx).to(torch.float32)))
+    u = _rng.uniform_dither(key, tuple(idx.shape), device=dev)
+    return ftz(offset + ftz(u * w))
+
+
+def undo_uniform_bin_index(idx, level: int, x0, dx, key) -> torch.Tensor:
+    """Floats from bin indices at one depth, dithered uniformly within each
+    bin (util_UndoUniformBinIndex, util.c:223-242).  ``key`` is the
+    (k0, k1) dither key; the reference's sequential xoroshiro state becomes
+    the stateless counter-based dither of ``ops.rng``."""
+    return _undo_bin_index(idx, f32_scalar(float(1 << int(level)),
+                                           idx.device), x0, dx, key)
+
+
+def undo_bin_index(idx, level: torch.Tensor, x0, dx, key) -> torch.Tensor:
+    """Per-element-depth inverse (util_UndoBinIndex, util.c:198-221)."""
+    return _undo_bin_index(idx, _exact_pow2_f32(level), x0, dx, key)
+
+
+# ---------------------------------------------------------------------------
+# log10 and exp2, as XLA lowers them (the log10 / symlog10 float maps)
+# ---------------------------------------------------------------------------
+
+LOG10_E = np.float32(0.434294492)  # f32(1 / ln 10)
+LN_2 = np.float32(0.693147182)     # f32(ln 2)
+LOG2_10 = np.float32(np.log2(10.0))
+
+
+def log10_f32(x: torch.Tensor) -> torch.Tensor:
+    """``log(x) * f32(1 / ln 10)``, two roundings: XLA's lowering of
+    ``jnp.log10``.  Its bits differ from the JAX package's only where
+    torch's ``log`` differs from XLA's (see ROADMAP.md queue 3)."""
+    c = f32_scalar(LOG10_E, x.device)
+    return ftz(ftz(torch.log(ftz(x))) * c)
+
+
+def sign_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign`` of flushed f32: -1 or +1, a zero of x's sign for a zero
+    or a subnormal, NaN for NaN (``torch.sign`` gives +0 for both)."""
+    x = ftz(x)
+    return torch.where(x > 0, 1.0, torch.where(x < 0, -1.0, x))
+
+
+def exp2_f32(y: torch.Tensor) -> torch.Tensor:
+    """``exp(f32(ln 2) * y)``, the product rounded before the exp: XLA's
+    lowering of ``jnp.exp2``."""
+    c = f32_scalar(LN_2, y.device)
+    return ftz(torch.exp(ftz(c * ftz(y))))
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,12 @@
 """ctypes bindings to the native host library (LZ4, checksum, host pack).
 
-The C++ source is the JAX package's ``minnow_c_tpu/native/minnow_native.cpp``,
-compiled read-only with the flags of ``minnow_c_tpu/native/Makefile`` into
-this package's git-ignored build directory (``_build/``), so the two
-packages share one implementation of the wire's entropy coder and checksum
-without this package importing the other.  The library is built on first
-use and again whenever the source is newer than it.  All entry points
-release the GIL for the duration of the call.
+The C++ source is this package's own ``native/minnow_native.cpp``, a
+byte-identical copy of the JAX package's (a test keeps the two equal), so
+both packages run one implementation of the wire's entropy coder and
+checksum.  It compiles with the JAX package's Makefile flags into this
+package's git-ignored build directory (``_build/``), on first use and again
+whenever the source is newer than the library.  All entry points release
+the GIL for the duration of the call.
 """
 
 from __future__ import annotations
@@ -19,11 +19,10 @@ import numpy as np
 
 from ._build import BUILD_DIR, build_locked, run_all
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "minnow_c_tpu", "native",
-    "minnow_native.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "native", "minnow_native.cpp")
 _LIB_PATH = os.path.join(BUILD_DIR, "libminnow_native.so")
-# The flags of minnow_c_tpu/native/Makefile.
+# The flags of the JAX package's native/Makefile.
 _CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-Werror",
              "-march=native", "-shared"]
 

@@ -22,15 +22,24 @@ whole float bin map and pack in the recip scale mode, 32 | nb), K2
 32 ∤ nb the blocks pack and decode row by row through K4 (or K5 in the
 recip mode) and K1.
 
+The log10 / symlog10 maps run as torch ops (``engine.map_float``) on the
+whole (block, dim) rows before the stats and again before the bin map, so
+K6, K7 and K8 see mapped rows and no kernel holds a map; the batched read
+unmaps K2's output op by op (``engine.unmap_float``).  A field with
+per-particle accuracies (Deltas mode) goes block by block through the
+segment engine and Trim v1.1 (``_encode_float_blocks_deltas``), whose
+chunk bodies pack with K7; the batched read leaves such a file to the
+per-segment decode, as the JAX package's does.
+
 ``compress_snapshot_streaming`` writes a snapshot block by block, one
 segment per block, with the same encoders at B = 1.
 
-Not ported yet: per-particle accuracies (Deltas mode) and the log10/symlog
-maps, which raise NotImplementedError; the multihost writer and reader.
+Not ported yet: the multihost writer and reader.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import BinaryIO, List, Optional
 
@@ -109,7 +118,7 @@ def _batched_stats_pos(x: torch.Tensor, width: float):
 def _batched_stats_vel(x: torch.Tensor, sym_log10_scaled: int = 0,
                        threshold: float = 0.0):
     """Velocity analog of ``_batched_stats_pos``: stats of the mapped
-    plane (the identity map; symlog raises NotImplementedError)."""
+    plane (the identity or the symlog map)."""
     xm = engine.map_float(x, 2 if sym_log10_scaled else 0, threshold)
     return _float_rows_stats(xm, None)
 
@@ -201,8 +210,8 @@ def _batched_bin_pack_vel(x: torch.Tensor, x0: torch.Tensor,
                           rng_b: torch.Tensor, depth: int,
                           sym_log10_scaled: int = 0,
                           threshold: float = 0.0, scale_mode: str = "div"):
-    """Velocity analog: recomputes the map (the identity; symlog raises
-    NotImplementedError), then bins and packs."""
+    """Velocity analog: recomputes the map (the identity or the symlog,
+    bit-identical to the stats pass's), then bins and packs."""
     xm = engine.map_float(x, 2 if sym_log10_scaled else 0, threshold)
     return _bin_pack_rows(xm, x0, rng_b, depth, None, scale_mode)
 
@@ -398,6 +407,50 @@ def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device):
     return out, widths
 
 
+def _encode_float_blocks_deltas(arr, B: int, nb: int, code, acc, seed: int,
+                                accel: int, scale_mode: str, device):
+    """Per-particle-accuracy (Deltas) snapshot encode: each block goes
+    through the segment engine (quantize, then Trim v1.1, whose chunk
+    bodies pack with K7 on the card).  ``acc.deltas`` holds one accuracy
+    per particle of ``arr``.  Returns (per-block block lists, the Trim v1.1
+    version stamp)."""
+    from ..algos.algo_trim_v1_1 import VERSION as TRIM11_VERSION
+    from ..algos.algo_trim_v1_1 import TrimV1_1
+    from ..types import Field, FieldHeader
+    codec = TrimV1_1(accel=accel)
+    deltas = acc.deltas
+    if isinstance(deltas, torch.Tensor):
+        deltas = deltas.cpu().numpy()
+    deltas = np.asarray(deltas, dtype=np.float32)
+    n = arr.shape[-1]
+    if deltas.shape[0] != n:
+        raise ValueError(
+            f"per-particle deltas length {deltas.shape[0]} != particle "
+            f"count {n}")
+    out = []
+    with phase("deltas.encode", nbytes=_nbytes(arr)):
+        for b in range(B):
+            sl = slice(b * nb, (b + 1) * nb)
+            data = arr[..., sl]
+            if not isinstance(data, torch.Tensor):
+                data = np.ascontiguousarray(data)
+            f = Field(hd=FieldHeader(code, AlgoCode.TRIM, TRIM11_VERSION,
+                                     nb),
+                      data=data, acc=dataclasses.replace(acc,
+                                                         deltas=deltas[sl]))
+            qf = engine.quantize(f, seed=seed, scale_mode=scale_mode,
+                                 device=device)
+            out.append(codec.compress(qf))
+    return out, TRIM11_VERSION
+
+
+def _blocks_box(pos, B: int, nb: int, device):
+    """Per-block bounding box (lo, hi), host (B, 3) each, of the raw
+    positions (3, B*nb)."""
+    xb = engine.as_tensor(pos, torch.float32, device).reshape(3, B, nb)
+    return xb.amin(dim=2).T.cpu().numpy(), xb.amax(dim=2).T.cpu().numpy()
+
+
 def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
                       num_blocks: int, seed: int = 0, accel: int = 1,
                       scale_mode: str = "div", mass=None,
@@ -414,17 +467,15 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
     ``scale_mode``: 'div' (default) is the C-exact division bin map;
     'recip' multiplies by the exactly rounded reciprocal of each block's
     range (``kernels.uniform_bin_index_recip``), wire-compatible, and its
-    whole float encode is one K8 launch per field when 32 | nb.
-    Per-particle accuracies and the log maps raise NotImplementedError."""
+    whole float encode is one K8 launch per field when 32 | nb.  A float
+    field whose accuracy carries per-particle ``deltas`` (one per particle
+    of the whole snapshot) is written block by block in Trim v1.1's
+    Deltas coding; its stats entry is "per-particle"."""
     if scale_mode not in ("div", "recip"):
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
     pos, vel, ids, mass = (native_order(a) for a in (pos, vel, ids, mass))
     if mass is not None and spec.mass is None:
         raise ValueError("mass array given without spec.mass accuracy")
-    for name, a in (("pos", pos), ("vel", vel), ("mass", mass)):
-        if a is not None and getattr(getattr(spec, name), "deltas",
-                                     None) is not None:
-            raise NotImplementedError(engine.NOT_PORTED_DELTAS)
     given = [a for a in (pos, vel, ids, mass) if a is not None]
     if not given:
         raise ValueError("no fields given")
@@ -437,19 +488,29 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
     stats = {}
     per_block_fields: List[List[wire.WireField]] = [[] for _ in range(B)]
 
-    def add_field(code, field_blocks):
+    def add_field(code, field_blocks, version=TRIM_VERSION):
         for b in range(B):
             per_block_fields[b].append(wire.WireField(
-                int(code), int(AlgoCode.TRIM), TRIM_VERSION,
-                field_blocks[b]))
+                int(code), int(AlgoCode.TRIM), version, field_blocks[b]))
+
+    def float_field(name, arr, code, encode):
+        acc = getattr(spec, name)
+        if getattr(acc, "deltas", None) is not None:
+            field_blocks, version = _encode_float_blocks_deltas(
+                arr, B, nb, code, acc, seed, accel, scale_mode, device)
+            stats[f"{name}_depth"] = "per-particle"
+            add_field(code, field_blocks, version)
+            return None
+        out = encode(arr, B, nb, acc, seed, accel, device,
+                     scale_mode=scale_mode)
+        stats[f"{name}_depth"] = out[1]
+        add_field(code, out[0])
+        return out
 
     geometry = None
     if pos is not None:
-        field_blocks, depth, (lo, hi) = _encode_pos_batch(
-            pos, B, nb, spec.pos, seed, accel, device,
-            scale_mode=scale_mode)
-        stats["pos_depth"] = depth
-        add_field(FieldCode.POSN, field_blocks)
+        out = float_field("pos", pos, FieldCode.POSN, _encode_pos_batch)
+        lo, hi = _blocks_box(pos, B, nb, device) if out is None else out[2]
         # IOHeader Origin/Width (header_format.tex:206-218): per-block
         # bounding box of the raw (wrapped) positions, for skip-ahead
         # spatial queries.
@@ -457,22 +518,14 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
                      tuple(float(hi[b, d] - lo[b, d]) for d in range(3)))
                     for b in range(B)]
     if vel is not None:
-        field_blocks, depth = _encode_vel_batch(
-            vel, B, nb, spec.vel, seed, accel, device,
-            scale_mode=scale_mode)
-        stats["vel_depth"] = depth
-        add_field(FieldCode.VELC, field_blocks)
+        float_field("vel", vel, FieldCode.VELC, _encode_vel_batch)
     if ids is not None:
         field_blocks, widths = _encode_id_batch(ids, B, nb, spec.ids, accel,
                                                 device)
         stats["id_widths"] = widths
         add_field(FieldCode.PTID, field_blocks)
     if mass is not None:
-        field_blocks, depth = _encode_scalar_float_batch(
-            mass, B, nb, spec.mass, seed, accel, device,
-            scale_mode=scale_mode)
-        stats["mass_depth"] = depth
-        add_field(FieldCode.UNSF, field_blocks)
+        float_field("mass", mass, FieldCode.UNSF, _encode_scalar_float_batch)
 
     # ---- serialize + chain -----------------------------------------------
     with phase("serialize"):
@@ -515,10 +568,12 @@ def compress_snapshot_streaming(fp: BinaryIO, blocks_iter,
     for ``cpu``), tensors stay on theirs.  Pass
     ``depths={"pos": d1, "vel": d2, "mass": d3}`` to pin the bit depths
     shared by all blocks (the batched reader's one-pass decode needs
-    them), else each block derives its own from its range.  A block's
-    ``<field>_deltas`` entry (Deltas mode) raises NotImplementedError; a
-    spec-level ``deltas`` raises ValueError.  Returns stats (bytes,
-    num_blocks)."""
+    them), else each block derives its own from its range.  A block may
+    carry per-particle accuracies for its own particles
+    (``pos_deltas`` / ``vel_deltas`` / ``mass_deltas``, each (nb,) f32):
+    that field of that block is written in Trim v1.1's Deltas coding.  A
+    spec-level ``deltas`` array raises ValueError: the writer cannot know
+    each block's offset into it.  Returns stats (bytes, num_blocks)."""
     if scale_mode not in ("div", "recip"):
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
     _reject_deltas(spec, "compress_snapshot_streaming")
@@ -537,8 +592,15 @@ def compress_snapshot_streaming(fp: BinaryIO, blocks_iter,
             geometry = None
 
             def float_field(arr, code, acc, dkey):
-                if blk.get(dkey + "_deltas") is not None:
-                    raise NotImplementedError(engine.NOT_PORTED_DELTAS)
+                bd = native_order(blk.get(dkey + "_deltas"))
+                if bd is not None:
+                    fbl, ver = _encode_float_blocks_deltas(
+                        arr, 1, nb, code, dataclasses.replace(acc, deltas=bd),
+                        seed, accel, scale_mode, device)
+                    fields.append(wire.WireField(int(code),
+                                                 int(AlgoCode.TRIM), ver,
+                                                 fbl[0]))
+                    return None
                 out = encoders[code](arr, 1, nb, acc, seed, accel, device,
                                      depth=depths.get(dkey),
                                      scale_mode=scale_mode)
@@ -547,8 +609,9 @@ def compress_snapshot_streaming(fp: BinaryIO, blocks_iter,
                 return out
 
             if pos is not None:
-                _, _, (lo, hi) = float_field(pos, FieldCode.POSN, spec.pos,
-                                             "pos")
+                out = float_field(pos, FieldCode.POSN, spec.pos, "pos")
+                lo, hi = _blocks_box(pos, 1, nb, device) if out is None \
+                    else out[2]
                 geometry = (tuple(float(v) for v in lo[0]),
                             tuple(float(h - l) for h, l in zip(hi[0],
                                                                lo[0])))

@@ -7,9 +7,13 @@ inverses quant.c:405-608).  Array passes run as torch ops on the device of
 the field's tensor; the tiny per-plane stats (min/max) come to the host,
 where bit depths are derived with C-exact f32 arithmetic.
 
-This slice covers all five field types at uniform depth with the linear
-map.  Per-particle accuracies (Deltas mode) and the log10/symlog maps
-raise NotImplementedError; ROADMAP.md queue 1 lists them as the next step.
+All five field types, at uniform depth or with per-particle accuracies
+(Deltas mode: one bit depth per element), and the log10 / symlog10 float
+maps.  The maps follow XLA's lowering of ``jnp.log10`` / ``jnp.exp2``
+(``kernels.log10_f32`` / ``exp2_f32``); their bits follow torch's ``log``
+and ``exp``, so log-mapped fields agree with the JAX package's within the
+contract of ROADMAP.md queue 3, while every identity-mapped field,
+Deltas mode included, is bit-identical.
 
 Integer fields (Ptid, Unsi) hold u64 values over their whole range, as
 int64 tensors that carry the u64 bits: an int64 tensor passed in is read
@@ -50,11 +54,6 @@ from ..utils.debug import debug_assert as _dbg
 
 MAX_DEPTH = 24  # f32 mantissa limit (quant.c:684-693)
 
-NOT_PORTED_DELTAS = ("per-particle accuracies (Deltas mode) are not ported "
-                     "to torch yet (ROADMAP.md queue 1)")
-NOT_PORTED_MAPS = ("log10/symlog10 float maps are not ported to torch yet "
-                   "(ROADMAP.md queue 1)")
-
 
 # ---------------------------------------------------------------------------
 # Inputs: numpy or torch -> tensors on one device
@@ -92,6 +91,28 @@ def delta_to_depth(delta: float, x0: float, x1: float) -> int:
         f"(> {MAX_DEPTH} bits of mantissa)")
 
 
+def deltas_to_depths(deltas, x0: float, x1: float) -> np.ndarray:
+    """Per-element depths (deltaToDepth array branch, quant.c:698-732): the
+    first depth with ``delta * 2^depth > x1 - x0`` in f32, as u8.  The
+    condition is monotone in depth (a power-of-two scaling), so the depth
+    is the count of failing levels, counted level by level with no
+    (n, 25) matrix; an element that no level satisfies (NaN, negative, or
+    beyond f32 granularity) raises ValueError."""
+    if isinstance(deltas, torch.Tensor):
+        deltas = deltas.cpu().numpy()
+    deltas = np.asarray(deltas, dtype=np.float32)
+    rng = np.float32(x1) - np.float32(x0)
+    depths = np.zeros(deltas.shape, dtype=np.uint8)
+    for depth in range(MAX_DEPTH + 1):
+        # C-exact (float)(1 << depth) scales (quant.c:713)
+        depths += ~(deltas * np.float32(1 << depth) > rng)
+    if depths.size and int(depths.max()) > MAX_DEPTH:
+        raise ValueError(
+            f"per-element accuracy exceeds f32 granularity over "
+            f"[{x0}, {x1}]")
+    return depths
+
+
 def depth_to_delta(depth: int, x0: float, x1: float) -> float:
     """Achieved accuracy reported back to the user (depthToDelta,
     quant.c:654-673)."""
@@ -99,16 +120,60 @@ def depth_to_delta(depth: int, x0: float, x1: float) -> float:
                  np.float32(1 << int(depth)))
 
 
+def depths_to_deltas(depths: np.ndarray, x0: float, x1: float) -> np.ndarray:
+    d = np.asarray(depths).astype(np.int64)
+    return ((np.float32(x1) - np.float32(x0)) /
+            (np.int64(1) << d).astype(np.float32)).astype(np.float32)
+
+
+def depths_tensor(depths: np.ndarray, device) -> torch.Tensor:
+    """Host u8 depths as an int64 tensor on ``device`` (copied as u8)."""
+    return torch.from_numpy(np.ascontiguousarray(depths, dtype=np.uint8)).to(
+        device).to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# Float maps (mapFloat / unmap, quant.c:735-757, and the symlog10 map)
+# ---------------------------------------------------------------------------
+
 def map_float(x, log10_scaled: int, threshold: float):
+    """The field's float map: 0 the identity, 1 ``log10(x)``, 2 the symlog
+    ``sign(x) * log10(1 + |x| * f32(1 / t))``.  The JAX package writes
+    ``|x| / t``, but every encode of its runs the map under jit with ``t``
+    a constant, and XLA compiles a division by a constant into a multiply
+    by its f32 reciprocal: that multiply is what its files hold.  Every
+    operation rounds to f32 and flushes subnormals, as XLA does on the
+    CPU."""
     if log10_scaled == 0:
         return x
-    if log10_scaled in (1, 2):
-        raise NotImplementedError(NOT_PORTED_MAPS)
+    if log10_scaled == 1:
+        return kernels.log10_f32(x)
+    if log10_scaled == 2:
+        x = kernels.ftz(x)
+        r = kernels.f32_scalar(kernels.exact_recip(np.float32(threshold)),
+                               x.device)
+        a = kernels.ftz(kernels.ftz(x.abs() * r) + 1.0)
+        return kernels.ftz(kernels.sign_f32(x) * kernels.log10_f32(a))
     raise ValueError(f"log10_scaled must be 0, 1, or 2; got {log10_scaled}")
 
 
 def unmap_float(y, log10_scaled: int, threshold: float):
-    return map_float(y, log10_scaled, threshold)
+    """Inverse float map (quant.c:735-757 analog): ``exp2(y * log2 10)``
+    with the product rounded to f32 first, and for the symlog
+    ``sign(y) * t * (exp2(|y| * log2 10) - 1)``.  Op by op, as the JAX
+    package's eager decode runs it: never one fused rounding."""
+    if log10_scaled == 0:
+        return y
+    y = kernels.ftz(y)
+    c = kernels.f32_scalar(kernels.LOG2_10, y.device)
+    if log10_scaled == 1:
+        return kernels.exp2_f32(kernels.ftz(y * c))
+    if log10_scaled == 2:
+        t = kernels.f32_scalar(threshold, y.device)
+        mag = kernels.exp2_f32(kernels.ftz(y.abs() * c))
+        return kernels.ftz(kernels.ftz(kernels.sign_f32(y) * t) *
+                           kernels.ftz(mag - 1.0))
+    raise ValueError(f"log10_scaled must be 0, 1, or 2; got {log10_scaled}")
 
 
 # ---------------------------------------------------------------------------
@@ -122,6 +187,20 @@ def undo_float_uniform(bins, x0, x1, depth: int, key):
     dx = kernels.bin_width(kernels.ftz(x1) - kernels.ftz(x0), depth)
     u = _rng.uniform_dither(key, tuple(bins.shape), device=bins.device)
     return kernels.undo_bins(bins, x0, dx, u)
+
+
+def undo_float_var(bins, x0, x1, depths: torch.Tensor, key):
+    """Per-element-depth undo: ``x0 + dx*(q + U[0,1))`` with
+    ``dx = (x1 - x0) / 2^depth`` (an exact power of two, never ``exp2``),
+    the multiply and add rounded once together as XLA fuses them in the
+    JAX package's jitted ``undo_float_var``."""
+    dev = bins.device
+    rng_v = kernels.ftz(kernels.f32_scalar(kernels.ftz(x1), dev) -
+                        kernels.f32_scalar(kernels.ftz(x0), dev))
+    dx = kernels.ftz(rng_v / kernels._exact_pow2_f32(depths))
+    u = _rng.uniform_dither(key, tuple(bins.shape), device=dev)
+    s = kernels.u32_to_i64(bins).to(torch.float32) + u
+    return kernels.fma_f32(dx, s, kernels.f32_scalar(x0, dev))
 
 
 def id_decompose(ids, width: int):
@@ -222,37 +301,54 @@ def _bin_fn(scale_mode: str):
 
 def _dims_quantize(xm, x0, x1, delta, deltas, scale_mode: str = "div"):
     """Shared 3-dim float quantize core (position/velocity both follow
-    quant.c:161-289: per-dim x0, shared max_diff range, one depth).
-    Returns (bins, depth, x0_h, x1_h)."""
-    if deltas is not None:
-        raise NotImplementedError(NOT_PORTED_DELTAS)
+    quant.c:161-289: per-dim x0, shared max_diff range, one depth or
+    per-element depths).  Returns (bins, depth, depths, x0_h, x1_h).
+    Deltas mode always takes the division map, as in the JAX package."""
     x0_h = x0.cpu().numpy()
     x1_h = x1.cpu().numpy()
     max_diff = float(np.float32(np.max(x1_h - x0_h)))
-    depth = delta_to_depth(delta, x0_h[0], x0_h[0] + max_diff)
-    fn = _bin_fn(scale_mode)
-    bins = torch.stack([fn(xm[d], depth, x0_h[d], max_diff)
+    if deltas is None:
+        depth = delta_to_depth(delta, x0_h[0], x0_h[0] + max_diff)
+        fn = _bin_fn(scale_mode)
+        bins = torch.stack([fn(xm[d], depth, x0_h[d], max_diff)
+                            for d in range(3)])
+        return bins, depth, None, x0_h, x1_h
+    depths = deltas_to_depths(deltas, x0_h[0], x0_h[0] + max_diff)
+    dt = depths_tensor(depths, xm.device)
+    bins = torch.stack([kernels.bin_index(xm[d], dt, x0_h[d], max_diff)
                         for d in range(3)])
-    return bins, depth, x0_h, x1_h
+    return bins, 0, depths, x0_h, x1_h
 
 
 def _dims_dequantize(q, data, field_index, post):
     """Shared 3-dim dequantize loop: per-dim dithered undo + ``post``
     (periodic rewrap for positions, unmap for velocities).  Returns
     (stacked dims, max_diff, x0 array)."""
-    if q.depths is not None:
-        raise NotImplementedError(NOT_PORTED_DELTAS)
     x0 = np.asarray(q.x0, dtype=np.float32)
     x1 = np.asarray(q.x1, dtype=np.float32)
     max_diff = float(np.float32(np.max(x1 - x0)))
     bins = data.reshape(3, -1)
+    dt = None if q.depths is None else depths_tensor(q.depths, bins.device)
     dims = []
     for i in range(3):
         key = _rng.field_key(q.seed, field_index, i)
-        xd = undo_float_uniform(bins[i], float(x0[i]),
-                                float(x0[i]) + max_diff, q.depth, key)
+        if dt is None:
+            xd = undo_float_uniform(bins[i], float(x0[i]),
+                                    float(x0[i]) + max_diff, q.depth, key)
+        else:
+            xd = undo_float_var(bins[i], float(x0[i]),
+                                float(x0[i]) + max_diff, dt, key)
         dims.append(post(xd))
     return torch.stack(dims), max_diff, x0
+
+
+def _dims_accuracy(q, x0, max_diff) -> dict:
+    """The decoded field's accuracy: the achieved bin width, or per
+    element at Deltas depths."""
+    if q.depths is None:
+        return dict(delta=depth_to_delta(q.depth, x0[0], x0[0] + max_diff))
+    return dict(delta=0.0, deltas=depths_to_deltas(q.depths, x0[0],
+                                                   x0[0] + max_diff))
 
 
 def _quantize_position(field: Field, seed: int, scale_mode: str,
@@ -261,13 +357,14 @@ def _quantize_position(field: Field, seed: int, scale_mode: str,
     x = as_tensor(field.data, torch.float32, device).reshape(3, -1)
     xu = torch.stack([kernels.undo_periodic(x[d], float(acc.width))
                       for d in range(3)])
-    bins, depth, x0_h, x1_h = _dims_quantize(
+    bins, depth, depths, x0_h, x1_h = _dims_quantize(
         xu, *kernels.minmax(xu), acc.delta, acc.deltas, scale_mode)
-    _dbg(lambda: int(bins.max()) < (1 << depth),
-         "position bin index exceeds 2^depth")
+    if depths is None:
+        _dbg(lambda: int(bins.max()) < (1 << depth),
+             "position bin index exceeds 2^depth")
     quant = PositionQuantization(
         x0=tuple(float(v) for v in x0_h), x1=tuple(float(v) for v in x1_h),
-        width=float(acc.width), depth=depth, depths=None, seed=seed)
+        width=float(acc.width), depth=depth, depths=depths, seed=seed)
     return QField(hd=field.hd, data=bins, quant=quant)
 
 
@@ -275,9 +372,7 @@ def _dequantize_position(qf: QField, field_index: int) -> Field:
     q: PositionQuantization = qf.quant
     data, max_diff, x0 = _dims_dequantize(
         q, qf.data, field_index, lambda xd: kernels.periodic(xd, q.width))
-    acc = PositionAccuracy(
-        delta=depth_to_delta(q.depth, x0[0], x0[0] + max_diff),
-        width=q.width)
+    acc = PositionAccuracy(width=q.width, **_dims_accuracy(q, x0, max_diff))
     return Field(hd=qf.hd, data=data, acc=acc)
 
 
@@ -285,15 +380,16 @@ def _quantize_velocity(field: Field, seed: int, scale_mode: str,
                        device) -> QField:
     acc: VelocityAccuracy = field.acc
     # The reference treats ANY nonzero SymLog10Scaled as symlog10
-    # (quant.c:248).
+    # (quant.c:248); velocities are signed, so plain log10 (flag 1) would
+    # NaN on them.
     sym = 2 if acc.sym_log10_scaled else 0
     x = as_tensor(field.data, torch.float32, device).reshape(3, -1)
     xm = map_float(x, sym, float(acc.sym_log10_threshold))
-    bins, depth, x0_h, x1_h = _dims_quantize(
+    bins, depth, depths, x0_h, x1_h = _dims_quantize(
         xm, *kernels.minmax(xm), acc.delta, acc.deltas, scale_mode)
     quant = VelocityQuantization(
         x0=tuple(float(v) for v in x0_h), x1=tuple(float(v) for v in x1_h),
-        depth=depth, depths=None, sym_log10_scaled=sym,
+        depth=depth, depths=depths, sym_log10_scaled=sym,
         sym_log10_threshold=float(acc.sym_log10_threshold), seed=seed)
     return QField(hd=field.hd, data=bins, quant=quant)
 
@@ -304,10 +400,9 @@ def _dequantize_velocity(qf: QField, field_index: int) -> Field:
         q, qf.data, field_index,
         lambda yd: unmap_float(yd, q.sym_log10_scaled,
                                q.sym_log10_threshold))
-    acc = VelocityAccuracy(
-        delta=depth_to_delta(q.depth, x0[0], x0[0] + max_diff),
-        sym_log10_scaled=q.sym_log10_scaled,
-        sym_log10_threshold=q.sym_log10_threshold)
+    acc = VelocityAccuracy(sym_log10_scaled=q.sym_log10_scaled,
+                           sym_log10_threshold=q.sym_log10_threshold,
+                           **_dims_accuracy(q, x0, max_diff))
     return Field(hd=qf.hd, data=data, acc=acc)
 
 
@@ -336,18 +431,21 @@ def _dequantize_id(qf: QField) -> Field:
 def _quantize_ufloat(field: Field, seed: int, scale_mode: str,
                      device) -> QField:
     acc: FloatAccuracy = field.acc
-    if acc.deltas is not None:
-        raise NotImplementedError(NOT_PORTED_DELTAS)
     x = as_tensor(field.data, torch.float32, device).reshape(-1)
     xm = map_float(x, int(acc.log10_scaled), float(acc.sym_log10_threshold))
     x0_t, x1_t = kernels.minmax(xm)
     x0_h = float(x0_t.item())
     x1_h = float(x1_t.item())
-    depth = delta_to_depth(acc.delta, x0_h, x1_h)
-    bins = _bin_fn(scale_mode)(
-        xm, depth, x0_h, np.float32(x1_h) - np.float32(x0_h))
+    dx = np.float32(x1_h) - np.float32(x0_h)
+    if acc.deltas is None:
+        depth, depths = delta_to_depth(acc.delta, x0_h, x1_h), None
+        bins = _bin_fn(scale_mode)(xm, depth, x0_h, dx)
+    else:
+        depth, depths = 0, deltas_to_depths(acc.deltas, x0_h, x1_h)
+        bins = kernels.bin_index(xm, depths_tensor(depths, xm.device),
+                                 x0_h, dx)
     quant = FloatQuantization(
-        x0=x0_h, x1=x1_h, depth=depth, depths=None,
+        x0=x0_h, x1=x1_h, depth=depth, depths=depths,
         log10_scaled=int(acc.log10_scaled),
         sym_log10_threshold=float(acc.sym_log10_threshold), seed=seed)
     return QField(hd=field.hd, data=bins, quant=quant)
@@ -355,15 +453,18 @@ def _quantize_ufloat(field: Field, seed: int, scale_mode: str,
 
 def _dequantize_ufloat(qf: QField, field_index: int) -> Field:
     q: FloatQuantization = qf.quant
-    if q.depths is not None:
-        raise NotImplementedError(NOT_PORTED_DELTAS)
     bins = qf.data.reshape(-1)
     key = _rng.field_key(q.seed, field_index, 0)
-    y = undo_float_uniform(bins, q.x0, q.x1, q.depth, key)
+    if q.depths is None:
+        y = undo_float_uniform(bins, q.x0, q.x1, q.depth, key)
+        acc = dict(delta=depth_to_delta(q.depth, q.x0, q.x1))
+    else:
+        y = undo_float_var(bins, q.x0, q.x1,
+                           depths_tensor(q.depths, bins.device), key)
+        acc = dict(delta=0.0, deltas=depths_to_deltas(q.depths, q.x0, q.x1))
     data = unmap_float(y, q.log10_scaled, q.sym_log10_threshold)
-    acc = FloatAccuracy(delta=depth_to_delta(q.depth, q.x0, q.x1),
-                        log10_scaled=q.log10_scaled,
-                        sym_log10_threshold=q.sym_log10_threshold)
+    acc = FloatAccuracy(log10_scaled=q.log10_scaled,
+                        sym_log10_threshold=q.sym_log10_threshold, **acc)
     return Field(hd=qf.hd, data=data, acc=acc)
 
 

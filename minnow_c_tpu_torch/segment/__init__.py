@@ -6,6 +6,8 @@ from .api import (  # noqa: F401
     compress_segment,
     decompress,
     decompress_segment,
+    from_bytes,
     quantize,
+    to_bytes,
     undo_quantize,
 )

@@ -26,6 +26,7 @@ from ..ops.checksum import checksum
 from ..quant import engine
 from ..types import CField, CSeg, Field, FieldHeader, QField, QSeg, Seg
 from . import format as wire
+from .stream import Reader, Writer
 
 
 def quantize(s: Seg, seed: int = 0, scale_mode: str = "div",
@@ -105,6 +106,41 @@ def decompress(cs: CSeg, device="cuda") -> QSeg:
         codec = registry.get(cf.hd.algo_code, cf.hd.algo_version)
         out.append(codec.decompress(cf.hd, list(blocks), device=device))
     return QSeg(fields=out)
+
+
+# ---------------------------------------------------------------------------
+# v0 byte format (funcs.c ToBytes/FromBytes, funcs.c:78-120) -- kept for
+# parity with the reference's checked-in layout.
+# ---------------------------------------------------------------------------
+
+def to_bytes(cs: CSeg) -> bytes:
+    """[FieldLen u32][per field: FieldHeader(16 B), Checksum u32,
+    DataLen u32][concatenated field blobs] (funcs.c:78-97)."""
+    w = Writer()
+    w.u32(len(cs.fields))
+    for cf in cs.fields:
+        w.u32(cf.hd.field_code)
+        w.u32(cf.hd.algo_code)
+        w.u32(cf.hd.algo_version)
+        w.i32(cf.hd.particle_len)
+        w.u32(cf.checksum)
+        w.u32(len(cf.data))
+    for cf in cs.fields:
+        w.raw(cf.data)
+    return w.data
+
+
+def from_bytes(data: bytes) -> CSeg:
+    """Inverse of to_bytes (FromBytes, funcs.c:99-120)."""
+    r = Reader(data)
+    n = r.u32()
+    metas = []
+    for _ in range(n):
+        hd = FieldHeader(field_code=r.u32(), algo_code=r.u32(),
+                         algo_version=r.u32(), particle_len=r.i32())
+        metas.append((hd, r.u32(), r.u32()))
+    return CSeg(fields=[CField(hd=hd, data=r.raw(dlen), checksum=csum)
+                        for hd, csum, dlen in metas])
 
 
 # ---------------------------------------------------------------------------

@@ -1060,3 +1060,92 @@ def test_wide_id_grid_on_cuda_matches_cpu(dev, w):
     for fused in (False, True):
         got = mt.decompress_segment(blob, fused=fused, device=dev)
         assert torch.equal(got.fields[0].data.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# Log-mapped rows and Deltas planes (the log maps and Deltas mode)
+# ---------------------------------------------------------------------------
+
+def _mapped_rows(dev, rows, n, seed):
+    """(rows, n) rows of symlog-mapped N(0, 300) velocities (t = 20) and,
+    every other row, log10-mapped lognormal masses, with edge values."""
+    from minnow_c_tpu_torch.quant import engine
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v = 300.0 * torch.randn(rows, n, generator=g, device=dev)
+    m = 10.0 ** (0.5 * torch.randn(rows, n, generator=g, device=dev))
+    x = torch.where(torch.arange(rows, device=dev)[:, None] % 2 == 0,
+                    engine.map_float(v, 2, 20.0), engine.map_float(m, 1, 0.0))
+    x[0, :3] = torch.tensor([0.0, -0.0, 1e-40], device=dev)
+    return x
+
+
+@pytest.mark.parametrize("rows, n", [(6, 65_536), (3, 4096)])
+def test_kernels_on_mapped_rows_match_plain(dev, rows, n):
+    """K6 stats, K7 pack of the div bins and K2 decode of those words, each
+    on log-mapped rows, equal their plain versions bitwise."""
+    x = _mapped_rows(dev, rows, n, rows)
+    _same_stats(x)
+    box = torch.zeros(rows, device=dev)
+    mn, mx = encode_cuda.stats_rows_cuda(x, box, x[:, 0].contiguous(), False)
+    rng = kernels.ftz(mx - mn)
+    for width in (12, 17, 24):
+        bins = kernels.uniform_bin_index(x, width, mn[:, None], rng[:, None])
+        words = encode_cuda.pack_rows_cuda(bins, width)
+        assert torch.equal(words, encode_cuda.pack_rows_plain(bins, width))
+        keys = torch.tensor([[7, 8]], device=dev).expand(rows, 2)
+        got = decode_cuda.decode_rows_cuda(words, keys, width, n, mn, rng)
+        want = decode_cuda.decode_rows_plain(words, keys, mn,
+                                             kernels.bin_width(rng, width),
+                                             0.0, n, width)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 257, 40_000])
+def test_deltas_trim_v1_1_plane_on_cuda_matches_cpu(dev, n):
+    """A Trim v1.1 segment with per-particle accuracies (positions,
+    symlog velocities, log10 masses) encoded from CUDA tensors gives the
+    CPU's bytes where the map is the identity, and decodes on CUDA
+    (generic and fused) to the CPU decode of the same bytes within the
+    maps' unmap; the Deltas planes pack with K7 and unpack with K3."""
+    rng = np.random.default_rng(n)
+    pos = rng.uniform(0, 64, (3, n)).astype(np.float32)
+    mass = (10 ** rng.normal(0, 0.5, n)).astype(np.float32)
+    dl = np.where(np.arange(n) < n // 4, 1e-4, 1e-3).astype(np.float32)
+    v = mt.semver.pack(1, 1, 0)
+    F = mt.FieldCode
+
+    def seg(device, log):
+        def field(code, data, acc):
+            return mt.Field(hd=mt.FieldHeader(code, mt.AlgoCode.TRIM, v, n),
+                            data=torch.from_numpy(data).to(device), acc=acc)
+        return mt.Seg(fields=[
+            field(F.POSN, pos, mt.PositionAccuracy(delta=0.0, width=64.0,
+                                                   deltas=dl)),
+            field(F.UNSF, mass, mt.FloatAccuracy(
+                delta=0.0, deltas=dl, log10_scaled=1 if log else 0))])
+
+    before = (encode_cuda.pack_rows_cuda.launches,
+              decode_cuda.unpack_rows_cuda.launches)
+    blob = mt.compress_segment(seg(dev, False), seed=2)
+    assert blob == mt.compress_segment(seg("cpu", False), seed=2,
+                                       device="cpu")
+    for fused in (False, True):
+        got = mt.decompress_segment(blob, fused=fused, device=dev)
+        want = mt.decompress_segment(blob, fused=fused, device="cpu")
+        for a, b in zip(got.fields, want.fields):
+            assert a.data.is_cuda
+            assert np.array_equal(a.data.cpu().numpy().view(np.uint8),
+                                  b.data.numpy().view(np.uint8))
+    after = (encode_cuda.pack_rows_cuda.launches,
+             decode_cuda.unpack_rows_cuda.launches)
+    assert n < 256 or all(a > b for a, b in zip(after, before))
+    # log10 masses on Deltas: CUDA and CPU decodes of one file agree within
+    # the unmap's 1-ulp exp, and both meet the per-particle accuracy
+    blob = mt.compress_segment(seg(dev, True), seed=2)
+    got = mt.decompress_segment(blob, fused=True, device=dev).fields[1].data
+    want = mt.decompress_segment(blob, device="cpu").fields[1].data
+    err = np.abs(np.log10(got.cpu().numpy().astype(np.float64)) -
+                 np.log10(mass))
+    assert (err <= dl + 1.2e-6).all()
+    assert (torch.abs(got.cpu() - want) <= 2 * torch.finfo(
+        torch.float32).eps * want.abs()).all()

@@ -94,11 +94,25 @@ def test_gadget2_files_match_jax(mode, n, masses, blocks):
 
 
 def test_gadget2_positive_masses_raise():
+    """All-positive per-particle masses take the log10 map (relative
+    accuracy ``mass_rel_delta``), as in the JAX driver; the log map's bits
+    follow torch's ``log`` / ``exp`` (tests/test_torch_logmaps.py), so the
+    files are compared by what they decode to: each package's file, read
+    by either package, gives every mass within the relative accuracy, and
+    positions, velocities and IDs as the uniform fields give them."""
     raw = gadget2_file(1024, "positive")
-    out = io.BytesIO()
-    with pytest.raises(NotImplementedError, match="log10"):
-        tg2.compress(io.BytesIO(raw), out, num_blocks=2, device="cpu")
-    assert out.getvalue() == b""
+    _, pos0, vel0, ids0, mass0 = jg2.read_snapshot_ext(io.BytesIO(raw))
+    files = [_compress(jg2, raw, num_blocks=2),
+             _compress(tg2, raw, num_blocks=2, device="cpu")]
+    for blob in files:
+        for g2, kw in ((jg2, {}), (tg2, {"device": "cpu"})):
+            hdr, pos, vel, ids, mass = tg2.read_snapshot_ext(
+                io.BytesIO(_decompress(g2, blob, **kw)))
+            assert (np.abs(mass / mass0 - 1) <= 1.0001e-4).all()
+            e = np.abs(pos - pos0)
+            assert np.minimum(e, BOX - e).max() <= 1e-3
+            assert np.abs(vel - vel0).max() <= 1.0
+            assert np.array_equal(ids, ids0)
 
 
 def _run(main, argv, capsys):

@@ -395,10 +395,15 @@ def test_streaming_from_tensors_and_errors():
         fb, _blocks(pos, vel, ids, mass, 1024, True), _spec(mnw, jsnap),
         scale_mode="recip")
     assert fa.getvalue() == fb.getvalue()
-    bad = dict(blocks[0], pos_deltas=np.full(1024, 1e-3, np.float32))
-    with pytest.raises(NotImplementedError, match="Deltas"):
-        mt.compress_snapshot_streaming(io.BytesIO(), iter([bad]),
-                                       _spec(mt, mt), device="cpu")
+    # a block's own per-particle accuracies (Deltas mode) give JAX's bytes
+    pd = np.full(1024, 1e-3, np.float32)
+    fa, fb = io.BytesIO(), io.BytesIO()
+    mt.compress_snapshot_streaming(fa, iter([dict(blocks[0], pos_deltas=pd)]),
+                                   _spec(mt, mt), device="cpu")
+    jsnap.compress_snapshot_streaming(
+        fb, iter([dict(next(_blocks(pos, vel, ids, mass, 1024, True)),
+                       pos_deltas=pd)]), _spec(mnw, jsnap))
+    assert fa.getvalue() == fb.getvalue()
     deltas = np.full(2048, 1e-3, np.float32)
     with pytest.raises(ValueError, match="spec-level"):
         mt.compress_snapshot_streaming(io.BytesIO(), iter(blocks),
@@ -421,11 +426,19 @@ def test_scale_mode_errors():
                                        device="cpu")
     with pytest.raises(ValueError, match="scale_mode"):
         fastpath.fast_uniform_encode(_t(pos[0]), 8, scale_mode="exp")
+    # symlog velocities in the recip mode: the mapped rows go through the
+    # recip map; the velocities decode within the mapped-space accuracy
+    # (the map's bits follow torch's log, tests/test_torch_logmaps.py)
     symlog = dataclasses.replace(_spec(mt, mt), vel=mt.VelocityAccuracy(
-        delta=1.0, sym_log10_scaled=2, sym_log10_threshold=1.0))
-    with pytest.raises(NotImplementedError, match="symlog"):
-        mt.compress_snapshot(io.BytesIO(), pos, vel, ids, symlog, 2,
-                             scale_mode="recip", mass=mass, device="cpu")
+        delta=1e-3, sym_log10_scaled=2, sym_log10_threshold=1.0))
+    f = io.BytesIO()
+    mt.compress_snapshot(f, pos, vel, ids, symlog, 2, scale_mode="recip",
+                         mass=mass, device="cpu")
+    out = mt.decompress_snapshot(io.BytesIO(f.getvalue()), device="cpu")
+
+    def sl(v):
+        return np.sign(v) * np.log10(1.0 + np.abs(v.astype(np.float64)))
+    assert np.abs(sl(out["vel"].numpy()) - sl(vel)).max() <= 1e-3 + 1.2e-6
 
 
 @pytest.mark.parametrize("mode", ["div", "recip"])

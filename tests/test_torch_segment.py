@@ -24,12 +24,23 @@ import minnow_c_tpu_torch as mt
 from minnow_c_tpu.segment import api as japi
 from minnow_c_tpu_torch import interop
 from minnow_c_tpu_torch.segment import api as tapi
-from test_freeze import FIXTURE, reference_segment
+from test_freeze import FIXTURE, deltas_segment, reference_segment
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VERSIONS = {"trim": mt.semver.pack(1, 0, 0),
             "trim_v1_1": mt.semver.pack(1, 1, 0)}
 SEED = 777
+# the freeze test's Deltas-mode segments (per-particle accuracies) and seed
+DELTAS = {"trim_deltas": VERSIONS["trim"],
+          "trim_v1_1_deltas": VERSIONS["trim_v1_1"]}
+DELTAS_SEED = 888
+
+
+def _frozen_segment(name):
+    """The freeze test's segment and seed behind fixture entry ``name``."""
+    if name in DELTAS:
+        return deltas_segment(mnw.AlgoCode.TRIM, DELTAS[name]), DELTAS_SEED
+    return reference_segment(mnw.AlgoCode.TRIM, VERSIONS[name]), SEED
 
 
 def _digest(seg) -> str:
@@ -58,19 +69,17 @@ def fixture_digests():
 
 @pytest.fixture(scope="module")
 def jax_blobs():
-    return {name: japi.compress_segment(
-        reference_segment(mnw.AlgoCode.TRIM, ver), seed=SEED)
-        for name, ver in VERSIONS.items()}
+    return {name: japi.compress_segment(*_frozen_segment(name))
+            for name in [*VERSIONS, *DELTAS]}
 
 
 def _port_blob(name, scale_mode="div"):
-    seg = interop.seg_from_reference(
-        reference_segment(mnw.AlgoCode.TRIM, VERSIONS[name]))
-    return mt.compress_segment(seg, seed=SEED, scale_mode=scale_mode,
-                               device="cpu")
+    seg, seed = _frozen_segment(name)
+    return mt.compress_segment(interop.seg_from_reference(seg), seed=seed,
+                               scale_mode=scale_mode, device="cpu")
 
 
-@pytest.mark.parametrize("name", sorted(VERSIONS))
+@pytest.mark.parametrize("name", sorted([*VERSIONS, *DELTAS]))
 def test_encode_matches_jax_and_fixture(name, jax_blobs, fixture_digests):
     blob = _port_blob(name)
     assert blob == jax_blobs[name]
@@ -80,10 +89,24 @@ def test_encode_matches_jax_and_fixture(name, jax_blobs, fixture_digests):
 
 
 @pytest.mark.parametrize("fused", [False, True])
-@pytest.mark.parametrize("name", sorted(VERSIONS))
+@pytest.mark.parametrize("name", sorted([*VERSIONS, *DELTAS]))
 def test_decode_matches_fixture(name, fused, jax_blobs, fixture_digests):
     seg = mt.decompress_segment(jax_blobs[name], fused=fused, device="cpu")
     assert _digest(seg) == fixture_digests[f"{name}_decode_sha256"]
+
+
+def test_port_covers_27_frozen_entries(fixture_digests):
+    """The port's digest tests (this file's Trim and Deltas entries, and
+    tests/test_torch_delta.py's delta codecs) pin 27 of the fixture's 42
+    entries; the rest are Sort and Cart, not ported yet."""
+    from test_torch_delta import CODECS
+    names = [*VERSIONS, *DELTAS, *CODECS]
+    keys = {f"{n}_{k}" for n in names
+            for k in ("encode_sha256", "decode_sha256", "bytes")}
+    assert len(fixture_digests) == 42
+    assert len(keys) == 27 and keys <= set(fixture_digests)
+    assert all(k.startswith(("sort", "cart"))
+               for k in set(fixture_digests) - keys)
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -179,17 +202,28 @@ def test_transcode_matches_jax(jax_blobs):
 
 
 def test_unported_modes_raise():
+    """Deltas mode and the log10 map, once refused, are ported: the
+    Deltas field's bytes are JAX's; the log10 field decodes within its
+    mapped-space accuracy (its bits follow torch's log,
+    tests/test_torch_logmaps.py)."""
     n = 64
     hd = mt.FieldHeader(mt.FieldCode.UNSF, mt.AlgoCode.TRIM,
                         VERSIONS["trim"], n)
+    jhd = mnw.FieldHeader(mnw.FieldCode.UNSF, mnw.AlgoCode.TRIM,
+                          VERSIONS["trim"], n)
     x = np.linspace(1, 2, n, dtype=np.float32)
-    deltas = mt.Field(hd=hd, data=x, acc=mt.FloatAccuracy(
-        delta=0.0, deltas=np.full(n, 1e-3, np.float32)))
+    dl = np.full(n, 1e-3, np.float32)
+    deltas = mt.Field(hd=hd, data=x, acc=mt.FloatAccuracy(delta=0.0,
+                                                          deltas=dl))
+    assert mt.compress_segment(mt.Seg(fields=[deltas]), device="cpu") == \
+        japi.compress_segment(mnw.Seg(fields=[mnw.Field(
+            hd=jhd, data=x, acc=mnw.FloatAccuracy(delta=0.0, deltas=dl))]))
     log10 = mt.Field(hd=hd, data=x, acc=mt.FloatAccuracy(delta=1e-3,
                                                          log10_scaled=1))
-    for f in (deltas, log10):
-        with pytest.raises(NotImplementedError):
-            mt.compress_segment(mt.Seg(fields=[f]), device="cpu")
+    blob = mt.compress_segment(mt.Seg(fields=[log10]), device="cpu")
+    got = mt.decompress_segment(blob, device="cpu").fields[0].data.numpy()
+    err = np.abs(np.log10(got.astype(np.float64)) - np.log10(x))
+    assert err.max() <= 1e-3 + 1.2e-6
     # u64 values past 2^63 are ported: they round-trip as u64 bits
     hd_i = mt.FieldHeader(mt.FieldCode.UNSI, mt.AlgoCode.TRIM,
                           VERSIONS["trim"], 2)
@@ -348,7 +382,8 @@ def test_import_leaves_jax_out():
 
 COPIED = ["types.py", "semver.py", "segment/stream.py", "segment/format.py",
           "segment/io.py", "ops/checksum.py", "ops/entropy.py",
-          "algos/blocks.py", "algos/registry.py", "utils/debug.py"]
+          "algos/blocks.py", "algos/registry.py", "utils/debug.py",
+          "native/minnow_native.cpp"]
 
 
 @pytest.mark.parametrize("path", COPIED)
