@@ -33,9 +33,10 @@ and the script exits non-zero:
    1-24 over rows shorter than, equal to and longer than a tile; K4's
    kernel at 2 * 16384 bins as the counterpart of K13 (pack_pallas_tiles);
 3. the frozen wire: Trim v1.0 / v1.1 (with and without per-particle
-   accuracies), Diff v1.0, Coil v1.0 / v1.1 and Octo v1.0 / v1.1 segments
+   accuracies), Diff v1.0, Coil v1.0 / v1.1, Octo v1.0 / v1.1, Sort v1.0 /
+   v1.1 / v1.2 (and its order-free stream, v1.2.1) and Cart v1.0 segments
    encoded from CUDA tensors and decoded on CUDA (generic and fused) match
-   27 entries of tests/fixtures/wire_digests.json; u64 fields
+   all 42 entries of tests/fixtures/wire_digests.json; u64 fields
    over their whole range (Unsi values past 2^63 and up to 2^64 - 1, IDs on
    grids past 2^21 a side with the top bit set) encoded from CUDA tensors
    equal the CPU's bytes and decode on CUDA to the same u64 bits;
@@ -96,9 +97,25 @@ and the script exits non-zero:
    (c) a 250^3 Gadget-2 file with a MASS record through the CLI (compress
    --scale-mode recip, info, verify, decompress), masses within their
    relative accuracy; K6, K5 and K1 against their plain versions on the
-   mapped masses (K1's decode, unmapped, == the CLI's masses).
+   mapped masses (K1's decode, unmapped, == the CLI's masses);
+9. the Sort and Cart codecs at full size, on phase 6's 2^24 particles in
+   ID order: (a) Sort v1.0, v1.1, v1.2 and Cart v1.0 round trips of the
+   segment on CUDA (positions within their delta, periodic distance,
+   velocities within theirs, IDs exact), encode and decode walls (median
+   of 3), ratios beside Trim's and Coil v1.1's and launch counts; (b) the
+   order-free profile (v1.2.1) on a 2^24 UNSI field of permuted IDs, whose
+   decode equals the sorted input bitwise, and on an UNSF field (the x
+   velocities), within its delta of the sorted input; (c) the card's bytes
+   equal to the port's CPU bytes for each codec on the first 2^21
+   particles (Sort v1.2 at 16384-element chunks); (d) the path's kernels
+   against their plain versions, bitwise, at its shapes: K9 on Sort v1.0's
+   delta stream, K7 and K3 on its width buckets, K4 on Sort v1.0's 24-bit
+   rank stream and on Cart's plane, K10 on Sort v1.2's sorted-delta stream
+   (no un-zigzag) and rank stream (un-zigzag), then the ranked un-permute
+   gather alone and Cart's decode split into undo-delta, undo-transpose
+   and unpack (CUDA events).
 
-The phases run in the order 1, 2, 3, 4, 6, 7(c), 7(d), 5, 7(a), 7(b),
+The phases run in the order 1, 2, 3, 4, 6, 9, 7(c), 7(d), 5, 7(a), 7(b),
 7(e), 8: a torch.profiler trace (phase 5's busy share, the kernels' device
 times) leaves the card's tracing hooks in place, which can add to every
 later CUDA-event time, so the paths whose kernels take well under a
@@ -111,7 +128,8 @@ read just after.  The last line is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts (K1 and K4 from phase
 4, the rows kernels from phase 5, the delta kernels from phase 6, K5 from
 phase 7(c), K8 from 7(a), K12 from its one-pass run in 7(e), K13 as K4's
-kernel) and on phase 8's path ((a) + (b) + (c)), errors, times, bounds
+kernel), on phase 8's path ((a) + (b) + (c)) and on phase 9's ((a) +
+(b)), errors, times, bounds
 (the bytes each input read once and each output written once at 3.35
 TB/s, or the float operations at 67 TFLOP/s, whichever is longer), the
 share of the bound reached, and the library call's time where one
@@ -910,6 +928,18 @@ def deltas_segment(mt, algo: int, version: int, dev):
     ])
 
 
+def order_free_segment(mt, algo: int, version: int, dev):
+    """The freeze test's Sort v1.2.1 stream (tests/test_freeze.py
+    current_digests: one UNSI field of permuted values), rebuilt here with
+    numpy and moved to the card."""
+    rng = np.random.default_rng(54321)
+    n = 4096
+    ui = (rng.permutation(1 << 18)[:n] + 3).astype(np.int64)
+    hd = mt.FieldHeader(mt.FieldCode.UNSI, algo, version, n)
+    return mt.Seg(fields=[mt.Field(hd=hd, data=torch.from_numpy(ui).to(dev),
+                                   acc=mt.IntAccuracy())])
+
+
 def decode_digest(seg) -> str:
     h = hashlib.sha256()
     for f in seg.fields:
@@ -922,16 +952,23 @@ def check_frozen_wire(mt, dev) -> None:
         want = json.load(f)
     A = mt.AlgoCode
     v10, v11 = mt.semver.pack(1, 0, 0), mt.semver.pack(1, 1, 0)
+    v12, v121 = mt.semver.pack(1, 2, 0), mt.semver.pack(1, 2, 1)
     matched = 0
     for name, algo, version in (
             ("trim", A.TRIM, v10), ("trim_v1_1", A.TRIM, v11),
             ("diff", A.DIFF, v10), ("coil", A.COIL, v10),
             ("coil_v1_1", A.COIL, v11), ("octo", A.OCTO, v10),
-            ("octo_v1_1", A.OCTO, v11), ("trim_deltas", A.TRIM, v10),
-            ("trim_v1_1_deltas", A.TRIM, v11)):
+            ("octo_v1_1", A.OCTO, v11), ("sort", A.SORT, v10),
+            ("sort_v1_1", A.SORT, v11), ("sort_v1_2", A.SORT, v12),
+            ("cart", A.CART, v10), ("trim_deltas", A.TRIM, v10),
+            ("trim_v1_1_deltas", A.TRIM, v11),
+            ("sort_v1_2_orderfree", A.SORT, v121)):
         if name.endswith("_deltas"):
             blob = mt.compress_segment(
                 deltas_segment(mt, algo, version, dev), seed=888)
+        elif name.endswith("_orderfree"):
+            blob = mt.compress_segment(
+                order_free_segment(mt, algo, version, dev), seed=777)
         else:
             blob = mt.compress_segment(
                 reference_segment(mt, algo, version, dev), seed=777)
@@ -951,8 +988,10 @@ def check_frozen_wire(mt, dev) -> None:
         matched += 3
         log(f"phase 3: {name} encode {enc[:16]}.. ({len(blob)} B) and "
             "decode (generic, fused) match the frozen digests on CUDA")
-    log(f"phase 3: {matched} of the fixture's {len(want)} entries match on "
-        "CUDA (the rest are Sort and Cart, not ported)")
+    if matched != len(want):
+        raise AssertionError(f"phase 3: {matched} of the fixture's "
+                             f"{len(want)} entries checked")
+    log(f"phase 3: all {matched} of the fixture's entries match on CUDA")
 
 
 def u64_cases():
@@ -1595,6 +1634,261 @@ def chunked_calls(body, widths, first, chunk, n, depth):
             (lambda: chunked_cuda.decode_chunked_stream_floats(*fargs),
              lambda: chunked_cuda.decode_chunked_stream_floats_plain(
                  *fargs)))
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the Sort and Cart codecs at full size
+# ---------------------------------------------------------------------------
+
+# codec, version, and the least launches each must make in one compress +
+# decode of the three fields (9 planes)
+SORT_CODECS = (("Sort v1.0", "SORT", (1, 0, 0),
+                {"K7": 9, "K4": 9, "K3": 9, "K9": 9}),
+               ("Sort v1.1", "SORT", (1, 1, 0),
+                {"K7": 18, "K3": 18, "K9": 18}),
+               ("Sort v1.2", "SORT", (1, 2, 0), {"K7": 18, "K10": 18}),
+               ("Cart v1.0", "CART", (1, 0, 0), {"K4": 9}))
+ORDER_FREE = (1, 2, 1)
+CUT = 1 << 21          # phase 9(c): reaches Sort v1.2's 16384-element chunks
+
+
+def median_walls(fn, reps: int = 3):
+    """(first result, median wall seconds, largest peak memory) of ``reps``
+    calls of ``fn``, each timed as ``timed`` times it."""
+    runs = [timed(fn) for _ in range(reps)]
+    return (runs[0][0], float(np.median([r[1] for r in runs])),
+            max(r[2] for r in runs))
+
+
+def counts() -> dict:
+    return {k: fn.launches for k, fn in launch_counted().items()}
+
+
+def three_fields(mt, data, algo: str, ver, n=None):
+    """Phase 6's position, velocity and ID fields (the first ``n``
+    particles) as one segment under ``algo`` at version ``ver``."""
+    pos, vel, ids = data
+    n = ids.numel() if n is None else n
+    F = mt.FieldCode
+
+    def hd(code):
+        return mt.FieldHeader(code, getattr(mt.AlgoCode, algo),
+                              mt.semver.pack(*ver), n)
+
+    return mt.Seg(fields=[
+        mt.Field(hd=hd(F.POSN), data=pos[:, :n],
+                 acc=mt.PositionAccuracy(delta=POS_DELTA, width=BOX)),
+        mt.Field(hd=hd(F.VELC), data=vel[:, :n],
+                 acc=mt.VelocityAccuracy(delta=VEL_DELTA)),
+        mt.Field(hd=hd(F.PTID), data=ids[:n],
+                 acc=mt.IDAccuracy(width=SIDE))])
+
+
+def scalar_fields(mt, perm, x):
+    """(b)'s order-free segments: an UNSI field of permuted IDs and an UNSF
+    field, each on its own, at Sort v1.2.1."""
+    def seg(code, data, acc):
+        hd = mt.FieldHeader(code, mt.AlgoCode.SORT,
+                            mt.semver.pack(*ORDER_FREE), data.numel())
+        return mt.Seg(fields=[mt.Field(hd=hd, data=data, acc=acc)])
+    return (("UNSI", seg(mt.FieldCode.UNSI, perm, mt.IntAccuracy())),
+            ("UNSF", seg(mt.FieldCode.UNSF, x,
+                         mt.FloatAccuracy(delta=VEL_DELTA))))
+
+
+def check_sort_path(mt, data, dev):
+    """(a) Sort v1.0, v1.1, v1.2 and Cart v1.0 round trips of phase 6's
+    2^24-particle segment, and (b) the order-free profile on a 2^24 UNSI
+    field of permuted IDs and an UNSF field, on CUDA: bounds, exact IDs,
+    walls (median of 3), ratios beside Trim's and Coil v1.1's, launch
+    counts.  Returns the launches of (a) + (b)."""
+    pos, vel, ids = data
+    n = ids.numel()
+    raw = n * (3 * 4 + 3 * 4 + 8)
+    sizes = {label: len(mt.compress_segment(three_fields(mt, data, algo, v),
+                                            seed=SEED))
+             for label, algo, v in (("Trim v1.0", "TRIM", (1, 0, 0)),
+                                    ("Coil v1.1", "COIL", (1, 1, 0)))}
+    torch.cuda.synchronize()
+    reset_counts()
+    launches = {k: 0 for k in launch_counted()}
+    for label, algo, ver, floor in SORT_CODECS:
+        seg = three_fields(mt, data, algo, ver)
+        before = counts()
+        blob, t_enc, m_enc = median_walls(
+            lambda: mt.compress_segment(seg, seed=SEED))
+        out, t_dec, m_dec = median_walls(
+            lambda: mt.decompress_segment(blob, device=dev))
+        runs = {k: v - before[k] for k, v in counts().items()}
+        d = (out.fields[0].data.double() - pos.double()).abs()
+        d = torch.minimum(d, BOX - d).max().item()
+        dv = (out.fields[1].data.double() - vel.double()).abs().max().item()
+        if d > POS_DELTA or dv > VEL_DELTA or \
+                not torch.equal(out.fields[2].data, ids):
+            raise AssertionError(f"phase 9(a): {label}: position error {d}, "
+                                 f"velocity error {dv}, or IDs not exact")
+        if any(runs[k] < 3 * v for k, v in floor.items()):
+            raise AssertionError(f"phase 9(a): {label} missed a kernel: "
+                                 f"{runs} (want at least 3 x {floor})")
+        sizes[label] = len(blob)
+        log(f"phase 9(a): {label}: encode {t_enc:.4f} s, decode {t_dec:.4f} "
+            f"s wall (median of 3; {raw / t_enc / 1e9:.3f} and "
+            f"{raw / t_dec / 1e9:.3f} GB/s of raw f32/u64 bytes), peak "
+            f"device memory {max(m_enc, m_dec) / 2**30:.3f} GiB; {n} "
+            f"particles, {raw} raw bytes -> {len(blob)} (ratio "
+            f"{raw / len(blob):.3f}; Trim v1.0 {raw / sizes['Trim v1.0']:.3f}"
+            f", Coil v1.1 {raw / sizes['Coil v1.1']:.3f}); max position "
+            f"error {d:.6g} <= {POS_DELTA}, velocity {dv:.6g} <= "
+            f"{VEL_DELTA}, IDs exact; launches in 3 + 3 runs {runs}")
+        del seg, blob, out
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    perm = torch.randperm(n, generator=g, device=dev) + 3
+    for label, seg in scalar_fields(mt, perm, vel[0]):
+        x = seg.fields[0].data
+        blob, t_enc, m_enc = median_walls(
+            lambda: mt.compress_segment(seg, seed=SEED))
+        out, t_dec, m_dec = median_walls(
+            lambda: mt.decompress_segment(blob, device=dev))
+        got = out.fields[0].data
+        if label == "UNSI":
+            err = 0.0
+            if not torch.equal(got, torch.arange(n, device=dev) + 3):
+                raise AssertionError("phase 9(b): order-free UNSI decode != "
+                                     "the sorted input")
+        else:
+            err = (got.double() - torch.sort(x).values.double()).abs()
+            err = err.max().item()
+            if err > VEL_DELTA:
+                raise AssertionError(f"phase 9(b): order-free UNSF error "
+                                     f"{err} > {VEL_DELTA}")
+        fraw = n * x.element_size()
+        log(f"phase 9(b): order-free {label} of {n}: encode {t_enc:.4f} s, "
+            f"decode {t_dec:.4f} s wall (median of 3), peak device memory "
+            f"{max(m_enc, m_dec) / 2**30:.3f} GiB; {fraw} raw bytes -> "
+            f"{len(blob)} (ratio {fraw / len(blob):.3f}); decode == the "
+            f"sorted input " + ("bitwise" if label == "UNSI" else
+                                f"within {err:.6g} <= {VEL_DELTA}"))
+        del blob, out
+    launches = counts()
+    log(f"phase 9: launches on its path ((a) + (b)): {launches}")
+    if not all(launches[k] > 0 for k in ("K3", "K4", "K7", "K9", "K10")):
+        raise AssertionError(f"phase 9 missed a kernel: {launches}")
+    return launches, perm
+
+
+def check_sort_cut(mt, data, perm) -> None:
+    """(c) Each codec's bytes from the card equal the port's CPU bytes on
+    the first 2^21 particles (Sort v1.2 at 16384-element chunks), and the
+    order-free profile's on 2^21 of (b)'s fields."""
+    cut = [t[..., :CUT].contiguous() for t in data]
+    cases = [(label, three_fields(mt, cut, algo, ver))
+             for label, algo, ver, _ in SORT_CODECS]
+    cases += [(f"order-free {k}", s)
+              for k, s in scalar_fields(mt, perm[:CUT], data[1][0, :CUT])]
+    for label, seg in cases:
+        on_card = mt.compress_segment(seg, seed=SEED)
+        for f in seg.fields:
+            f.data = f.data.cpu()
+        if on_card != mt.compress_segment(seg, seed=SEED, device="cpu"):
+            raise AssertionError(f"phase 9(c): {label}: card bytes != CPU "
+                                 f"bytes at {CUT} particles")
+        log(f"phase 9(c): {label}: {len(on_card)} bytes from the card == "
+            f"the CPU's at {CUT} particles")
+
+
+def check_sort_kernels(mt, data, dev) -> dict:
+    """(d) The path's kernels against their plain versions, bitwise, at its
+    shapes, on one position plane of 2^24 bins: K9 on Sort v1.0's delta
+    stream, K7 and K3 on its width buckets, K4 on Sort v1.0's rank stream
+    and on Cart's plane, K10 on Sort v1.2's sorted-delta stream (no
+    un-zigzag) and rank stream (un-zigzag); CUDA-event times beside them,
+    the un-permute gather alone and Cart's decode in its three steps.
+    Returns each kernel's largest error."""
+    from minnow_c_tpu_torch.algos import algo_sort_v1_0 as s10
+    from minnow_c_tpu_torch.algos import algo_sort_v1_2 as s12
+    from minnow_c_tpu_torch.algos import algo_cart_v1_0 as c10
+    from minnow_c_tpu_torch.algos import chunked
+    from minnow_c_tpu_torch.ops import (bitpack, chunked_cuda, decode_cuda,
+                                        encode_cuda, kernels, scan_cuda)
+    from minnow_c_tpu_torch.quant import engine
+    pos = data[0]
+    n = pos.shape[1]
+    hd = mt.FieldHeader(mt.FieldCode.POSN, mt.AlgoCode.SORT,
+                        mt.semver.pack(1, 0, 0), n)
+    qf = engine.quantize(mt.Field(hd=hd, data=pos, acc=mt.PositionAccuracy(
+        delta=POS_DELTA, width=BOX)), seed=SEED)
+    depth = qf.quant.depth
+    bins = qf.data[0].contiguous()
+    del qf
+    order, first, deltas = s10.sort_plane(bins)
+    ranks = s10.ranks_of(order)
+    sorted_vals = bins[order]
+    rank_width = s10._bits_for(n - 1)
+    errs, times = {}, {}
+
+    def same(k, fast, plain, where, want=None):
+        got, ref = fast(), plain()
+        if not torch.equal(bits(got), bits(ref)) or \
+                (want is not None and not torch.equal(got, want)):
+            raise AssertionError(f"phase 9(d): {k} != plain {where}")
+        errs[k] = max(errs.get(k, 0.0), max_abs_err(got, ref))
+        t, tp = cuda_ms(fast), cuda_ms(plain)
+        times[f"{k} {where}"] = (t, tp)
+        log(f"phase 9(d): {k} {where}: {t:.4f} ms, plain torch {tp:.4f} ms "
+            "(CUDA events, median of 5); == plain bitwise")
+
+    d = deltas.clone()
+    d[0] = first
+    same("K9", lambda: scan_cuda.cumsum_u32(d),
+         lambda: scan_cuda.cumsum_u32_plain(d),
+         f"on Sort v1.0's delta stream of {n}", sorted_vals)
+    zc, widths = chunked.chunk_widths_device(deltas)
+    for wv in (int(w) for w in np.unique(widths) if w):
+        rows = zc[torch.from_numpy(np.nonzero(widths == wv)[0]).to(dev)]
+        where = f"on its chunk rows {tuple(rows.shape)} at {wv} bits"
+        same("K7", lambda: encode_cuda.pack_rows_cuda(rows, wv),
+             lambda: encode_cuda.pack_rows_plain(rows, wv), where)
+        words = encode_cuda.pack_rows_cuda(rows, wv)
+        same("K3", lambda: decode_cuda.unpack_rows_cuda(words, wv, 256),
+             lambda: decode_cuda.unpack_rows_plain(words, wv, 256), where,
+             rows)
+    same("K4", lambda: encode_cuda.pack_cuda(ranks, rank_width),
+         lambda: encode_cuda.pack_plain(ranks, rank_width),
+         f"on Sort v1.0's rank stream at {rank_width} bits")
+    same("K4", lambda: encode_cuda.pack_cuda(bins, depth),
+         lambda: encode_cuda.pack_plain(bins, depth),
+         f"on Cart's plane at {depth} bits")
+    rz = kernels.u32_delta_zigzag(ranks)
+    rz[0] = 0
+    for label, z, start, zz, want in (
+            ("sorted-delta", deltas, first, False, sorted_vals),
+            ("rank", rz, int(ranks[0]), True, ranks)):
+        w, body = s12.encode_chunked(z, s12.KERNEL_CHUNK)
+        body = torch.from_numpy(np.frombuffer(body, np.uint32).view(
+            np.int32).copy()).to(dev)
+        same("K10", lambda: chunked_cuda.decode_chunked_stream(
+            body, w, start, s12.KERNEL_CHUNK, n, zigzag=zz),
+            lambda: chunked_cuda.decode_chunked_stream_plain(
+                body, w, start, s12.KERNEL_CHUNK, n, zigzag=zz),
+            f"on Sort v1.2's {label} stream ({w.size} chunks, zigzag={zz})",
+            want)
+    if not torch.equal(s10.unpermute(sorted_vals, ranks), bins):
+        raise AssertionError("phase 9(d): the un-permute gather != the bins")
+    gather = cuda_ms(lambda: s10.unpermute(sorted_vals, ranks))
+    words = encode_cuda.pack_cuda(bins, depth)
+    body = c10.transpose_delta(words)
+    und = kernels.u8_undo_delta_encode(body)
+    if not torch.equal(kernels.u32_undo_transpose_bytes(und), words):
+        raise AssertionError("phase 9(d): Cart's undo != its packed words")
+    split = [cuda_ms(lambda: kernels.u8_undo_delta_encode(body)),
+             cuda_ms(lambda: kernels.u32_undo_transpose_bytes(und)),
+             cuda_ms(lambda: bitpack.uniform_unpack(words, depth, n))]
+    log(f"phase 9(d): the ranked un-permute gather of {n} u32 bins: "
+        f"{gather:.4f} ms; Cart's decode of one plane ({words.numel()} "
+        f"words at {depth} bits): undo-delta {split[0]:.4f} ms, "
+        f"undo-transpose {split[1]:.4f} ms, unpack {split[2]:.4f} ms (CUDA "
+        "events, median of 5)")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -2474,7 +2768,11 @@ def main() -> int:
     data, delta_launches = check_delta_path(mt, dev)
     delta_times, delta_e, deltas, body, plane = time_delta_kernels(mt, data,
                                                                    dev)
-    del data
+    # phase 9 on phase 6's fields, before the first torch.profiler trace
+    p9, perm = check_sort_path(mt, data, dev)
+    check_sort_cut(mt, data, perm)
+    e9 = check_sort_kernels(mt, data, dev)
+    del data, perm
     cli_launches, cli_e = check_cli(dev)
     k5_times = check_fast_recip(mt, dev)
     bins13 = u32_rows(1, 2 * 16384, 17, g, dev)[0]
@@ -2581,7 +2879,8 @@ def main() -> int:
         row = {"name": name if "(K" in name else f"{name} ({k})",
                "route": "cuda", "source": f"minnow_c_tpu_torch/csrc/{src}",
                "replaces": f"minnow_c_tpu/ops/{rep_}", "launches": n_launch,
-               "max_abs_err": max(err, e8.get(k, 0.0)), "ms": t[k], "plain_ms": t[k + " plain"],
+               "max_abs_err": max(err, e8.get(k, 0.0), e9.get(k, 0.0)),
+               "ms": t[k], "plain_ms": t[k + " plain"],
                "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / t[k],
                "library_ms": t.get(k + " library")}
         if k in library_calls:
@@ -2598,6 +2897,7 @@ def main() -> int:
             row["k4_same_bins_ms"] = t["K5 K4"]
         # K13 is K4's kernel: its phase 8 launches are K4's
         row["phase8_launches"] = p8["K4" if k == "K13" else k]
+        row["phase9_launches"] = p9["K4" if k == "K13" else k]
         kernels.append(row)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,17 +6,18 @@ Usage::
 
     python -m minnow_c_tpu_torch compress   snap.g2 out.g2.min [--pos-delta X]
                                             [--scale-mode recip]
+    python -m minnow_c_tpu_torch compress   snap.0.hdf5 snap.1.hdf5 out.il.min
     python -m minnow_c_tpu_torch decompress out.g2.min snap.g2
+    python -m minnow_c_tpu_torch decompress out.il.min snap.hdf5
     python -m minnow_c_tpu_torch info       out.g2.min
     python -m minnow_c_tpu_torch verify     out.g2.min
-    python -m minnow_c_tpu_torch repack     out.g2.min out.coil.min --algo Coil
+    python -m minnow_c_tpu_torch repack     out.g2.min out.cart.min --algo Cart
     python -m minnow_c_tpu_torch query      out.g2.min --origin X Y Z
                                             --size W H D
 
 compress, decompress and repack run on ``--device`` (default ``cuda``;
-there is no fallback to the CPU).  Not ported yet: the Illustris HDF5
-driver (HDF5 inputs, ``.il.min`` files) and the Sort and Cart codecs of
-``repack``.
+there is no fallback to the CPU).  HDF5 inputs and ``.il.min`` files need
+h5py.
 """
 
 from __future__ import annotations
@@ -26,8 +27,6 @@ import sys
 
 
 _HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
-_NOT_PORTED_ILLUSTRIS = ("the Illustris HDF5 driver is not ported to torch "
-                         "yet (it needs h5py; ROADMAP.md queue 1)")
 
 
 def _is_hdf5(path: str) -> bool:
@@ -101,10 +100,15 @@ def main(argv=None):
     t.add_argument("input")
     t.add_argument("output")
     t.add_argument("--algo", required=True,
-                   help="target codec: Trim, Diff, Coil, Octo (Sort and "
-                        "Cart are not ported yet)")
+                   help="target codec: Trim, Diff, Coil, Octo, Sort, Cart")
     t.add_argument("--codec-version", default=None, metavar="X.Y.Z",
-                   help="codec version (default: newest registered)")
+                   help="codec version (default: newest registered). "
+                        "'Sort --codec-version 1.2.1' selects the "
+                        "order-free profile: the rank stream is dropped "
+                        "(much smaller files, Diff-class decode) and "
+                        "values decode in ASCENDING order -- scalar "
+                        "(Unsf/Unsi) fields only; choose it for "
+                        "order-free analysis archives")
     t.add_argument("--device", default="cuda",
                    help="torch device of the transcode (default: cuda)")
 
@@ -130,20 +134,34 @@ def main(argv=None):
         if any(hdf5) and not all(hdf5):
             raise SystemExit("cannot mix HDF5 and Gadget-2 inputs")
         if all(hdf5):
-            raise SystemExit(_NOT_PORTED_ILLUSTRIS)
-        if len(args.input) != 1:
-            raise SystemExit(
-                "Gadget-2 compress takes exactly one input file")
-        from .drivers import gadget2
-        with open(args.input[0], "rb") as fin, \
-                open(args.output, "wb") as fout:
-            stats = gadget2.compress(
-                fin, fout, pos_delta=args.pos_delta,
-                vel_delta=args.vel_delta,
-                num_blocks=args.blocks, seed=args.seed,
-                scale_mode=args.scale_mode, device=args.device)
-        n = stats["n"]
-        types = f"{stats['num_blocks']} segments"
+            from .drivers import illustris
+            with open(args.output, "wb") as fout:
+                if len(args.input) == 1:
+                    stats = illustris.compress(
+                        args.input[0], fout, pos_delta=args.pos_delta,
+                        vel_delta=args.vel_delta, seed=args.seed,
+                        scale_mode=args.scale_mode, device=args.device)
+                else:
+                    stats = illustris.compress_multi(
+                        args.input, fout, pos_delta=args.pos_delta,
+                        vel_delta=args.vel_delta, seed=args.seed,
+                        scale_mode=args.scale_mode, device=args.device)
+            n = sum(e["n"] for e in stats["meta"]["part_types"])
+            types = ", ".join(e["name"] for e in stats["meta"]["part_types"])
+        else:
+            if len(args.input) != 1:
+                raise SystemExit(
+                    "Gadget-2 compress takes exactly one input file")
+            from .drivers import gadget2
+            with open(args.input[0], "rb") as fin, \
+                    open(args.output, "wb") as fout:
+                stats = gadget2.compress(
+                    fin, fout, pos_delta=args.pos_delta,
+                    vel_delta=args.vel_delta,
+                    num_blocks=args.blocks, seed=args.seed,
+                    scale_mode=args.scale_mode, device=args.device)
+            n = stats["n"]
+            types = f"{stats['num_blocks']} segments"
         raw = sum(os.path.getsize(path) for path in args.input)
         out = os.path.getsize(args.output)
         src = args.input[0] if len(args.input) == 1 else \
@@ -152,13 +170,21 @@ def main(argv=None):
               f"(ratio {out / raw:.3f})")
     elif args.cmd == "decompress":
         if _is_illustris_min(args.input):
-            raise SystemExit(_NOT_PORTED_ILLUSTRIS)
-        from .drivers import gadget2
-        with open(args.input, "rb") as fin, \
-                open(args.output, "wb") as fout:
-            hdr = gadget2.decompress(fin, fout, device=args.device)
-        print(f"{args.output}: box {hdr.box_size}, z={hdr.redshift}, "
-              f"npart {sum(hdr.npart)}")
+            from .drivers import illustris
+            with open(args.input, "rb") as fin:
+                meta = illustris.decompress(fin, args.output,
+                                            device=args.device)
+            n = sum(e["n"] for e in meta["part_types"])
+            print(f"{args.output}: box {meta['box_size']}, "
+                  f"z={meta['redshift']}, {n} particles, "
+                  f"{len(meta['part_types'])} particle types")
+        else:
+            from .drivers import gadget2
+            with open(args.input, "rb") as fin, \
+                    open(args.output, "wb") as fout:
+                hdr = gadget2.decompress(fin, fout, device=args.device)
+            print(f"{args.output}: box {hdr.box_size}, z={hdr.redshift}, "
+                  f"npart {sum(hdr.npart)}")
     elif args.cmd == "info":
         from .segment import io as seg_io
         from . import semver
@@ -173,7 +199,6 @@ def main(argv=None):
                 print(f"segment {k}: {hd.segment_bytes} bytes, "
                       f"library v{semver.to_string(hd.version)}, {geom}")
     elif args.cmd == "repack":
-        from .algos import registry
         from .drivers.gadget2 import _write_record
         from .segment import io as seg_io
         from .segment.api import transcode_segment
@@ -182,9 +207,6 @@ def main(argv=None):
             algo = getattr(AlgoCode, args.algo.upper())
         except AttributeError:
             raise SystemExit(f"unknown codec {args.algo!r}")
-        if all(a != algo for a, _ in registry.registered()):
-            raise SystemExit(f"codec {args.algo!r} is not ported to torch "
-                             "yet (ROADMAP.md queue 1)")
         cver = None
         if args.codec_version is not None:
             from . import semver as _sv

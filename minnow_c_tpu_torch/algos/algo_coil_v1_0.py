@@ -46,14 +46,20 @@ def delta_zigzag_first(bins: torch.Tensor):
     return int(bins[0]) & kernels.M32, z
 
 
+def with_first(first: int, d: torch.Tensor) -> torch.Tensor:
+    """The u32 prefix sum of ``d`` (int32 bits) after its element 0 is set,
+    in place, to the u32 ``first``: K9 on a CUDA tensor, its plain version
+    on the CPU."""
+    first &= kernels.M32
+    d[0] = first - (1 << 32) if first >= 1 << 31 else first  # int32 bits
+    return cumsum_u32_auto(d)
+
+
 def undo_delta_zigzag_first(first: int, z: torch.Tensor) -> torch.Tensor:
     """Inverse of ``delta_zigzag_first``: un-zigzag (logical shift; the
     int32 form corrupts |delta| >= 2^30), put ``first`` in element 0's slot
     and take the u32 prefix sum."""
-    d = kernels.u32_unzigzag(z)
-    first &= kernels.M32
-    d[0] = first - (1 << 32) if first >= 1 << 31 else first  # int32 bits
-    return cumsum_u32_auto(d)
+    return with_first(first, kernels.u32_unzigzag(z))
 
 
 class CoilV1_0(TrimV1_0):

@@ -74,11 +74,8 @@ class CoilV1_1(TrimV1_0):
             return np.zeros(3, dtype=np.uint32), 0
         chunk = KERNEL_CHUNK if n >= BIG_PLANE else SMALL_CHUNK
         first, z = delta_zigzag_first(bins)
-        zc, widths = chunked.chunk_widths_auto(z, chunk)
-        n_chunks = zc.shape[0]
-        natural = np.frombuffer(chunked.pack_chunks_auto(zc, widths),
-                                dtype="<u4")
-        body = chunked_cuda.plane_to_cmajor(natural, widths, chunk)
+        widths, body = chunked.pack_cmajor(z, chunk)
+        n_chunks = widths.shape[0]
 
         head = np.array([n_chunks, first], dtype=np.uint32)
         tag = np.array([chunk.bit_length() - 1, 0, 0, 0], dtype=np.uint8)
@@ -98,10 +95,8 @@ class CoilV1_1(TrimV1_0):
             # one pass: unpack + un-zigzag + prefix sum + first (K10)
             return chunked_cuda.decode_chunked_stream(
                 _words_tensor(body, device), widths, first, chunk, n)
-        nat = chunked_cuda.plane_from_cmajor(body, widths, chunk)
-        z = chunked.unpack_chunks_auto(_words_tensor(nat, device), widths,
-                                       chunk).reshape(-1)[:n]
-        return undo_delta_zigzag_first(first, z)
+        return undo_delta_zigzag_first(
+            first, chunked.unpack_cmajor(body, widths, chunk, n, device))
 
     def decompress_field_fused(self, hd, blocks, field_index: int,
                                device):

@@ -1,4 +1,4 @@
-"""Chunked-width bitstream helpers of the Coil codecs (and, later, Sort).
+"""Chunked-width bitstream helpers of the Coil, Octo and Sort codecs.
 
 Port of ``minnow_c_tpu/algos/chunked.py``.  Chunks of ``CHUNK`` elements
 pack at per-chunk widths, each chunk starting on a u32 word boundary (CHUNK
@@ -221,3 +221,23 @@ def unpack_chunks_auto(body: torch.Tensor, widths: np.ndarray,
         return unpack_chunks_device(body, widths, chunk)
     vals = unpack_chunks(body.numpy().view(np.uint32), widths, chunk)
     return torch.from_numpy(vals.view(np.int32))
+
+
+def pack_cmajor(z: torch.Tensor, chunk: int):
+    """A u32 stream (int32 bits) -> (widths, the packed chunk bodies in the
+    column-major wire layout of Coil v1.1 and Sort v1.2, host u32 words)."""
+    from ..ops.chunked_cuda import plane_to_cmajor
+    zc, widths = chunk_widths_auto(z, chunk)
+    natural = np.frombuffer(pack_chunks_auto(zc, widths), dtype="<u4")
+    return widths, plane_to_cmajor(natural, widths, chunk)
+
+
+def unpack_cmajor(body: np.ndarray, widths: np.ndarray, chunk: int, n: int,
+                  device) -> torch.Tensor:
+    """Inverse of ``pack_cmajor`` by the generic route (natural layout on
+    the host, chunk unpack on ``device``): the first ``n`` values, int32
+    bits."""
+    from ..ops.chunked_cuda import plane_from_cmajor
+    nat = plane_from_cmajor(np.ascontiguousarray(body), widths, chunk)
+    words = torch.from_numpy(nat.view(np.int32)).to(device)
+    return unpack_chunks_auto(words, widths, chunk).reshape(-1)[:n]

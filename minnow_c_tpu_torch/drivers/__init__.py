@@ -1,5 +1,6 @@
 """L5 client drivers: standardized snapshot-format converters
-(header_format.tex:37-42).  Gadget-2 is ported; the Illustris HDF5 driver
-(it needs h5py) is not yet."""
+(header_format.tex:37-42).  The Illustris driver imports h5py inside its
+functions, so it imports without h5py."""
 
 from . import gadget2  # noqa: F401
+from . import illustris  # noqa: F401

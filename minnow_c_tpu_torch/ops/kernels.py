@@ -374,6 +374,47 @@ def undo_bin_index(idx, level: torch.Tensor, x0, dx, key) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Byte-plane transpose and u8 delta coding (util.c:244-309; Cart v1.0)
+# ---------------------------------------------------------------------------
+
+def u32_transpose_bytes(x: torch.Tensor) -> torch.Tensor:
+    """Split u32 words (int32 bits) into 4 byte planes: output byte
+    ``i + n*j`` is byte j of word i (util_U32TransposeBytes,
+    util.c:244-259).  Returns uint8 of length 4n.  Each byte is masked
+    after its shift: ``>>`` on int32 is arithmetic."""
+    return torch.cat([((x >> (8 * j)) & 0xFF).to(torch.uint8)
+                      for j in range(4)])
+
+
+def u32_undo_transpose_bytes(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``u32_transpose_bytes`` (util_U32UndoTransposeBytes,
+    util.c:261-281): ``x`` is uint8 of a length divisible by 4; returns
+    the words as int32 bits, assembled in int64."""
+    planes = x.reshape(4, x.shape[0] // 4).to(torch.int64)
+    out = planes[0]
+    for j in range(1, 4):
+        out = out | (planes[j] << (8 * j))
+    return i64_to_u32(out)
+
+
+def u8_delta_encode(x: torch.Tensor) -> torch.Tensor:
+    """y[0] = x[0]; y[i] = x[i] - x[i-1] on uint8, which wraps mod 256
+    (util_U8DeltaEncode, util.c:283-295)."""
+    if x.shape[0] == 0:
+        return x
+    return x - torch.cat([x.new_zeros(1), x[:-1]])
+
+
+def u8_undo_delta_encode(x: torch.Tensor) -> torch.Tensor:
+    """Prefix-sum inverse of ``u8_delta_encode`` (util_U8UndoDeltaEncode,
+    util.c:297-309): the int64 cumsum masked to 8 bits, which wraps mod
+    256 as the C loop does."""
+    if x.shape[0] == 0:
+        return x
+    return (torch.cumsum(x.to(torch.int64), 0) & 0xFF).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
 # log10 and exp2, as XLA lowers them (the log10 / symlog10 float maps)
 # ---------------------------------------------------------------------------
 

@@ -710,13 +710,14 @@ def decompress_snapshot(fp: BinaryIO, batched: bool = True, box=None,
             fp, origin, width, periodic)]
     else:
         segments = [s for _, s in seg_io.iter_segments(fp)]
-    return _decode_segment_list(segments, batched, want, device)
+    return decode_segments(segments, batched, want, device)
 
 
-def _decode_segment_list(segments, batched: bool, want,
-                         device) -> dict:
-    """Decode a list of serialized segments into concatenated field
-    tensors on ``device``."""
+def decode_segments(segments, batched: bool = True, want=None,
+                    device="cuda") -> dict:
+    """Decode a list of serialized segments (``want``: a set of FieldCodes,
+    or None for all) into concatenated field tensors on ``device``, as
+    ``decompress_snapshot`` returns them."""
     device = torch.device(device)
     if not segments:
         return {}

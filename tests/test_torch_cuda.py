@@ -1,5 +1,5 @@
-"""The port's CUDA kernels, its segment path, its snapshot path and its
-delta codecs on a CUDA card.
+"""The port's CUDA kernels, its segment path, its snapshot path, its
+delta codecs and its Sort and Cart codecs on a CUDA card.
 
 Marked ``cuda``; every test skips without a card.  This file imports no
 JAX, so it also runs where JAX is missing:
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import minnow_c_tpu_torch as mt
-from minnow_c_tpu_torch.algos import algo_coil_v1_1, chunked
+from minnow_c_tpu_torch.algos import algo_coil_v1_1, algo_sort_v1_2, chunked
 from minnow_c_tpu_torch.ops import (chunked_cuda, decode_cuda, encode_cuda,
                                     kernels, scan_cuda)
 
@@ -649,12 +649,17 @@ DELTA_CODECS = {"diff": (mt.AlgoCode.DIFF, (1, 0, 0)),
                 "coil_v1_1": (mt.AlgoCode.COIL, (1, 1, 0)),
                 "octo": (mt.AlgoCode.OCTO, (1, 0, 0)),
                 "octo_v1_1": (mt.AlgoCode.OCTO, (1, 1, 0))}
+SORT_CODECS = {"sort": (mt.AlgoCode.SORT, (1, 0, 0)),
+               "sort_v1_1": (mt.AlgoCode.SORT, (1, 1, 0)),
+               "sort_v1_2": (mt.AlgoCode.SORT, (1, 2, 0)),
+               "cart": (mt.AlgoCode.CART, (1, 0, 0))}
 
 
 def _delta_segment(name, n, device):
     """Five field types in a coherent (random-walk) order; UNSI spans more
-    than 2^31, so its zigzag deltas pass 2^30."""
-    algo, ver = DELTA_CODECS[name]
+    than 2^31, so its zigzag deltas pass 2^30 (and Sort's bins pass 2^31);
+    the ID planes hold many equal bins."""
+    algo, ver = {**DELTA_CODECS, **SORT_CODECS}[name]
     rng = np.random.default_rng(11)
     pos = (np.cumsum(rng.normal(0, 0.05, (3, n)), axis=1) + 32.0).astype(
         np.float32) % np.float32(64.0)
@@ -724,6 +729,83 @@ def test_delta_path_on_cuda_never_reaches_a_plain_version(dev, monkeypatch):
             assert torch.equal(out.fields[4].data, seg.fields[4].data)
             err = (out.fields[0].data - seg.fields[0].data).abs()
             assert float(torch.minimum(err, 64.0 - err).max()) <= 1e-3
+    assert all(fn.launches > b for fn, b in zip(counted, before))
+
+
+# ---------------------------------------------------------------------------
+# Sort (v1.0, v1.1, v1.2, order-free v1.2.1) and Cart v1.0
+# ---------------------------------------------------------------------------
+
+def _same_segments(blob, dev):
+    for fused in (False, True):
+        got = mt.decompress_segment(blob, fused=fused, device=dev)
+        want = mt.decompress_segment(blob, fused=fused, device="cpu")
+        for a, b in zip(got.fields, want.fields):
+            assert a.data.device.type == dev.type
+            assert np.array_equal(a.data.cpu().numpy().view(np.uint8),
+                                  b.data.numpy().view(np.uint8))
+
+
+@pytest.mark.parametrize("n", [5000, 40000])
+@pytest.mark.parametrize("name", sorted(SORT_CODECS))
+def test_sort_segment_on_cuda_matches_cpu(dev, monkeypatch, name, n):
+    """n = 40000 with BIG_PLANE at 30000: Sort v1.2 takes the
+    16384-element chunks, which K10 decodes on the card."""
+    monkeypatch.setattr(algo_sort_v1_2, "BIG_PLANE", 30000)
+    blob = mt.compress_segment(_delta_segment(name, n, dev), seed=3)
+    assert blob == mt.compress_segment(_delta_segment(name, n, "cpu"),
+                                       seed=3, device="cpu")
+    _same_segments(blob, dev)
+
+
+@pytest.mark.parametrize("n", [5000, 40000])
+def test_order_free_on_cuda_matches_cpu(dev, monkeypatch, n):
+    """Sort v1.2.1 on UNSI values with ties and bins >= 2^31: the same
+    bytes as the CPU's, decoding to the values in ascending order."""
+    monkeypatch.setattr(algo_sort_v1_2, "BIG_PLANE", 30000)
+    rng = np.random.default_rng(n)
+    vals = rng.integers(0, 3 << 30, n).astype(np.int64) + 5
+    vals[::4] = vals[1]
+    hd = mt.FieldHeader(mt.FieldCode.UNSI, mt.AlgoCode.SORT,
+                        mt.semver.pack(1, 2, 1), n)
+
+    def seg(device):
+        return mt.Seg(fields=[mt.Field(
+            hd=hd, data=torch.from_numpy(vals).to(device),
+            acc=mt.IntAccuracy())])
+
+    blob = mt.compress_segment(seg(dev), seed=3)
+    assert blob == mt.compress_segment(seg("cpu"), seed=3, device="cpu")
+    _same_segments(blob, dev)
+    got = mt.decompress_segment(blob, device=dev).fields[0].data
+    assert np.array_equal(got.cpu().numpy(), np.sort(vals))
+
+
+def test_sort_path_on_cuda_never_reaches_a_plain_version(dev, monkeypatch):
+    """With every plain version made to raise, Sort and Cart still
+    round-trip on the card: they launch K3, K4, K7, K9 and K10."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("plain version reached on the CUDA path")
+
+    for mod, name in ((scan_cuda, "cumsum_u32_plain"),
+                      (chunked_cuda, "decode_chunked_stream_plain"),
+                      (decode_cuda, "unpack_rows_plain"),
+                      (encode_cuda, "pack_plain"),
+                      (encode_cuda, "pack_rows_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    monkeypatch.setattr(algo_sort_v1_2, "BIG_PLANE", 30000)
+    counted = (decode_cuda.unpack_rows_cuda, encode_cuda.pack_cuda,
+               encode_cuda.pack_rows_cuda, scan_cuda.cumsum_u32,
+               chunked_cuda.decode_chunked_stream)
+    before = [fn.launches for fn in counted]
+    for name in sorted(SORT_CODECS):
+        seg = _delta_segment(name, 40000, dev)
+        out = mt.decompress_segment(mt.compress_segment(seg, seed=1),
+                                    device=dev)
+        assert torch.equal(out.fields[2].data, seg.fields[2].data)
+        assert torch.equal(out.fields[4].data, seg.fields[4].data)
+        err = (out.fields[0].data - seg.fields[0].data).abs()
+        assert float(torch.minimum(err, 64.0 - err).max()) <= 1e-3
     assert all(fn.launches > b for fn, b in zip(counted, before))
 
 

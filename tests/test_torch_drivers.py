@@ -9,7 +9,6 @@ every output file and of the printed lines.
 """
 
 import io
-import os
 
 import numpy as np
 import pytest
@@ -194,25 +193,46 @@ def test_cli_u64_ids_match_jax(tmp_path, capsys, monkeypatch, mode):
     assert ids0.min() >= 1 << 63 and np.array_equal(ids, ids0)
 
 
-def test_cli_refuses_unported_inputs(tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    (tmp_path / "snap.g2").write_bytes(gadget2_file(256, "table"))
-    (tmp_path / "snap.hdf5").write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(64))
-    with pytest.raises(SystemExit, match="Illustris"):
-        tcli.main(["compress", "snap.hdf5", "out.il.min", "--device", "cpu"])
-    assert tcli.main(["compress", "snap.g2", "snap.g2.min", "--device",
-                      "cpu"]) == 0
-    for algo in ("Sort", "Cart"):
-        with pytest.raises(SystemExit, match="not ported"):
-            tcli.main(["repack", "snap.g2.min", "x.min", "--algo", algo])
+def test_cli_hdf5_and_il_min_match_jax(tmp_path, capsys, monkeypatch):
+    """The CLI takes HDF5 inputs and ``.il.min`` files as the JAX CLI does:
+    compress of one HDF5 file and of two chunk files, info, verify and
+    decompress of each archive give the same files and lines, and HDF5
+    files holding the same data.  An unknown codec still exits, and the
+    default device is the card, with no fallback to the CPU."""
+    pytest.importorskip("h5py")
+    from test_torch_illustris import h5_contents, make_h5
+
+    steps = [["compress", "snap.hdf5", "snap.il.min", "--pos-delta", "1.0"],
+             ["compress", "c.0.hdf5", "c.1.hdf5", "multi.il.min",
+              "--pos-delta", "1.0", "--scale-mode", "recip"],
+             ["info", "snap.il.min"], ["verify", "multi.il.min"],
+             ["decompress", "snap.il.min", "back.hdf5"],
+             ["decompress", "multi.il.min", "back_multi.hdf5"]]
+    outs, dirs = {}, {}
+    for name, main in (("jax", jcli.main), ("torch", tcli.main)):
+        d = dirs[name] = tmp_path / name
+        d.mkdir()
+        make_h5(d / "snap.hdf5", 2000, seed=1)
+        make_h5(d / "c.0.hdf5", 1000, seed=2)
+        make_h5(d / "c.1.hdf5", 500, seed=3, types=("PartType1",))
+        monkeypatch.chdir(d)
+        outs[name] = []
+        for argv in steps:
+            if name == "torch" and argv[0] in ("compress", "decompress"):
+                argv = argv + ["--device", "cpu"]
+            outs[name].append(_run(main, argv, capsys))
+    assert outs["torch"] == outs["jax"]
+    assert [rc for rc, _ in outs["torch"]] == [0] * len(steps)
+    for f in ("snap.il.min", "multi.il.min"):
+        assert (dirs["torch"] / f).read_bytes() == \
+            (dirs["jax"] / f).read_bytes(), f
+    for f in ("back.hdf5", "back_multi.hdf5"):
+        assert h5_contents(dirs["torch"] / f) == \
+            h5_contents(dirs["jax"] / f), f
     with pytest.raises(SystemExit, match="unknown codec"):
-        tcli.main(["repack", "snap.g2.min", "x.min", "--algo", "Zip"])
-    (tmp_path / "fake.il.min").write_bytes(b"\x05\x00\x00\x00{}")
-    with pytest.raises(SystemExit, match="Illustris"):
-        tcli.main(["decompress", "fake.il.min", "out.hdf5", "--device",
-                   "cpu"])
+        tcli.main(["repack", "snap.il.min", "x.min", "--algo", "Zip"])
     if not torch.cuda.is_available():
         # the default device is the card, with no fallback to the CPU
         with pytest.raises((AssertionError, RuntimeError)):
-            tcli.main(["compress", "snap.g2", "out.g2.min"])
-    assert os.path.exists("snap.g2.min")
+            tcli.main(["compress", "snap.hdf5", "out.il.min", "--pos-delta",
+                       "1.0"])

@@ -95,18 +95,21 @@ def test_decode_matches_fixture(name, fused, jax_blobs, fixture_digests):
     assert _digest(seg) == fixture_digests[f"{name}_decode_sha256"]
 
 
-def test_port_covers_27_frozen_entries(fixture_digests):
-    """The port's digest tests (this file's Trim and Deltas entries, and
-    tests/test_torch_delta.py's delta codecs) pin 27 of the fixture's 42
-    entries; the rest are Sort and Cart, not ported yet."""
+def test_port_covers_all_42_frozen_entries(fixture_digests):
+    """The port's digest tests pin all 42 of the fixture's entries:
+    tests/test_torch_freeze.py every one of them (Sort and Cart
+    included), this file's Trim and Deltas entries and
+    tests/test_torch_delta.py's delta codecs again beside the JAX
+    package."""
     from test_torch_delta import CODECS
-    names = [*VERSIONS, *DELTAS, *CODECS]
-    keys = {f"{n}_{k}" for n in names
-            for k in ("encode_sha256", "decode_sha256", "bytes")}
+    from test_torch_freeze import NAMES
+
+    def keys(names):
+        return {f"{n}_{k}" for n in names
+                for k in ("encode_sha256", "decode_sha256", "bytes")}
     assert len(fixture_digests) == 42
-    assert len(keys) == 27 and keys <= set(fixture_digests)
-    assert all(k.startswith(("sort", "cart"))
-               for k in set(fixture_digests) - keys)
+    assert len(keys(NAMES)) == 42 and keys(NAMES) == set(fixture_digests)
+    assert keys([*VERSIONS, *DELTAS, *CODECS]) <= keys(NAMES)
 
 
 @pytest.mark.parametrize("fused", [False, True])
@@ -372,12 +375,19 @@ def test_ptid_width_from_2_63_raises():
 
 def test_import_leaves_jax_out():
     code = ("import sys, minnow_c_tpu_torch, "
-            "minnow_c_tpu_torch.parallel.snapshot; "
-            "print('jax' in sys.modules, 'minnow_c_tpu' in sys.modules)")
+            "minnow_c_tpu_torch.parallel.snapshot, "
+            "minnow_c_tpu_torch.algos.algo_sort_v1_0, "
+            "minnow_c_tpu_torch.algos.algo_sort_v1_1, "
+            "minnow_c_tpu_torch.algos.algo_sort_v1_2, "
+            "minnow_c_tpu_torch.algos.algo_cart_v1_0, "
+            "minnow_c_tpu_torch.drivers.illustris, "
+            "minnow_c_tpu_torch.__main__; "
+            "print('jax' in sys.modules, 'minnow_c_tpu' in sys.modules, "
+            "'h5py' in sys.modules)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.split() == ["False", "False"]
+    assert r.stdout.split() == ["False", "False", "False"]
 
 
 COPIED = ["types.py", "semver.py", "segment/stream.py", "segment/format.py",
@@ -397,7 +407,7 @@ def test_host_modules_are_unchanged_copies(path):
 
 
 def _entry_points():
-    from minnow_c_tpu_torch.drivers import gadget2
+    from minnow_c_tpu_torch.drivers import gadget2, illustris
     from minnow_c_tpu_torch.parallel import snapshot
     from minnow_c_tpu_torch.quant import engine
     return {"api.quantize": tapi.quantize, "api.decompress": tapi.decompress,
@@ -410,6 +420,10 @@ def _entry_points():
             "decompress_snapshot": snapshot.decompress_snapshot,
             "gadget2.compress": gadget2.compress,
             "gadget2.decompress": gadget2.decompress,
+            "decode_segments": snapshot.decode_segments,
+            "illustris.compress": illustris.compress,
+            "illustris.compress_multi": illustris.compress_multi,
+            "illustris.decompress": illustris.decompress,
             "engine.quantize": engine.quantize}
 
 
