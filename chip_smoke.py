@@ -113,10 +113,28 @@ and the script exits non-zero:
    rank stream and on Cart's plane, K10 on Sort v1.2's sorted-delta stream
    (no un-zigzag) and rank stream (un-zigzag), then the ranked un-permute
    gather alone and Cart's decode split into undo-delta, undo-transpose
-   and unpack (CUDA events).
+   and unpack (CUDA events);
+10. the block-sharded codecs and the multihost layer: (a) BASELINE config
+   4's shape, 8 blocks of 12,582,912 uniform positions (100,663,296
+   particles, 1.21 GB, box 64, delta 1e-3) through ShardedPositionCodec on
+   a one-shard mesh at the spmd and adaptive depths in the div and recip
+   modes (K6, K7 or K8, K2), with the error over the whole output, encode
+   and decode walls (median of 3), rates, peak memory and launch counts;
+   words, headers and decodes equal to the plain path (fused_rows=False)
+   and to a 4-shard logical mesh on the card, bitwise; (b) phase 5's
+   512^3 fields through ShardedSnapshotCodec (K6, K7, K2, K3): positions
+   within delta, velocities within theirs, IDs exact, positions equal to
+   (a)'s codec bitwise, everything equal to the plain path bitwise;
+   (c) MH_RANKS processes on the card, spawned by this script
+   (``--multihost-worker``), join a gloo group and write phase 5's
+   snapshot through compress_snapshot_multihost, 32 blocks each: the
+   file's sha256 equals the single-host compress_snapshot file's, and
+   each rank's decompress_snapshot_multihost equals its slice of
+   decompress_snapshot bitwise (a worker that fails or outlives
+   MH_TIMEOUT fails the phase).
 
 The phases run in the order 1, 2, 3, 4, 6, 9, 7(c), 7(d), 5, 7(a), 7(b),
-7(e), 8: a torch.profiler trace (phase 5's busy share, the kernels' device
+7(e), 8, 10: a torch.profiler trace (phase 5's busy share, the kernels' device
 times) leaves the card's tracing hooks in place, which can add to every
 later CUDA-event time, so the paths whose kernels take well under a
 millisecond are timed before the first trace.  The script prints the
@@ -128,8 +146,9 @@ read just after.  The last line is {"ok": true, "device": {...}}; the line
 before it lists the kernels with their launch counts (K1 and K4 from phase
 4, the rows kernels from phase 5, the delta kernels from phase 6, K5 from
 phase 7(c), K8 from 7(a), K12 from its one-pass run in 7(e), K13 as K4's
-kernel), on phase 8's path ((a) + (b) + (c)) and on phase 9's ((a) +
-(b)), errors, times, bounds
+kernel), on phase 8's path ((a) + (b) + (c)), on phase 9's ((a) +
+(b)) and on phase 10's ((a) + (b) + (c), both ranks), errors, times,
+bounds
 (the bytes each input read once and each output written once at 3.35
 TB/s, or the float operations at 67 TFLOP/s, whichever is longer), the
 share of the bound reached, and the library call's time where one
@@ -2729,11 +2748,301 @@ def card_vs_cpu_maps(vel, mass) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the block-sharded codecs and the multihost layer
+# ---------------------------------------------------------------------------
+
+CFG4_BLOCKS, CFG4_NB = 8, 12_582_912  # BASELINE config 4: 100,663,296
+MH_RANKS = 2              # phase 10(c): processes on the one card
+MH_TIMEOUT = 420          # seconds a phase 10(c) worker may take
+
+
+def periodic_err(out: torch.Tensor, x: torch.Tensor) -> float:
+    """Largest periodic distance between (R, n) rows, row by row in f64."""
+    worst = 0.0
+    for r in range(x.shape[0]):
+        e = (out[r].double() - x[r].double()).abs()
+        worst = max(worst, torch.minimum(e, BOX - e).max().item())
+    return worst
+
+
+def same_bits(label: str, got, want) -> None:
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"{label}: output {i} differs")
+
+
+def check_sharded_position(dev):
+    """10(a): ShardedPositionCodec on BASELINE config 4's shape, 8 blocks
+    of 12,582,912 uniform positions in rows (24, n_b) on one shard, at the
+    spmd and adaptive depths in the div and recip modes.  Each mode's first
+    encode and decode are its main path (launches counted, peak memory with
+    only the input and their own outputs held); walls are the median of 3
+    more."""
+    from minnow_c_tpu_torch.parallel import sharding
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x = torch.rand((CFG4_BLOCKS * 3, CFG4_NB), generator=g,
+                   device=dev) * BOX
+    raw = x.numel() * 4
+    one = sharding.make_mesh(1)
+    spmd = sharding.spmd_depth_for(POS_DELTA, BOX)
+    adaptive = sharding.adaptive_depth_for(
+        sharding.ShardedPositionCodec(mesh=one, width=BOX, depth=spmd), x,
+        POS_DELTA)
+    log(f"phase 10(a): {CFG4_BLOCKS * CFG4_NB} particles in {CFG4_BLOCKS} "
+        f"blocks of {CFG4_NB} ({raw} raw bytes), depths spmd {spmd}, "
+        f"adaptive {adaptive}")
+    launches = {}
+    for profile, depth in (("spmd", spmd), ("adaptive", adaptive)):
+        for mode in ("div", "recip"):
+            label = f"phase 10(a) {profile} {mode} (depth {depth})"
+            codec = sharding.ShardedPositionCodec(
+                mesh=one, width=BOX, depth=depth, scale_mode=mode)
+            torch.cuda.synchronize()
+            reset_counts()
+            enc, _, m_enc = timed(lambda: codec.encode(x))
+            out, _, m_dec = timed(lambda: codec.decode(*enc, seed=SEED))
+            for k, fn in launch_counted().items():
+                launches[k] = launches.get(k, 0) + fn.launches
+            err = periodic_err(out, x)
+            if not err <= POS_DELTA:
+                raise AssertionError(f"{label}: error {err}")
+            walls = []
+            for _ in range(3):
+                e2, t_enc, _ = timed(lambda: codec.encode(x))
+                o2, t_dec, _ = timed(lambda: codec.decode(*e2, seed=SEED))
+                same_bits(f"{label} repeat", e2 + (o2,), enc + (out,))
+                walls.append((t_enc, t_dec))
+                del e2, o2
+            t_enc, t_dec = (sorted(w[i] for w in walls)[1] for i in (0, 1))
+            wbytes = enc[0].numel() * 4
+            log(f"{label}: encode {t_enc:.4f} s ({raw / t_enc / 1e9:.3f} "
+                f"GB/s), decode {t_dec:.4f} s ({raw / t_dec / 1e9:.3f} "
+                f"GB/s) (median of 3), peak device memory "
+                f"{m_enc / 2**30:.3f} / {m_dec / 2**30:.3f} GiB; words "
+                f"{wbytes} bytes (ratio {raw / wbytes:.3f}); max error "
+                f"{err:.6g} <= {POS_DELTA}")
+            plain = sharding.ShardedPositionCodec(
+                mesh=one, width=BOX, depth=depth, scale_mode=mode,
+                fused_rows=False)
+            same_bits(f"{label} encode kernels == plain", enc,
+                      plain.encode(x))
+            same_bits(f"{label} decode kernels == plain", (out,),
+                      (plain.decode(*enc, seed=SEED),))
+            four = sharding.ShardedPositionCodec(
+                mesh=sharding.make_mesh(4), width=BOX, depth=depth,
+                scale_mode=mode)
+            e4 = four.encode(x)
+            same_bits(f"{label} 4 shards", e4 + (four.decode(
+                *e4, seed=SEED),), enc + (out,))
+            del enc, out, e4
+    log("phase 10(a): kernels == plain path (fused_rows=False) bitwise in "
+        "words, headers and decodes; 4 logical shards == 1 bitwise; every "
+        f"run within {POS_DELTA}; launches in the four main runs: "
+        f"{launches}")
+    floor = {"K2": 4, "K6": 4, "K7": 2, "K8": 2}
+    if any(launches[k] < v for k, v in floor.items()):
+        raise AssertionError(f"phase 10(a) missed a kernel: {launches}")
+    return launches
+
+
+def check_sharded_snapshot(dev):
+    """10(b): ShardedSnapshotCodec on phase 5's 512^3 fields in 64 blocks
+    of 2^21 on one shard."""
+    from minnow_c_tpu_torch.parallel import sharding
+    from minnow_c_tpu_torch.quant import engine
+    pos, vel, ids, mass = snapshot_fields(dev)
+    del mass
+    n = pos.shape[1]
+    B, nb = SNAP_BLOCKS, n // SNAP_BLOCKS
+    raw = n * (3 * 4 + 3 * 4 + 8)
+    prow = pos.reshape(3, B, nb).transpose(0, 1).reshape(B * 3, nb)
+    vrow = vel.reshape(3, B, nb).transpose(0, 1).reshape(B * 3, nb)
+    irow = ids.reshape(B, nb)
+    del pos, vel, ids
+    one = sharding.make_mesh(1)
+    spmd = sharding.spmd_depth_for(POS_DELTA, BOX)
+    vd = engine.delta_to_depth(VEL_DELTA, vrow.min().item(),
+                               vrow.max().item())
+    codec = sharding.ShardedSnapshotCodec(mesh=one, box=BOX, pos_depth=spmd,
+                                          vel_depth=vd, id_grid=SNAP_SIDE)
+    torch.cuda.synchronize()
+    reset_counts()
+    enc, t_enc, m_enc = timed(lambda: codec.encode(prow, vrow, irow))
+    out, t_dec, m_dec = timed(lambda: codec.decode(enc, seed=SEED))
+    launches = {k: fn.launches for k, fn in launch_counted().items()}
+    perr = periodic_err(out[0], prow)
+    verr = max((out[1][r] - vrow[r]).abs().max().item()
+               for r in range(vrow.shape[0]))
+    if not (perr <= POS_DELTA and verr <= VEL_DELTA):
+        raise AssertionError(f"phase 10(b): errors {perr}, {verr}")
+    if not torch.equal(out[2], irow):
+        raise AssertionError("phase 10(b): IDs did not come back exactly")
+    wbytes = sum(enc[i].numel() * 4 for i in (0, 3, 6))
+    log(f"phase 10(b): {n} particles in {B} blocks, depths pos {spmd}, vel "
+        f"{vd}, IDs {codec.id_width}: encode {t_enc:.4f} s "
+        f"({raw / t_enc / 1e9:.3f} GB/s), decode {t_dec:.4f} s "
+        f"({raw / t_dec / 1e9:.3f} GB/s), peak device memory "
+        f"{m_enc / 2**30:.3f} / {m_dec / 2**30:.3f} GiB; words {wbytes} "
+        f"bytes (ratio {raw / wbytes:.3f}); max errors pos {perr:.6g}, vel "
+        f"{verr:.6g}; IDs exact; launches {launches}")
+    pcodec = sharding.ShardedPositionCodec(mesh=one, width=BOX, depth=spmd)
+    penc = pcodec.encode(prow)
+    same_bits("phase 10(b) positions == 10(a)'s codec",
+              (enc[0], enc[1], enc[2], out[0]),
+              penc + (pcodec.decode(*penc, seed=SEED),))
+    del penc
+    plain = sharding.ShardedSnapshotCodec(
+        mesh=one, box=BOX, pos_depth=spmd, vel_depth=vd, id_grid=SNAP_SIDE,
+        fused_rows=False)
+    same_bits("phase 10(b) encode kernels == plain", enc,
+              plain.encode(prow, vrow, irow))
+    same_bits("phase 10(b) decode kernels == plain", out,
+              plain.decode(enc, seed=SEED))
+    log("phase 10(b): positions == 10(a)'s codec bitwise (words, headers, "
+        "decode); kernels == plain path bitwise (K2, K3, K6, K7)")
+    floor = {"K2": 2, "K3": 1, "K6": 2, "K7": 3}
+    if any(launches[k] < v for k, v in floor.items()):
+        raise AssertionError(f"phase 10(b) missed a kernel: {launches}")
+    return launches
+
+
+def digests(fields: dict) -> dict:
+    return {k: hashlib.sha256(bits(v).contiguous().cpu().numpy().tobytes())
+            .hexdigest() for k, v in sorted(fields.items())}
+
+
+def multihost_worker(rank: int, addr: str, out_dir: str,
+                     dev=torch.device("cuda")) -> int:
+    """One process of 10(c): its half of phase 5's snapshot (made whole, as
+    phase 5 makes it, then cut) through compress_snapshot_multihost, then
+    its slice read back through decompress_snapshot_multihost; prints its
+    walls, launches and the sha256 of each field it read."""
+    import contextlib
+    import minnow_c_tpu_torch as mt
+    from minnow_c_tpu_torch.parallel import multihost
+    multihost.initialize(addr, MH_RANKS, rank)
+    fields = snapshot_fields(dev)
+    k = fields[0].shape[1] // MH_RANKS
+    pos, vel, ids, mass = (f[..., rank * k:(rank + 1) * k].contiguous()
+                           for f in fields)
+    del fields
+    path = os.path.join(out_dir, "multihost.min")
+    torch.cuda.synchronize()
+    reset_counts()
+    with open(path, "wb") if rank == 0 else contextlib.nullcontext() as fp:
+        stats, t_write, m_write = timed(
+            lambda: mt.parallel.compress_snapshot_multihost(
+                fp, pos, vel, ids, snap_spec(mt), SNAP_BLOCKS // MH_RANKS,
+                seed=SEED, mass=mass))
+    with open(path, "rb") as f:
+        got, t_read, m_read = timed(
+            lambda: mt.parallel.decompress_snapshot_multihost(f))
+    launches = {k: fn.launches for k, fn in launch_counted().items()}
+    print("MULTIHOST " + json.dumps({
+        "rank": rank, "write_s": t_write, "read_s": t_read,
+        "peak_write": m_write, "peak_read": m_read, "launches": launches,
+        "stats": stats, "digests": digests(got["local"]),
+        "blocks_local": got["blocks_local"],
+        "first": got["pos"].first}), flush=True)
+    multihost.barrier()
+    return 0
+
+
+def check_multihost(mt, dev):
+    """10(c): phase 5's snapshot written by MH_RANKS processes on the card
+    over gloo: the file's sha256 == the single-host file's, and each rank's
+    read == its slice of decompress_snapshot bitwise."""
+    import socket
+    pos, vel, ids, mass = snapshot_fields(dev)
+    n = pos.shape[1]
+    raw = n * (3 * 4 + 3 * 4 + 8 + 4)
+    buf = io.BytesIO()
+    stats, t_one, _ = timed(lambda: mt.compress_snapshot(
+        buf, pos, vel, ids, snap_spec(mt), SNAP_BLOCKS, seed=SEED,
+        mass=mass))
+    blob = buf.getvalue()
+    del buf, pos, vel, ids, mass
+    want_sha = hashlib.sha256(blob).hexdigest()
+    full = mt.decompress_snapshot(io.BytesIO(blob))
+    k = n // MH_RANKS
+    want = [digests({name: t[..., r * k:(r + 1) * k]
+                     for name, t in full.items()}) for r in range(MH_RANKS)]
+    del full, blob
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        addr = f"localhost:{s.getsockname()[1]}"
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+             str(r), addr, tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=REPO)
+            for r in range(MH_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MH_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"phase 10(c): worker {r} exited "
+                                     f"{p.returncode}:\n{out[-4000:]}")
+        with open(os.path.join(tmp, "multihost.min"), "rb") as f:
+            got_sha = hashlib.file_digest(f, "sha256").hexdigest()
+    reports = [json.loads(next(line for line in out.splitlines()
+                               if line.startswith("MULTIHOST "))[10:])
+               for out in outs]
+    if got_sha != want_sha:
+        raise AssertionError(f"phase 10(c): file sha256 {got_sha} != "
+                             f"single-host {want_sha}")
+    for r, rep in enumerate(reports):
+        if rep["digests"] != want[r] or rep["first"] != r * (
+                SNAP_BLOCKS // MH_RANKS):
+            raise AssertionError(f"phase 10(c): rank {r}'s read != its "
+                                 "slice of decompress_snapshot")
+        rate = raw / MH_RANKS / rep["read_s"] / 1e9
+        log(f"phase 10(c) rank {r}: compress_snapshot_multihost "
+            f"{rep['write_s']:.4f} s, decompress_snapshot_multihost "
+            f"{rep['read_s']:.4f} s ({rate:.3f} GB/s of its raw bytes), "
+            f"peak device memory {rep['peak_write'] / 2**30:.3f} / "
+            f"{rep['peak_read'] / 2**30:.3f} GiB; launches "
+            f"{rep['launches']}")
+    log(f"phase 10(c): {MH_RANKS} processes over gloo, "
+        f"{SNAP_BLOCKS // MH_RANKS} blocks each, {wall:.2f} s with "
+        f"start-up; file sha256 {got_sha} "
+        f"== single-host compress_snapshot's ({t_one:.4f} s); each rank's "
+        "read == its slice of decompress_snapshot bitwise")
+    return {key: sum(rep["launches"][key] for rep in reports)
+            for key in reports[0]["launches"]}
+
+
+def check_sharded_paths(mt, dev):
+    """Phase 10: (a), (b) and (c); the launches of each and their sum."""
+    pa = check_sharded_position(dev)
+    torch.cuda.empty_cache()
+    pb = check_sharded_snapshot(dev)
+    torch.cuda.empty_cache()
+    pc = check_multihost(mt, dev)
+    p10 = {k: pa[k] + pb[k] + pc[k] for k in pa}
+    log(f"phase 10: launches on its path ((a) + (b) + (c)): {p10}")
+    return p10
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        return multihost_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     import minnow_c_tpu_torch as mt
     from minnow_c_tpu_torch.ops import cuda_lib, encode_cuda, scan_cuda
 
@@ -2828,6 +3137,9 @@ def main() -> int:
     log(f"CUDA-event floor (two events, nothing between, median of 5): "
         f"{floor_ms:.4f} ms before the first torch.profiler trace, "
         f"{cuda_ms(lambda: None):.4f} ms after the last")
+    # phase 10 last: its walls are host clocks, and its processes need the
+    # card's memory free of the earlier phases' data
+    p10 = check_sharded_paths(mt, dev)
 
     # (name, source, replaced Pallas function, launches on its path,
     #  max_abs_err, times with "<K>" / "<K> plain" / "<K> library" keys)
@@ -2898,6 +3210,7 @@ def main() -> int:
         # K13 is K4's kernel: its phase 8 launches are K4's
         row["phase8_launches"] = p8["K4" if k == "K13" else k]
         row["phase9_launches"] = p9["K4" if k == "K13" else k]
+        row["phase10_launches"] = p10["K4" if k == "K13" else k]
         kernels.append(row)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

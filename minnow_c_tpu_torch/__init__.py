@@ -15,16 +15,20 @@ Layer map (mirrors the JAX package):
   L3  algos/      -- versioned algorithm registry + frozen codec modules
   L4  segment/    -- segment API, wire format, stream reader/writer, file I/O
   L5  parallel/   -- snapshots: block-batched encode/decode of whole
-                     snapshots into chained segment files
+                     snapshots into chained segment files; the
+                     block-sharded codecs over a mesh of shards; the
+                     multi-process (gloo) writer and reader
   L6  drivers/    -- the Gadget-2 driver; ``python -m minnow_c_tpu_torch``
                      is the CLI (__main__.py)
 
-Ported so far: the Trim codec (v1.0, v1.1) and the delta codecs Diff v1.0,
-Coil v1.0 / v1.1 and Octo v1.0 / v1.1, at uniform depth with the linear map,
-for all five field types; the single-host snapshot writer and reader
-(compress_snapshot / decompress_snapshot) and the streaming writer
+Ported so far: the Trim codec (v1.0, v1.1), the delta codecs Diff v1.0,
+Coil v1.0 / v1.1 and Octo v1.0 / v1.1, Sort v1.0 / v1.1 / v1.2 and Cart
+v1.0, for all five field types, with Deltas mode and the log maps; the
+single-host snapshot writer and reader (compress_snapshot /
+decompress_snapshot) and the streaming writer
 (compress_snapshot_streaming), in the div and recip scale modes; the
-Gadget-2 driver and the CLI.  See ROADMAP.md for the rest.
+block-sharded codecs and the multihost writer and reader; the Gadget-2
+and Illustris drivers and the CLI.  See ROADMAP.md for the rest.
 """
 
 from . import semver, types  # noqa: F401

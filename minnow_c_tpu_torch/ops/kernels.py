@@ -200,16 +200,18 @@ def u64_undo_periodic(x, L):
     then shift everything up by L if any value went negative.  Works in
     int64 like the reference (which views the u64 data as int64), so it
     gives the reference's bits for any input; grid coordinates below the
-    ID width never reach the sign bit."""
+    ID width never reach the sign bit.  Along the last axis: each row of
+    an N-D ``x`` is unwrapped, and lifted, on its own."""
     L = int(L)
-    x0 = x[0]
+    x0 = x[..., :1]
     # Reference loop starts at i=1: element 0 is never unwrapped.
-    idx = torch.arange(x.shape[0], device=x.device) > 0
+    idx = torch.arange(x.shape[-1], device=x.device) > 0
     shifted = torch.where(idx & (x - x0 >= L // 2), x - L, x)
     shifted = torch.where(idx & (x - x0 < -(L // 2)), x + L, shifted)
-    if x.shape[0] and bool(shifted.min() < 0):
-        shifted = shifted + L
-    return shifted
+    if not x.shape[-1]:
+        return shifted
+    return torch.where(shifted.amin(dim=-1, keepdim=True) < 0,
+                       shifted + L, shifted)
 
 
 # ---------------------------------------------------------------------------

@@ -34,12 +34,17 @@ per-segment decode, as the JAX package's does.
 ``compress_snapshot_streaming`` writes a snapshot block by block, one
 segment per block, with the same encoders at B = 1.
 
-Not ported yet: the multihost writer and reader.
+``compress_snapshot_multihost`` and ``decompress_snapshot_multihost`` are
+the distributed client's writer and reader: each process of a
+``torch.distributed`` group (``multihost.py``) encodes, or reads, the
+segments of its own blocks of one shared file, and the file is
+byte-identical to the single-host writer's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import struct
 from dataclasses import dataclass
 from typing import BinaryIO, List, Optional
 
@@ -52,8 +57,7 @@ from ..ops import bitpack, entropy, kernels
 from ..ops import rng as _rng
 from ..ops.decode_cuda import (decode_cuda, decode_rows_cuda,
                                rows_kernel_eligible, unpack_rows_cuda)
-from ..ops.encode_cuda import (encode_recip_cuda, encode_recip_rows_cuda,
-                               stats_rows_cuda)
+from ..ops.encode_cuda import encode_recip_cuda, encode_recip_rows_cuda
 from ..quant import engine
 from ..segment import format as wire
 from ..segment import io as seg_io
@@ -63,6 +67,8 @@ from ..types import (AlgoCode, FieldCode, FloatAccuracy, IDAccuracy,
                      PositionAccuracy, VelocityAccuracy)
 from ..utils import native_order
 from ..utils.profiling import phase
+from . import multihost as mh
+from .sharding import _block_stats, _rows_stats, make_mesh
 
 @dataclass(frozen=True)
 class SnapshotSpec:
@@ -90,22 +96,12 @@ def _host_u32(words: torch.Tensor) -> np.ndarray:
 # Per-block stats (sharding._rows_stats_raw / _float_rows_stats)
 # ---------------------------------------------------------------------------
 
-def _rows_stats(rows: torch.Tensor, box):
-    """Per-row (min (R,), max (R,)) of (R, n) independent streams,
-    unwrapped around each row's element 0 in a box of ``box`` when it is
-    not None: one K6 launch."""
-    periodic = box is not None
-    boxes = torch.full((rows.shape[0],), float(np.float32(box or 0.0)),
-                       dtype=torch.float32, device=rows.device)
-    return stats_rows_cuda(rows, boxes, rows[:, 0].contiguous(), periodic)
-
-
 def _float_rows_stats(x: torch.Tensor, box):
     """(B, 3, nb) -> x0 (B, 3), per-block shared range (B,) =
     max over dims of (max - min)."""
     b, d, nb = x.shape
-    mn, mx = _rows_stats(x.reshape(b * d, nb), box)
-    return mn.reshape(b, d), kernels.ftz(mx - mn).reshape(b, d).amax(dim=1)
+    mn, rng_b = _block_stats(x.reshape(b * d, nb), box)
+    return mn.reshape(b, d), rng_b
 
 
 def _batched_stats_pos(x: torch.Tensor, width: float):
@@ -365,15 +361,32 @@ def _encode_scalar_float_batch(vals, B: int, nb: int, acc, seed: int,
     return out, depth
 
 
-def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device):
+def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device,
+                     id_sync=None):
     """Lagrangian IDs (B*nb,) -> per-block PTID wire block lists + the
     per-dim widths.  The decompose (grid split, unwrap, global minimum)
     runs over the whole array; each block then subtracts its own minimum,
-    and every block of a dim packs at the dim's widest block range."""
+    and every block of a dim packs at the dim's widest block range.
+
+    ``id_sync`` (the multihost writer only, from ``_multihost_id_sync``):
+    the globally synced frame that makes PTID bytes independent of the
+    process topology -- {"gmin": (3,) int64 global per-dim minima of the
+    anchored unwrap, "shifted": this process's (3, n) anchored unwrap};
+    the widest block range is all-reduced here.  The unwrap's lift by L
+    cancels in the relative bins (rel = shifted - gmin either way), so
+    these give the single-host writer's bytes."""
     with phase("ids.decompose", nbytes=_nbytes(ids)):
-        ids = engine.as_tensor(ids, torch.int64, device).reshape(-1)
-        qdims, x0g, _ = engine.id_decompose(ids, int(acc.width))
-        x0g = x0g.cpu().numpy().view(np.uint64)  # global per-dim offset
+        if id_sync is None:
+            ids = engine.as_tensor(ids, torch.int64, device).reshape(-1)
+            qdims, x0g, _ = engine.id_decompose(ids, int(acc.width))
+            x0g = x0g.cpu().numpy().view(np.uint64)  # global per-dim offset
+        else:
+            gmin = np.asarray(id_sync["gmin"], dtype=np.int64)
+            lift = np.where(gmin < 0, np.int64(acc.width), np.int64(0))
+            x0g = (gmin + lift).view(np.uint64)
+            shifted = id_sync["shifted"]
+            qdims = shifted - torch.from_numpy(gmin).to(shifted.device)[
+                :, None]
         # the low 32 bits, as the reference's u32 cast keeps them
         qd = qdims.bitwise_and_(kernels.M32).reshape(3, B, nb)
     # The stored per-block origin includes the global decompose offset,
@@ -383,7 +396,12 @@ def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device):
         rel = qd - x0_rel[:, :, None]
         relmax_b = rel.amax(dim=2).cpu().numpy()     # (3, B)
         x0_blocks = x0_rel.cpu().numpy().astype(np.uint64) + x0g[:, None]
-        widths = [int(relmax_b[i].max()).bit_length() for i in range(3)]
+        relmax = relmax_b.max(axis=1)
+        if id_sync is not None:
+            # the widest block range over every process's blocks, as the
+            # single-host writer sees it
+            relmax = mh.allgather_i64(relmax).max(axis=0)
+        widths = [int(relmax[i]).bit_length() for i in range(3)]
         packed = [_host_u32(_batched_id_pack(kernels.i64_to_u32(rel[i]),
                                              max(widths[i], 1)))
                   for i in range(3)]
@@ -633,6 +651,167 @@ def compress_snapshot_streaming(fp: BinaryIO, blocks_iter,
     return stats
 
 
+def compress_snapshot_multihost(fp: Optional[BinaryIO], pos, vel, ids,
+                                spec: SnapshotSpec, num_blocks_local: int,
+                                seed: int = 0, accel: int = 1,
+                                scale_mode: str = "div", mass=None,
+                                device="cuda") -> dict:
+    """Distributed-client snapshot write: every process compresses its own
+    contiguous slab of particles (``num_blocks_local`` blocks; arrays as
+    :func:`compress_snapshot` takes them) and the segments land in ONE
+    chained file in global block order (rank-major) -- the ordered-gather
+    contract the spec assigns to the distributed client
+    (doc/separation_of_duties.md:7-12).
+
+    ``fp`` is written by process 0 only (other processes may pass None).
+    Returns the same stats dict on every process.
+
+    Depth policy: one scalar all-gather per float field syncs the global
+    range, so every process derives the shared depth the single-host
+    writer would; the PTID frame is synced by the global element-0 anchor
+    and the all-reduced per-dim minima and widest block ranges
+    (``_multihost_id_sync``).  The file is byte-identical to a single-host
+    :func:`compress_snapshot` of the concatenated data, whatever the
+    process count."""
+    if scale_mode not in ("div", "recip"):
+        raise ValueError(f"unknown scale_mode {scale_mode!r}")
+    _reject_deltas(spec, "compress_snapshot_multihost")
+    pos, vel, ids, mass = (native_order(a) for a in (pos, vel, ids, mass))
+    if mass is not None and spec.mass is None:
+        raise ValueError("mass array given without spec.mass accuracy")
+    given = [a for a in (pos, vel, ids, mass) if a is not None]
+    if not given:
+        raise ValueError("no fields given")
+    n = given[0].shape[-1]
+    B = num_blocks_local
+    if n % B:
+        raise ValueError(f"{n} local particles do not divide into {B} "
+                         "blocks; pad the tail (client duty)")
+    nb = n // B
+    stats = {}
+    per_block_fields: List[List[wire.WireField]] = [[] for _ in range(B)]
+
+    def add_field(code, field_blocks):
+        for b in range(B):
+            per_block_fields[b].append(wire.WireField(
+                int(code), int(AlgoCode.TRIM), TRIM_VERSION,
+                field_blocks[b]))
+
+    def blocks(arr):
+        arr = engine.as_tensor(arr, torch.float32, device)
+        return arr.reshape(3, B, nb).transpose(0, 1).contiguous()
+
+    geo_blobs = [b""] * B
+    if pos is not None:
+        _, rng_b = _batched_stats_pos(blocks(pos), float(spec.pos.width))
+        depth = engine.delta_to_depth(
+            spec.pos.delta, 0.0, mh.allgather_max_f32(float(rng_b.max())))
+        fb, _, (lo, hi) = _encode_pos_batch(
+            pos, B, nb, spec.pos, seed, accel, device, depth=depth,
+            scale_mode=scale_mode)
+        stats["pos_depth"] = depth
+        add_field(FieldCode.POSN, fb)
+        geo_blobs = [struct.pack("<6d", *(float(v) for v in lo[b]),
+                                 *(float(v) for v in hi[b] - lo[b]))
+                     for b in range(B)]
+    if vel is not None:
+        _, rng_b = _batched_stats_vel(blocks(vel),
+                                      int(spec.vel.sym_log10_scaled),
+                                      float(spec.vel.sym_log10_threshold))
+        depth = engine.delta_to_depth(
+            spec.vel.delta, 0.0, mh.allgather_max_f32(float(rng_b.max())))
+        fb, _ = _encode_vel_batch(vel, B, nb, spec.vel, seed, accel, device,
+                                  depth=depth, scale_mode=scale_mode)
+        stats["vel_depth"] = depth
+        add_field(FieldCode.VELC, fb)
+    if ids is not None:
+        fb, widths = _encode_id_batch(
+            ids, B, nb, spec.ids, accel, device,
+            id_sync=_multihost_id_sync(ids, int(spec.ids.width), device))
+        stats["id_widths"] = widths
+        add_field(FieldCode.PTID, fb)
+    if mass is not None:
+        mode = int(getattr(spec.mass, "log10_scaled", 0))
+        thr = float(getattr(spec.mass, "sym_log10_threshold", 0.0))
+        x0, x1 = _batched_stats_scalar(
+            engine.as_tensor(mass, torch.float32, device).reshape(B, nb),
+            mode, thr)
+        local_g = float((x1.cpu().numpy() - x0.cpu().numpy()).max())
+        depth = engine.delta_to_depth(spec.mass.delta, 0.0,
+                                      mh.allgather_max_f32(local_g))
+        fb, _ = _encode_scalar_float_batch(mass, B, nb, spec.mass, seed,
+                                           accel, device, depth=depth,
+                                           scale_mode=scale_mode)
+        stats["mass_depth"] = depth
+        add_field(FieldCode.UNSF, fb)
+
+    with phase("serialize"):
+        segments = [wire.serialize(fields, nb)
+                    for fields in per_block_fields]
+    all_segs = mh.allgather_bytes(segments)
+    all_geos = mh.allgather_bytes(geo_blobs)
+    if mh.process_index() == 0:
+        if fp is None:
+            raise ValueError("process 0 must pass a writable fp")
+        geometry = None
+        if pos is not None:
+            geometry = []
+            for blob in all_geos:
+                vals = struct.unpack("<6d", blob)
+                geometry.append((vals[:3], vals[3:]))
+        seg_io.write_segments(fp, all_segs, geometry)
+        fp.flush()  # visible to the other processes before the barrier
+    mh.barrier("minnow_snapshot_write")
+    stats["bytes"] = sum(len(s) for s in all_segs) + \
+        seg_io.IO_HEADER_BYTES * len(all_segs)
+    stats["num_blocks"] = len(all_segs)
+    return stats
+
+
+def _id_unwrap_anchored(ids: torch.Tensor, width: int, anchor,
+                        exempt_first: bool) -> torch.Tensor:
+    """Grid split + signed periodic unwrap against an EXPLICIT anchor (the
+    global element 0's dims) -- the multihost variant of
+    ``engine.id_decompose``'s unwrap (util.c:115-143 semantics).  Only the
+    true global element 0 is exempt from unwrapping (the reference loop
+    starts at i=1), so the other processes unwrap every element.  ``ids``
+    are u64 bits in int64, ``anchor`` (3,) int64; returns the signed int64
+    (3, n) dims before the lift (``width`` below 2^63, as
+    ``id_decompose`` takes)."""
+    xi = torch.stack(engine.id_split(ids, width))
+    L = int(width)
+    a = torch.as_tensor(np.asarray(anchor, dtype=np.int64),
+                        device=xi.device)[:, None]
+    d = xi - a
+    move = torch.ones(xi.shape[1], dtype=torch.bool, device=xi.device)
+    if exempt_first and xi.shape[1]:
+        move[0] = False
+    shifted = torch.where(move & (d >= L // 2), xi - L, xi)
+    return torch.where(move & (d < -(L // 2)), xi + L, shifted)
+
+
+def _multihost_id_sync(ids, width: int, device) -> dict:
+    """The globally synced PTID frame for ``_encode_id_batch(id_sync=...)``:
+    the global element-0 anchor (process 0's first ID, gathered) and the
+    global per-dim minima of every process's anchored unwrap.  Every
+    process then bins against the same frame, and PTID streams are
+    byte-identical to the single-host writer's whatever the process count
+    (one extra i64 triple all-gather per snapshot)."""
+    ids = engine.as_tensor(ids, torch.int64, device).reshape(-1)
+    w = int(width)
+    first = kernels.i64_to_u64(ids[0])
+    ww = (w * w) & kernels.M64  # numpy's u64 product and quotient by 0
+    anchor_local = np.asarray(
+        [kernels.u64_to_i64(v) for v in
+         (first % w, (first // w) % w, first // ww if ww else 0)],
+        dtype=np.int64)
+    anchor = mh.allgather_i64(anchor_local)[0]
+    shifted = _id_unwrap_anchored(ids, w, anchor,
+                                  exempt_first=mh.process_index() == 0)
+    gmin = mh.allgather_i64(shifted.amin(dim=1).cpu().numpy()).min(axis=0)
+    return {"gmin": gmin, "shifted": shifted}
+
+
 def _wrap_precompressed(raw_words: np.ndarray, comp: bytes,
                         width: int) -> bytes:
     """Build a block from an already-entropy-coded payload, choosing the
@@ -739,7 +918,69 @@ def decode_segments(segments, batched: bool = True, want=None,
                             ("ids", FieldCode.PTID, 0),
                             ("mass", FieldCode.UNSF, 0)):
         if parts[code]:
+            # a field that failed its checksum decodes to no data
+            # (decompress_segment skips it); a file cannot be gathered
+            # around the hole, and the JAX package's reader raises
+            # ValueError there too
+            if any(p is None for p in parts[code]):
+                raise ValueError(f"a {name!r} field of the snapshot failed "
+                                 "its checksum: corrupt file")
             out[name] = torch.cat(parts[code], dim=dim)
+    return out
+
+
+def decompress_snapshot_multihost(fp: BinaryIO, mesh=None, fields=None,
+                                  batched: bool = True,
+                                  device="cuda") -> dict:
+    """Distributed-client snapshot read -- the inverse of
+    :func:`compress_snapshot_multihost`.
+
+    Every process opens the SAME chained file and walks the IOHeader chain
+    headers-only; process p reads the bodies of only its contiguous
+    rank-major slice of segments (``seg_io.iter_segments_selected`` seeks
+    past foreign bodies, header_format.tex:209-218), decodes them as
+    :func:`decompress_snapshot` does, and returns its slabs as global
+    block-sharded :class:`multihost.BlockShards`.
+
+    ``mesh``: the mesh whose first device takes the arrays; None takes
+    ``device`` (``cuda`` unless the caller asks for ``cpu``).  ``fields``
+    as in :func:`decompress_snapshot`.
+
+    Returns (every process): ``{"pos": (B, 3, nb) f32, "vel": (B, 3, nb),
+    "ids": (B, nb) int64 of u64 bits, "mass": (B, nb) f32 -- BlockShards
+    of this process's blocks -- "local": {the slabs in
+    decompress_snapshot's shapes}, "num_blocks", "blocks_local",
+    "n_per_block"}``.  Decoded values are bit-identical to a
+    single-process :func:`decompress_snapshot` of the same file."""
+    want = _parse_want(fields)
+    P, p = mh.process_count(), mh.process_index()
+    start = fp.tell()
+    S = seg_io.count_segments(fp)
+    if S == 0:
+        return {}
+    if S % P:
+        raise ValueError(
+            f"{S} segments do not divide across {P} processes; "
+            "write with num_blocks a multiple of the process count")
+    k = S // P
+    fp.seek(start)
+    segments = [body for _, _, body in seg_io.iter_segments_selected(
+        fp, range(p * k, (p + 1) * k))]
+    local = decode_segments(segments, batched, want, device)
+    out = {"num_blocks": S, "blocks_local": k, "local": local}
+    if mesh is None:
+        mesh = make_mesh(1, device=device)
+    for name, arr in local.items():
+        if arr.shape[-1] % k:
+            raise ValueError(f"field {name!r}: {arr.shape[-1]} local "
+                             f"particles do not divide into {k} blocks")
+        nb = arr.shape[-1] // k
+        if arr.dim() == 2:      # float triple: (3, n_local)
+            blocks = arr.reshape(arr.shape[0], k, nb).transpose(0, 1)
+        else:                   # scalar / ids: (n_local,)
+            blocks = arr.reshape(k, nb)
+        out["n_per_block"] = nb
+        out[name] = mh.global_block_array(blocks.contiguous(), mesh)
     return out
 
 

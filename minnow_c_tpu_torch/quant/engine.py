@@ -212,6 +212,17 @@ def id_decompose(ids, width: int):
     quotient is all ones, as XLA divides by 0), and the reference's signed
     unwrap takes w below 2^63."""
     w = int(width)
+    dims = torch.stack([kernels.u64_undo_periodic(d, w)
+                        for d in id_split(ids, w)])
+    x0, x1 = kernels.u64_minmax(dims, 1)
+    return dims - x0[:, None], x0, x1
+
+
+def id_split(ids, width: int):
+    """The grid coordinates (x, y, z) of u64 IDs held in int64: ids % w,
+    (ids // w) % w and ids // (w * w mod 2^64), as u64 bits (the split of
+    ``id_decompose``)."""
+    w = int(width)
     if not 1 <= w < 1 << 63:
         raise ValueError(f"ID grid width {w} not in [1, 2^63)")
     q1, qx = kernels.u64_divmod(ids, w)
@@ -222,12 +233,7 @@ def id_decompose(ids, width: int):
         qy = kernels.u64_divmod(q1, w)[1]
         qz = kernels.u64_divmod(ids, ww)[0] if ww else \
             torch.full_like(ids, -1)
-    del q1
-    dims = torch.stack([kernels.u64_undo_periodic(d, w)
-                        for d in (qx, qy, qz)])
-    del qx, qy, qz
-    x0, x1 = kernels.u64_minmax(dims, 1)
-    return dims - x0[:, None], x0, x1
+    return qx, qy, qz
 
 
 def id_recompose(qdims, x0, width: int):

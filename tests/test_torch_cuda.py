@@ -1231,3 +1231,74 @@ def test_deltas_trim_v1_1_plane_on_cuda_matches_cpu(dev, n):
     assert (err <= dl + 1.2e-6).all()
     assert (torch.abs(got.cpu() - want) <= 2 * torch.finfo(
         torch.float32).eps * want.abs()).all()
+
+
+def _bits_np(t) -> bytes:
+    return np.ascontiguousarray(t.cpu().numpy()).tobytes()
+
+
+@pytest.mark.parametrize("scale_mode", ["div", "recip"])
+def test_sharded_position_codec_kernels(dev, scale_mode):
+    """The block-sharded position codec on the card: its kernels (K6, K7 or
+    K8, K2) give the bits of the plain path (``fused_rows=False``) and of
+    the CPU, on one shard and on four logical shards of the card."""
+    from minnow_c_tpu_torch.parallel import sharding
+    rng = np.random.default_rng(31)
+    x = rng.uniform(0, 64, (8, 3, 4096)).astype(np.float32)
+    x[:2, 0] = np.mod(rng.normal(0, 2.0, (2, 4096)), 64).astype(np.float32)
+    depth = sharding.spmd_depth_for(1e-3, 64.0)
+    kw = dict(width=64.0, depth=depth, scale_mode=scale_mode)
+    cpu = sharding.ShardedPositionCodec(
+        mesh=sharding.make_mesh(2, device="cpu"), **kw)
+    want = cpu.encode(x)
+    want_out = cpu.decode(*want, seed=3)
+    xd = torch.from_numpy(x).to(dev)
+    for shards in (1, 4):
+        counted = (encode_cuda.stats_rows_cuda, encode_cuda.pack_rows_cuda,
+                   encode_cuda.encode_recip_rows_cuda,
+                   decode_cuda.decode_rows_cuda)
+        before = [f.launches for f in counted]
+        fast = sharding.ShardedPositionCodec(
+            mesh=sharding.make_mesh(shards), **kw)
+        plain = sharding.ShardedPositionCodec(
+            mesh=sharding.make_mesh(shards), fused_rows=False, **kw)
+        enc = fast.encode(xd)
+        out = fast.decode(*enc, seed=3)
+        launched = [f.launches - b for f, b in zip(counted, before)]
+        assert launched[0] == shards and launched[3] == shards
+        assert launched[1 if scale_mode == "div" else 2] == shards
+        assert out.is_cuda
+        for a, b, c in zip(enc, plain.encode(xd), want):
+            assert _bits_np(a) == _bits_np(b) == _bits_np(c)
+        assert _bits_np(out) == _bits_np(plain.decode(*enc, seed=3)) == \
+            _bits_np(want_out)
+
+
+def test_sharded_snapshot_codec_kernels(dev):
+    """The block-sharded snapshot codec on the card (K6, K7, K2, K3): its
+    words, headers and decodes equal the plain path's and the CPU's."""
+    from minnow_c_tpu_torch.parallel import sharding
+    rng = np.random.default_rng(32)
+    pos = rng.uniform(0, 64, (4, 3, 2048)).astype(np.float32)
+    vel = rng.normal(0, 200, (4, 3, 2048)).astype(np.float32)
+    ids = rng.permutation(1 << 24)[:4 * 2048].astype(np.uint64).reshape(
+        4, 2048)
+    kw = dict(box=64.0, pos_depth=16, vel_depth=12, id_grid=256)
+    before = decode_cuda.unpack_rows_cuda.launches
+    fast = sharding.ShardedSnapshotCodec(mesh=sharding.make_mesh(2), **kw)
+    plain = sharding.ShardedSnapshotCodec(mesh=sharding.make_mesh(2),
+                                          fused_rows=False, **kw)
+    cpu = sharding.ShardedSnapshotCodec(
+        mesh=sharding.make_mesh(2, device="cpu"), **kw)
+    tens = [torch.from_numpy(a).to(dev) for a in
+            (pos, vel, ids.view(np.int64))]
+    enc = fast.encode(*tens)
+    want = cpu.encode(pos, vel, ids)
+    for a, b, c in zip(enc, plain.encode(*tens), want):
+        assert _bits_np(a) == _bits_np(b) == _bits_np(c)
+    out = fast.decode(enc, seed=4)
+    assert decode_cuda.unpack_rows_cuda.launches - before == 2
+    for a, b, c in zip(out, plain.decode(enc, seed=4),
+                       cpu.decode(want, seed=4)):
+        assert _bits_np(a) == _bits_np(b) == _bits_np(c)
+    np.testing.assert_array_equal(out[2].cpu().numpy().view(np.uint64), ids)

@@ -376,6 +376,8 @@ def test_ptid_width_from_2_63_raises():
 def test_import_leaves_jax_out():
     code = ("import sys, minnow_c_tpu_torch, "
             "minnow_c_tpu_torch.parallel.snapshot, "
+            "minnow_c_tpu_torch.parallel.sharding, "
+            "minnow_c_tpu_torch.parallel.multihost, "
             "minnow_c_tpu_torch.algos.algo_sort_v1_0, "
             "minnow_c_tpu_torch.algos.algo_sort_v1_1, "
             "minnow_c_tpu_torch.algos.algo_sort_v1_2, "
