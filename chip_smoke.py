@@ -131,15 +131,26 @@ and the script exits non-zero:
    file's sha256 equals the single-host compress_snapshot file's, and
    each rank's decompress_snapshot_multihost equals its slice of
    decompress_snapshot bitwise (a worker that fails or outlives
-   MH_TIMEOUT fails the phase).
+   MH_TIMEOUT fails the phase);
+11. the measuring layer (``minnow_c_tpu_torch.bench``): its harness
+   (trials of 0.05 s in a 3 s budget, after its 3 s burn-in) on the
+   headline (K1 with its dither key on the card) and the kernel suite's
+   rows_fused_decode (K2), rows_recip_encode (K6 + K8) and
+   cumsum_u32_pallas (K9) at the suites' sizes: each time per iteration
+   at least 0.9 x the kernels' torch.profiler device time a call (traced
+   before phase 10, after which this script's traces came back empty),
+   each rate of the kernels' own bytes at most 1.05 x 3.35 TB/s, the last
+   trial's salts all distinct; entry.dryrun_multichip(4) on 4 logical
+   shards of the card within its bounds; K1 with its key on the card ==
+   the host-key launch == plain bitwise at the headline's shape.
 
 The phases run in the order 1, 2, 3, 4, 6, 9, 7(c), 7(d), 5, 7(a), 7(b),
-7(e), 8, 10: a torch.profiler trace (phase 5's busy share, the kernels' device
-times) leaves the card's tracing hooks in place, which can add to every
-later CUDA-event time, so the paths whose kernels take well under a
-millisecond are timed before the first trace.  The script prints the
-floor of a single timed call (two events with nothing between) before the
-first trace and after the last.
+7(e), 8, 10, 11: a torch.profiler trace (phase 5's busy share, the
+kernels' device times) leaves the card's tracing hooks in place, which
+can add to every later CUDA-event time, so the paths whose kernels take
+well under a millisecond are timed before the first trace.  The script
+prints the floor of a single timed call (two events with nothing between)
+before the first trace and after the last.
 
 The launch counts of each path are set to 0 just before the path runs and
 read just after.  The last line is {"ok": true, "device": {...}}; the line
@@ -147,7 +158,8 @@ before it lists the kernels with their launch counts (K1 and K4 from phase
 4, the rows kernels from phase 5, the delta kernels from phase 6, K5 from
 phase 7(c), K8 from 7(a), K12 from its one-pass run in 7(e), K13 as K4's
 kernel), on phase 8's path ((a) + (b) + (c)), on phase 9's ((a) +
-(b)) and on phase 10's ((a) + (b) + (c), both ranks), errors, times,
+(b)), on phase 10's ((a) + (b) + (c), both ranks) and on phase 11's,
+errors, times,
 bounds
 (the bytes each input read once and each output written once at 3.35
 TB/s, or the float operations at 67 TFLOP/s, whichever is longer), the
@@ -1245,18 +1257,8 @@ def reset_counts() -> None:
 
 
 def launch_counted():
-    from minnow_c_tpu_torch.ops import (chunked_cuda, decode_cuda,
-                                        encode_cuda, scan_cuda)
-    return {"K1": decode_cuda.decode_cuda, "K2": decode_cuda.decode_rows_cuda,
-            "K3": decode_cuda.unpack_rows_cuda, "K4": encode_cuda.pack_cuda,
-            "K5": encode_cuda.encode_recip_cuda,
-            "K6": encode_cuda.stats_rows_cuda,
-            "K7": encode_cuda.pack_rows_cuda,
-            "K8": encode_cuda.encode_recip_rows_cuda,
-            "K12": encode_cuda.encode_recip_fused_blocks_cuda,
-            "K9": scan_cuda.cumsum_u32,
-            "K10": chunked_cuda.decode_chunked_stream,
-            "K11": chunked_cuda.decode_chunked_stream_floats}
+    from minnow_c_tpu_torch.bench import counts
+    return counts.counters()
 
 
 def snap_spec(mt):
@@ -3024,16 +3026,281 @@ def check_multihost(mt, dev):
             for key in reports[0]["launches"]}
 
 
+def trace_probe(label: str, dev) -> None:
+    """Whether a torch.profiler trace still holds the card's activity:
+    K9 on 2^20 elements, three traces of 5 calls."""
+    from minnow_c_tpu_torch.ops import scan_cuda
+    x = torch.ones(1 << 20, dtype=torch.int32, device=dev)
+    t = device_ms(lambda: scan_cuda.cumsum_u32(x), "scan_kernel")
+    log(f"phase 10: trace probe {label}: "
+        + (f"K9 {t:.4f} ms a call" if t else "no device time in the trace"))
+
+
 def check_sharded_paths(mt, dev):
-    """Phase 10: (a), (b) and (c); the launches of each and their sum."""
+    """Phase 10: (a), (b) and (c); the launches of each and their sum.
+    A trace probe follows each part."""
     pa = check_sharded_position(dev)
+    trace_probe("after 10(a)", dev)
     torch.cuda.empty_cache()
     pb = check_sharded_snapshot(dev)
+    trace_probe("after 10(b)", dev)
     torch.cuda.empty_cache()
     pc = check_multihost(mt, dev)
+    trace_probe("after 10(c)", dev)
+    torch.cuda.empty_cache()
+    trace_probe("after 10(c) and empty_cache", dev)
     p10 = {k: pa[k] + pb[k] + pc[k] for k in pa}
     log(f"phase 10: launches on its path ((a) + (b) + (c)): {p10}")
     return p10
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the measuring layer on the card
+# ---------------------------------------------------------------------------
+
+P11_TRIAL_S, P11_TOTAL_S = 0.05, 3.0   # the harness's trial and budget
+P11_FLOOR = 0.9                        # harness / profiled device time
+P11_RATE_CAP = 1.05 * PEAK_BYTES_S     # kernel bytes a second
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bench_workloads(dev):
+    """Phase 11's workloads at the suites' sizes: (name -> (body, nominal
+    bytes, the bytes its kernels must move (each input read once and each
+    output written once, kernel by kernel), the kernels' names in a
+    trace, their torch.profiler device time a body call (ms)), the kernel
+    suite's inputs)."""
+    from minnow_c_tpu_torch.bench import headline, kernel_suite
+    head_fn, head_bytes = headline.workload(dev)
+    inp = kernel_suite.make_inputs(dev)
+    bodies = kernel_suite.workloads(inp)
+    n_rows = inp["xrows"].numel()
+    recip_words = n_rows * kernel_suite.ROWS_DEPTH // 8
+    work = {
+        "headline (K1)": (head_fn, head_bytes,
+                          headline.N * headline.LEVEL // 8 + head_bytes,
+                          ("decode_tiles",)),
+        "rows_fused_decode (K2)": (
+            *bodies["rows_fused_decode"],
+            _nbytes(inp["wrows"], inp["rkeys"]) + n_rows * 4,
+            ("decode_tiles",)),
+        "rows_recip_encode (K6 + K8)": (
+            *bodies["rows_recip_encode"],
+            2 * n_rows * 4 + recip_words, ("stats_rows", "pack_recip_tiles")),
+        "cumsum_u32_pallas (K9)": (
+            *bodies["cumsum_u32_pallas"], 2 * _nbytes(inp["bins"]),
+            ("scan_kernel",)),
+    }
+    t = time.perf_counter()
+    salt = torch.zeros((), dtype=torch.int32, device=dev)
+    for name, (fn, nominal, moved, kernel_names) in work.items():
+        dev_t = [device_ms(lambda: fn(salt), k) for k in kernel_names]
+        if None in dev_t:
+            raise AssertionError(f"phase 11: {name}: no device time for "
+                                 f"{kernel_names} in three traces")
+        work[name] = (fn, nominal, moved, kernel_names, sum(dev_t))
+        log(f"phase 11: {name}: its kernels' device time {sum(dev_t):.4f} "
+            "ms a body call (torch.profiler, 5 calls, before phase 10)")
+    log(f"phase 11: inputs made and traced in {time.perf_counter() - t:.1f} "
+        "s")
+    return work, inp
+
+
+def bench_kernels_vs_plain(dev, work: dict, inp: dict) -> dict:
+    """11(b): each body's kernels on the card at the suite's shapes and
+    salt 0xDEADBEEF against their plain versions on the same inputs,
+    bitwise (the body's own output too): K2 on the (192, 2^17) 16-bit
+    rows with per-row keys, K6 then K8 on the (192, 2^17) rows at depth
+    14, K9 on the 25,165,824 bins.  Returns each kernel's max abs error."""
+    from minnow_c_tpu_torch.bench import kernel_suite as ks
+    from minnow_c_tpu_torch.ops import (decode_cuda, encode_cuda, kernels,
+                                        scan_cuda)
+    salt = torch.tensor(-559038737, dtype=torch.int32, device=dev)
+    err = {}
+
+    def held(k, label, got, want):
+        for a, b in zip(got, want):
+            if a.shape != b.shape or not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"phase 11(b): {label} != plain")
+            err[k] = max(err.get(k, 0.0), max_abs_err(a, b))
+
+    rows, row_n = inp["xrows"].shape
+    body = {name.split(" ")[0]: w[0] for name, w in work.items()}
+    # K2
+    ws = inp["wrows"].clone()
+    ws.view(-1)[0] ^= salt
+    rx0 = torch.zeros(rows, device=dev)
+    rdx = torch.full((rows,), ks.W, device=dev)
+    k2 = decode_cuda.decode_rows_cuda(ws, inp["rkeys"], ks.ROWS_WIDTH, row_n,
+                                      rx0, rdx, box=ks.W, periodic=True)
+    held("K2", "K2 (rows_fused_decode)", (k2, body["rows_fused_decode"](
+        salt)[1]), (decode_cuda.decode_rows_plain(
+            ws, inp["rkeys"], rx0, kernels.bin_width(rdx, ks.ROWS_WIDTH),
+            ks.W, row_n, ks.ROWS_WIDTH, True),) * 2)
+    del k2
+    # K6, then K8 on the plain stats' scalars
+    xs = ks.salted_f32(inp["xrows"], salt)
+    anchor = xs[:, 0].contiguous()
+    boxes = torch.full((rows,), ks.W, device=dev)
+    stats = encode_cuda.stats_rows_cuda(xs, boxes, anchor, True)
+    mn, mx = encode_cuda.stats_rows_plain(xs, boxes, anchor, True)
+    held("K6", "K6 (rows_recip_encode's stats)", stats, (mn, mx))
+    rng_r = kernels.ftz(mx - mn).reshape(-1, 3).amax(dim=1)
+    recip = kernels.ftz(torch.ones_like(rng_r) / kernels.ftz(rng_r))
+    args = (ks.ROWS_DEPTH, mn, recip.repeat_interleave(3), boxes, anchor,
+            True)
+    want = encode_cuda.encode_recip_rows_plain(xs, *args)
+    held("K8", "K8 (rows_recip_encode)",
+         (encode_cuda.encode_recip_rows_cuda(xs, *args),
+          body["rows_recip_encode"](salt)[1]), (want, want))
+    del xs, want
+    # K9
+    vs = inp["bins"].clone()
+    vs[0] ^= salt
+    want = scan_cuda.cumsum_u32_plain(vs)
+    held("K9", "K9 (cumsum_u32_pallas)", (scan_cuda.cumsum_u32(vs),
+                                          body["cumsum_u32_pallas"](salt)[1]),
+         (want, want))
+    log(f"phase 11(b): K2 on ({rows}, {row_n}) at {ks.ROWS_WIDTH} bits, K6 "
+        f"+ K8 on ({rows}, {row_n}) at depth {ks.ROWS_DEPTH}, K9 on "
+        f"{vs.numel()} elements, each at salt 0xDEADBEEF: kernel == body "
+        "== plain bitwise")
+    return err
+
+
+def dryrun_vs_plain(dev, got: dict) -> dict:
+    """11(c): ``entry.dryrun_multichip(4)``'s card run against its sharded
+    codecs' plain path on the card (``fused_rows=False``: words, headers,
+    decodes, the global range), and its file and multihost read against
+    the whole run on the CPU, where every wrapper takes its plain version;
+    bitwise.  Returns each kernel's max abs error (K2, K3, K6, K7, K8)."""
+    from minnow_c_tpu_torch import entry
+    plain = entry.dryrun_multichip(4, device=dev, fused_rows=False)
+    cpu = entry.dryrun_multichip(4, device="cpu")
+    worst = 0.0
+
+    def held(label, a, b):
+        nonlocal worst
+        a, b = (t.local if hasattr(t, "local") else t for t in (a, b))
+        if a.shape != b.shape or not torch.equal(bits(a.cpu()),
+                                                 bits(b.cpu())):
+            raise AssertionError(f"phase 11(c): dryrun_multichip(4) "
+                                 f"{label} != plain")
+        worst = max(worst, max_abs_err(a.cpu(), b.cpu()))
+
+    for k in ("pos", "vel", "ids", "words", "x0", "rng_b", "out"):
+        held(k, got[k], plain[k])
+    for i, (a, b) in enumerate(zip(got["enc"], plain["enc"])):
+        held(f"enc[{i}]", a, b)
+    if got["g"] != plain["g"] or got["file"] != cpu["file"]:
+        raise AssertionError("phase 11(c): dryrun_multichip(4)'s global "
+                             "range or file != plain")
+    for k in ("pos", "vel", "ids"):
+        held(f"read {k}", got["read"][k], cpu["read"][k])
+    log("phase 11(c): dryrun_multichip(4) on the card == its codecs with "
+        "fused_rows=False on the card, and its file and multihost read == "
+        "the run on the CPU (plain versions), bitwise")
+    return {k: worst for k in ("K2", "K3", "K6", "K7", "K8")}
+
+
+def check_bench_layer(dev, work: dict, inp: dict):
+    """11: ``bench.harness.run`` (trials of P11_TRIAL_S, a P11_TOTAL_S
+    budget) on ``bench_workloads``' bodies: the headline (K1, its key on
+    the card) and the kernel suite's rows_fused_decode (K2),
+    rows_recip_encode (K6 + K8) and cumsum_u32_pallas (K9) at the suites'
+    sizes; each harness time per iteration >= P11_FLOOR x the kernels'
+    torch.profiler device time a body call (traced before phase 10 and
+    again after the harness: the larger), each kernel-bytes rate <=
+    1.05 x 3.35 TB/s, the last trial's salts all distinct (read after the
+    run); then ``entry.dryrun_multichip(4)`` within its bounds.  After
+    the counts are read, every kernel of the path against its plain
+    version at the path's shapes (``bench_kernels_vs_plain``,
+    ``dryrun_vs_plain``, and the headline's K1 against the host-key
+    launch and the plain version).  Returns the path's launches and each
+    kernel's max abs error."""
+    from minnow_c_tpu_torch import entry
+    from minnow_c_tpu_torch.bench import harness, headline
+    from minnow_c_tpu_torch.ops import decode_cuda, kernels
+    from minnow_c_tpu_torch.ops import rng as trng
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_counts()
+    runs = {}
+    for name, (fn, nominal, _, _, _) in work.items():
+        salts = []
+        res = harness.run(fn, nominal, P11_TRIAL_S, P11_TOTAL_S, dev,
+                          salts=salts)
+        runs[name] = (res, salts)
+    got = entry.dryrun_multichip(4, device=dev)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in launch_counted().items()}
+    log(f"phase 11: dryrun_multichip(4) on the card: positions within 1e-3, "
+        f"velocities within 1.0, IDs exact, the multihost read of its "
+        f"{got['read']['num_blocks']}-block file within 1e-3")
+    for name, (fn, nominal, moved, kernel_names, dev_ms) in work.items():
+        res, salts = runs[name]
+        # traced again after phase 10 and the harness (earlier runs of
+        # this script saw such traces come back empty): the floor holds
+        # against the larger of the two that hold device time
+        after = [device_ms(lambda: fn(torch.zeros(
+            (), dtype=torch.int32, device=dev)), k) for k in kernel_names]
+        after = None if None in after else sum(after)
+        log(f"phase 11: {name}: its kernels' device time after phase 10 "
+            f"and the harness: " + (f"{after:.4f} ms a body call" if after
+                                    else "no device time in the traces"))
+        dev_ms = max(dev_ms, after or 0.0)
+        per_iter = res.trial_seconds / res.iterations * 1e3
+        vals = torch.stack(salts).cpu()
+        if vals.unique().numel() != vals.numel():
+            raise AssertionError(f"phase 11: {name}: the last trial's "
+                                 "salts repeat")
+        rate = moved / (per_iter / 1e3)
+        log(f"phase 11: {name}: {res.gb_per_second:.3f} GB/s of its "
+            f"nominal {nominal} bytes, {per_iter:.4f} ms an iteration over "
+            f"{res.iterations} (median trial {res.trial_seconds:.4f} s) "
+            f"against its kernels' device time {dev_ms:.4f} ms a call; "
+            f"kernel bytes {moved} at {rate / 1e9:.1f} GB/s; "
+            f"{vals.numel()} distinct salts")
+        if per_iter < P11_FLOOR * dev_ms:
+            raise AssertionError(
+                f"phase 11: {name}: {per_iter:.4f} ms an iteration is below "
+                f"{P11_FLOOR} x the device time {dev_ms:.4f} ms")
+        if rate > P11_RATE_CAP:
+            raise AssertionError(f"phase 11: {name}: {rate / 1e12:.3f} TB/s "
+                                 "of kernel bytes is over 1.05 x 3.35 TB/s")
+    # the headline's K1 (key on the card) against the host-key launch and
+    # the plain version, at its shape and salt 0xDEADBEEF
+    packed = headline.packed_words(dev)
+    key = trng.field_key(*headline.KEY)
+    salt = -559038737
+    salted = tuple((k ^ salt) & kernels.M32 for k in key)
+    dev_key = decode_cuda.decode_cuda(
+        packed, torch.tensor(key, dtype=torch.int64, device=dev) ^ salt,
+        headline.LEVEL, headline.N, torch.zeros(1, device=dev),
+        torch.full((1,), headline.WIDTH_BOX, device=dev),
+        headline.WIDTH_BOX, periodic=True)
+    host_key = decode_cuda.decode_cuda(packed, salted, headline.LEVEL,
+                                       headline.N, 0.0, headline.WIDTH_BOX,
+                                       headline.WIDTH_BOX, periodic=True)
+    plain = decode_cuda.decode_plain(
+        packed, *salted, np.float32(0.0),
+        kernels.bin_width(headline.WIDTH_BOX, headline.LEVEL),
+        np.float32(headline.WIDTH_BOX), headline.N, headline.LEVEL, 0, True)
+    err = bench_kernels_vs_plain(dev, work, inp)
+    for k, e in dryrun_vs_plain(dev, got).items():
+        err[k] = max(err.get(k, 0.0), e)
+    err["K1"] = max(max_abs_err(dev_key, plain), max_abs_err(host_key, plain))
+    if not (torch.equal(bits(dev_key), bits(plain)) and
+            torch.equal(bits(host_key), bits(plain))):
+        raise AssertionError("phase 11: K1 with its key on the card != "
+                             "plain")
+    log(f"phase 11: K1 with its key on the card == the host-key launch == "
+        f"plain bitwise at {headline.N} elements; launches on its path: "
+        f"{launches}; {time.perf_counter() - t_phase:.1f} s")
+    return launches, err
 
 
 def main() -> int:
@@ -3134,12 +3401,18 @@ def main() -> int:
             f"against {delta_times[k]:.4f} ms with its wrapper (CUDA "
             "events)")
     del deltas, body
+    # phase 11's inputs and first device times, before phase 10 (it
+    # traces again after the harness)
+    bench_work, bench_inp = bench_workloads(dev)
     log(f"CUDA-event floor (two events, nothing between, median of 5): "
         f"{floor_ms:.4f} ms before the first torch.profiler trace, "
         f"{cuda_ms(lambda: None):.4f} ms after the last")
     # phase 10 last: its walls are host clocks, and its processes need the
     # card's memory free of the earlier phases' data
     p10 = check_sharded_paths(mt, dev)
+    torch.cuda.empty_cache()
+    p11, e11 = check_bench_layer(dev, bench_work, bench_inp)
+    del bench_work, bench_inp
 
     # (name, source, replaced Pallas function, launches on its path,
     #  max_abs_err, times with "<K>" / "<K> plain" / "<K> library" keys)
@@ -3191,7 +3464,8 @@ def main() -> int:
         row = {"name": name if "(K" in name else f"{name} ({k})",
                "route": "cuda", "source": f"minnow_c_tpu_torch/csrc/{src}",
                "replaces": f"minnow_c_tpu/ops/{rep_}", "launches": n_launch,
-               "max_abs_err": max(err, e8.get(k, 0.0), e9.get(k, 0.0)),
+               "max_abs_err": max(err, e8.get(k, 0.0), e9.get(k, 0.0),
+                                  e11.get(k, 0.0)),
                "ms": t[k], "plain_ms": t[k + " plain"],
                "bound_ms": b_ms, "bound_by": b_by, "share": b_ms / t[k],
                "library_ms": t.get(k + " library")}
@@ -3211,6 +3485,7 @@ def main() -> int:
         row["phase8_launches"] = p8["K4" if k == "K13" else k]
         row["phase9_launches"] = p9["K4" if k == "K13" else k]
         row["phase10_launches"] = p10["K4" if k == "K13" else k]
+        row["phase11_launches"] = p11["K4" if k == "K13" else k]
         kernels.append(row)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

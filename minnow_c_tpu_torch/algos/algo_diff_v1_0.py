@@ -85,18 +85,28 @@ def _diff_plane_fused(payload: np.ndarray, key, n: int, depth: int, x0, dx,
     """One Diff plane -> floats: K3 unpack of the zigzag deltas (m = n - 1
     padded to a multiple of 32, then trimmed), un-zigzag, K9 scan, then the
     dither + undo tail of the engine's decode (``fastpath.undo_uniform``)."""
-    words = _words_tensor(payload, device)
+    return diff_plane_device(_words_tensor(payload, device)[1:],
+                             payload[0], key, n, depth, x0, dx, box,
+                             periodic, width)
+
+
+def diff_plane_device(words: torch.Tensor, first: int, key, n: int,
+                      depth: int, x0, dx, box, periodic: bool,
+                      width: int) -> torch.Tensor:
+    """The device phases of ``_diff_plane_fused`` on a plane's zigzag
+    delta words already on the device (the payload after its first word)
+    and its raw element 0 ``first``."""
     m = n - 1
     m_pad = -(-m // 32) * 32
     if decode_cuda.rows_kernel_eligible(width, m_pad) and width <= 32:
         wp = m_pad * width // 32
-        body = words[1:1 + wp]
+        body = words[:wp]
         body = torch.nn.functional.pad(body, (0, wp - body.numel()))
         z = decode_cuda.unpack_rows_cuda(body.reshape(1, wp), width,
                                          m_pad)[0][:m]
     else:
-        z = bitpack.uniform_unpack(words[1:], width, m)
-    return undo_uniform(_bins(payload[0], z), key, depth, x0, dx,
+        z = bitpack.uniform_unpack(words, width, m)
+    return undo_uniform(_bins(first, z), key, depth, x0, dx,
                         box if periodic else None)
 
 

@@ -67,7 +67,7 @@ def _launch_decode(words: torch.Tensor, total: int, n: int, width: int,
     if isinstance(keys, torch.Tensor):
         rows = (keys.data_ptr(), keys.stride(0), keys.stride(1),
                 x0.data_ptr(), dx.data_ptr(), 0, 0, 0.0, 0.0)
-        n_magic = cuda_lib.row_magic(n)
+        n_magic = cuda_lib.row_magic(n) if total > n else 0
     else:
         rows = (None, 0, 0, None, None, keys[0], keys[1], float(x0),
                 float(dx))
@@ -93,15 +93,8 @@ def decode_plain(words: torch.Tensor, k0: int, k1: int, x0, dx_bin, box,
     return kernels.periodic(x, box) if periodic else x
 
 
-def decode_cuda(words: torch.Tensor, key, width: int, n: int, x0, dx,
-                box=0.0, periodic: bool = False,
-                elem0: int = 0) -> torch.Tensor:
-    """Fused decode of ``n`` elements packed at ``width`` bits in u32 words
-    (int32 tensor); ``key`` is the (k0, k1) dither key, ``dx`` the plane's
-    full range, ``elem0`` the global index of its first element (a
-    multiple of 4).  Semantics of the JAX package's ``decode_pallas``.  A
-    CUDA tensor launches the kernel (counted in ``decode_cuda.launches``);
-    a CPU tensor runs ``decode_plain``."""
+def _check_decode(words: torch.Tensor, width: int, n: int,
+                  elem0: int) -> None:
     if not 1 <= width <= 24:
         raise ValueError(f"float decode width {width} not in [1, 24]: "
                          "float depths cap at the f32 mantissa")
@@ -110,20 +103,43 @@ def decode_cuda(words: torch.Tensor, key, width: int, n: int, x0, dx,
                          f"elem0={elem0})")
     if words.dtype != torch.int32 or words.dim() != 1:
         raise TypeError("words must be a 1-D int32 tensor of u32 bits")
-    n_words = bitpack.packed_words(n, width)
-    if words.numel() < n_words:
+    if words.numel() < bitpack.packed_words(n, width):
         raise ValueError(f"{words.numel()} words cannot hold {n} elements "
                          f"of {width} bits")
-    k0, k1 = (int(k) & kernels.M32 for k in key)
-    x0, dx, box = np.float32(x0), np.float32(dx), np.float32(box)
-    if words.device.type == "cpu":
-        return decode_plain(words, k0, k1, x0, kernels.bin_width(dx, width),
+
+
+def decode_cuda(words: torch.Tensor, key, width: int, n: int, x0, dx,
+                box=0.0, periodic: bool = False,
+                elem0: int = 0) -> torch.Tensor:
+    """Fused decode of ``n`` elements packed at ``width`` bits in u32 words
+    (int32 tensor); ``key`` is the (k0, k1) dither key, ``dx`` the plane's
+    full range, ``elem0`` the global index of its first element (a
+    multiple of 4).  Semantics of the JAX package's ``decode_pallas``.  A
+    CUDA tensor launches the kernel (counted in ``decode_cuda.launches``);
+    a CPU tensor runs ``decode_plain``.
+
+    ``key`` may also be a (2,) integer tensor on the words' device, and
+    ``x0`` / ``dx`` one-element f32 tensors there (or host scalars): on
+    the card the kernel reads them as K2 reads its row parameters, one
+    row, so a key made on the card (a benchmark's salted key) needs no
+    host read."""
+    _check_decode(words, width, n, elem0)
+    dev = words.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no decode for device {dev}")
+    box = np.float32(box)
+    if dev.type == "cuda" and isinstance(key, torch.Tensor):
+        keys = _row_param(key, dev, torch.int64, (1, 2))
+        x0, dx = (_row_param(v, dev, torch.float32, (1,)) for v in (x0, dx))
+    else:
+        keys = tuple(int(k) & kernels.M32 for k in key)
+        x0, dx = np.float32(float(x0)), np.float32(float(dx))
+    if dev.type == "cpu":
+        return decode_plain(words, *keys, x0, kernels.bin_width(dx, width),
                             box, n, width, elem0, periodic)
-    if words.device.type != "cuda":
-        raise ValueError(f"no decode for device {words.device}")
-    words = words[:n_words].contiguous()
-    out = torch.empty(n, dtype=torch.float32, device=words.device)
-    _launch_decode(words, n, n, width, (k0, k1), x0, dx, elem0 // 4, box,
+    words = words[:bitpack.packed_words(n, width)].contiguous()
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    _launch_decode(words, n, n, width, keys, x0, dx, elem0 // 4, box,
                    periodic, out)
     decode_cuda.launches += 1
     return out

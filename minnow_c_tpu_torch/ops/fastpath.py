@@ -27,11 +27,13 @@ def fast_uniform_decode(words, key, level: int, n: int, x0, dx,
     """words -> dithered floats: unpack at ``level`` bits, undo bin
     indexing over [x0, x0+dx), optionally rewrap into the periodic box.
 
-    ``key``: (k0, k1) dither key; ``ctr0``: global element offset of this
-    plane's first element (for a plane that continues a longer stream)."""
+    ``key``: (k0, k1) dither key (integers, or a (2,) integer tensor on
+    the words' device, which stays there); ``ctr0``: global element offset
+    of this plane's first element (for a plane that continues a longer
+    stream)."""
     periodic = periodic_width is not None
     bin_width = kernels.bin_width(dx, level)
-    k0, k1 = (int(k) for k in key)
+    k0, k1 = key if isinstance(key, torch.Tensor) else (int(k) for k in key)
     return decode_plain(words, k0, k1, x0, bin_width,
                         periodic_width if periodic else 0.0, n, level,
                         ctr0, periodic)

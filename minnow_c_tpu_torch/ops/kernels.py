@@ -160,11 +160,14 @@ def minmax(x: torch.Tensor):
 
 def periodic(x, L):
     """Wrap values into [0, L).  Assumes points are within one box length of
-    the range (util_Periodic, util.c:70-84)."""
+    the range (util_Periodic, util.c:70-84).  The tests and the shifts see
+    subnormals flushed; a value neither shift moves keeps its bits, as
+    XLA's select hands its operand through."""
     L = _f32(L, x.device)
-    x = ftz(x)
-    x = torch.where(x >= L, ftz(x - L), x)
-    return torch.where(x < 0, ftz(x + L), x)
+    xf = ftz(x)
+    u = torch.where(xf >= L, ftz(xf - L), xf)
+    u = torch.where(u < 0, ftz(u + L), u)
+    return torch.where(u == xf, x, u)
 
 
 def u64_periodic(x, L):
@@ -177,8 +180,11 @@ def undo_periodic(x, L):
     """Shift a periodically wrapped cluster into one contiguous range: values
     more than L/2 from x[0] are unwrapped across the boundary
     (util_UndoPeriodic, util.c:97-113).  A 2-D ``x`` is a stack of
-    independent rows, each unwrapped around its own element 0."""
-    return unwrap_anchored(x, L, x[..., :1])
+    independent rows, each unwrapped around its own element 0.  As in
+    ``periodic``, a value neither shift moves keeps its bits
+    (``unwrap_anchored``, the kernels' plain form, flushes it)."""
+    u = unwrap_anchored(x, L, x[..., :1])
+    return torch.where(u == ftz(x), x, u)
 
 
 def unwrap_anchored(x, box, anchor):

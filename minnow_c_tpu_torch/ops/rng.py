@@ -277,11 +277,16 @@ def dither_u16(key, n: int, tag: int = 0, ctr0: int = 0, *,
 
     ``ctr0`` must be a multiple of 4: the lane phase always starts at half
     0 of counter ctr0//4, so an unaligned offset would silently return the
-    WRONG dither lanes (a stream-format violation)."""
+    WRONG dither lanes (a stream-format violation).
+
+    ``key`` is a (k0, k1) pair of integers, or of integer tensors on
+    ``device`` (a (2,) tensor is one): the key words' low 32 bits count,
+    and a tensor key is never read to the host."""
     if ctr0 % 4:
         raise ValueError(f"ctr0 {ctr0} must be a multiple of 4 "
                          "(4 dither lanes share one Threefry counter)")
-    k0, k1 = (int(k) & _M32 for k in key)
+    k0, k1 = (k.to(torch.int64) & _M32 if isinstance(k, torch.Tensor)
+              else int(k) & _M32 for k in key)
     q = (n + 3) // 4
     ctr = (torch.arange(q, dtype=torch.int64, device=device)
            + ctr0 // 4) & _M32

@@ -11,6 +11,7 @@ bitwise equality throughout.
 
 import io
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,6 +47,32 @@ def test_ftz_flushes_subnormals_keeping_the_sign():
     assert _bits(np.float32(kernels.ftz(np.float32(-1e-40)))) == \
         _bits(np.float32(-0.0))
     assert _bits(np.asarray(jnp.asarray(x) * 1)) == _bits(want)
+
+
+# values around zero, at the box edge and past it; three orders put a
+# subnormal, a value at the edge and a plain value in element 0 (the
+# anchor of ``undo_periodic``)
+_WRAP = np.array([1e-40, -1e-40, 1e-38, -1e-38, 0.0, -0.0, 64.0, 64.5,
+                  -0.5, -64.0, 63.99, 32.0, -1e-45, 127.5, 0.0, 96.0],
+                 np.float32)
+
+
+@pytest.mark.parametrize("order", ["as_is", "reversed", "rolled"])
+@pytest.mark.parametrize("op", ["periodic", "undo_periodic"])
+def test_wrap_ops_pass_unmoved_subnormals_like_xla(op, order):
+    """``kernels.periodic`` / ``undo_periodic`` against ``jax.jit`` of the
+    JAX package's ops, bitwise: a value neither shift moves keeps its
+    bits (XLA's select hands its operand through: 1e-40 stays 1e-40),
+    while the tests and the shifts see subnormals as zeros."""
+    x = {"as_is": _WRAP, "reversed": _WRAP[::-1].copy(),
+         "rolled": np.roll(_WRAP, 7)}[order]
+    want = np.asarray(jax.jit(getattr(jkernels, op), static_argnums=1)(
+        jnp.asarray(x), 64.0))
+    got = getattr(kernels, op)(torch.from_numpy(x), 64.0)
+    assert _bits(got) == _bits(want)
+    kept = np.abs(x) < np.float32(1.17e-38)
+    if op == "periodic":
+        assert _bits(want[kept & (x != 0)]) == _bits(x[kept & (x != 0)])
 
 
 @pytest.mark.parametrize("mode", MODES)

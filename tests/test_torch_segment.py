@@ -383,7 +383,16 @@ def test_import_leaves_jax_out():
             "minnow_c_tpu_torch.algos.algo_sort_v1_2, "
             "minnow_c_tpu_torch.algos.algo_cart_v1_0, "
             "minnow_c_tpu_torch.drivers.illustris, "
-            "minnow_c_tpu_torch.__main__; "
+            "minnow_c_tpu_torch.__main__, "
+            "minnow_c_tpu_torch.entry, "
+            "minnow_c_tpu_torch.bench.harness, "
+            "minnow_c_tpu_torch.bench.records, "
+            "minnow_c_tpu_torch.bench.counts, "
+            "minnow_c_tpu_torch.bench.headline, "
+            "minnow_c_tpu_torch.bench.kernel_suite, "
+            "minnow_c_tpu_torch.bench.codec_suite, "
+            "minnow_c_tpu_torch.bench.matrix, "
+            "minnow_c_tpu_torch.bench.__main__; "
             "print('jax' in sys.modules, 'minnow_c_tpu' in sys.modules, "
             "'h5py' in sys.modules)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -395,7 +404,7 @@ def test_import_leaves_jax_out():
 COPIED = ["types.py", "semver.py", "segment/stream.py", "segment/format.py",
           "segment/io.py", "ops/checksum.py", "ops/entropy.py",
           "algos/blocks.py", "algos/registry.py", "utils/debug.py",
-          "native/minnow_native.cpp"]
+          "native/minnow_native.cpp", "bench/records.py"]
 
 
 @pytest.mark.parametrize("path", COPIED)
