@@ -30,6 +30,7 @@ import numpy as np
 from ..parallel import snapshot
 from ..types import (FloatAccuracy, IDAccuracy, PositionAccuracy,
                      VelocityAccuracy)
+from ..utils.profiling import count, operation, phase
 
 HEADER_BYTES = 256
 
@@ -201,6 +202,7 @@ def write_snapshot(fp: BinaryIO, hdr: Gadget2Header, pos: np.ndarray,
         _write_record(fp, rec.astype("<f4").tobytes())
 
 
+@operation("g2.compress")
 def compress(in_fp: BinaryIO, out_fp: BinaryIO,
              pos_delta: float = 1e-3,
              vel_delta: float = 1.0,
@@ -220,7 +222,8 @@ def compress(in_fp: BinaryIO, out_fp: BinaryIO,
     accuracy), else linear with an absolute delta of
     ``mass_rel_delta * max|m|``.  The arrays are encoded on ``device``,
     ``cuda`` unless the caller asks for ``cpu``."""
-    hdr, pos, vel, ids, mass = read_snapshot_ext(in_fp)
+    with phase("g2.parse"):
+        hdr, pos, vel, ids, mass = read_snapshot_ext(in_fp)
     n = ids.shape[0]
     import warnings
     if in_fp.read(1):
@@ -268,13 +271,20 @@ def compress(in_fp: BinaryIO, out_fp: BinaryIO,
     return stats
 
 
+@operation("g2.decompress")
 def decompress(in_fp: BinaryIO, out_fp: BinaryIO,
                device="cuda") -> Gadget2Header:
     """.g2.min -> Gadget-2 snapshot, decoded on ``device`` (``cuda``
     unless the caller asks for ``cpu``)."""
     hdr = Gadget2Header.unpack(_read_record(in_fp))
-    fields = {k: v.cpu().numpy() for k, v in
-              snapshot.decompress_snapshot(in_fp, device=device).items()}
-    write_snapshot(out_fp, hdr, fields["pos"], fields["vel"],
-                   fields["ids"], mass=fields.get("mass"))
+    decoded = snapshot.decompress_snapshot(in_fp, device=device)
+    with phase("g2.download"):
+        fields = {}
+        for k, v in decoded.items():
+            count("d2h", v.nbytes if v.is_cuda else 0)
+            fields[k] = v.cpu().numpy()
+    del decoded
+    with phase("g2.records"):
+        write_snapshot(out_fp, hdr, fields["pos"], fields["vel"],
+                       fields["ids"], mass=fields.get("mass"))
     return hdr

@@ -66,7 +66,7 @@ from ..segment.stream import Reader, Writer
 from ..types import (AlgoCode, FieldCode, FloatAccuracy, IDAccuracy,
                      PositionAccuracy, VelocityAccuracy)
 from ..utils import native_order
-from ..utils.profiling import phase
+from ..utils.profiling import count, operation, phase
 from . import multihost as mh
 from .sharding import _block_stats, _rows_stats, make_mesh
 
@@ -87,9 +87,33 @@ def _nbytes(a) -> int:
         else np.asarray(a).nbytes
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's host copy as numpy; its bytes count as ``d2h`` when it
+    leaves the card."""
+    count("d2h", _nbytes(t) if t.is_cuda else 0)
+    return t.cpu().numpy()
+
+
 def _host_u32(words: torch.Tensor) -> np.ndarray:
     """int32 words of u32 bits -> host uint32 array."""
-    return words.cpu().numpy().view(np.uint32)
+    return _host(words).view(np.uint32)
+
+
+def _card(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on ``device``; its bytes count as ``h2d`` when that
+    is the card."""
+    out = t.to(device)
+    count("h2d", _nbytes(out) if out.is_cuda and not t.is_cuda else 0)
+    return out
+
+
+def _upload(data, dtype: torch.dtype, device) -> torch.Tensor:
+    """``engine.as_tensor``; numpy input that goes to the card counts as
+    ``h2d`` (a tensor stays on its own device)."""
+    t = engine.as_tensor(data, dtype, device)
+    count("h2d", _nbytes(t) if t.is_cuda and
+          not isinstance(data, torch.Tensor) else 0)
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -172,16 +196,16 @@ def _recip_rows(x: torch.Tensor, x0: torch.Tensor, rng_b: torch.Tensor,
     boxf = float(np.float32(box if periodic else 0.0))
     rows = x.reshape(b * d, nb)
     recip = np.repeat(np.atleast_1d(kernels.exact_recip(
-        rng_b.cpu().numpy())), d)                            # (B*D,)
+        _host(rng_b))), d)                                   # (B*D,)
     kernel_width = 1 <= depth <= 24
     if kernel_width and nb % 32:
-        x0_h = x0.reshape(b * d).cpu().numpy()
-        anchors = rows[:, 0].cpu().numpy()
+        x0_h = _host(x0.reshape(b * d))
+        anchors = _host(rows[:, 0])
         return torch.stack([
             encode_recip_cuda(rows[r], depth, x0_h[r], recip[r], boxf,
                               anchors[r], periodic)
             for r in range(b * d)]).reshape(b, d, -1)
-    recip_t = torch.from_numpy(recip).to(x.device)
+    recip_t = _card(torch.from_numpy(recip), x.device)
     if kernel_width:
         boxes = torch.full((b * d,), boxf, dtype=torch.float32,
                            device=x.device)
@@ -238,7 +262,7 @@ def _entropy(words_h: np.ndarray, accel: int, name: str) -> List[bytes]:
     b, d = words_h.shape[:2]
     payloads = [np.ascontiguousarray(words_h[i, j])
                 for i in range(b) for j in range(d)]
-    with phase(f"{name}.entropy", nbytes=words_h.nbytes):
+    with phase(f"{name}.entropy"):
         return entropy.encode_blocks(payloads, accel)
 
 
@@ -259,34 +283,36 @@ def _encode_pos_batch(pos, B: int, nb: int, acc, seed: int, accel: int,
     derives it from the observed global range), and the per-block bounding
     boxes of the raw positions (lo, hi), host (B, 3) each.  Numpy input
     goes to ``device``."""
-    with phase("pos.h2d+stats", nbytes=_nbytes(pos)):
-        pos = engine.as_tensor(pos, torch.float32, device)
+    with phase("pos.upload"):
+        pos = _upload(pos, torch.float32, device)
+    with phase("pos.stats"):
         xb = pos.reshape(3, B, nb).transpose(0, 1).contiguous()
         x0, rng_b = _batched_stats_pos(xb, float(acc.width))
         box = (xb.amin(dim=2), xb.amax(dim=2))
         if depth is None:
             depth = engine.delta_to_depth(acc.delta, 0.0,
-                                          float(rng_b.max()))
+                                          float(_host(rng_b.max())))
     with phase("pos.binpack"):
         words = _batched_bin_pack_pos(xb, x0, rng_b, depth, float(acc.width),
                                       scale_mode)
     with phase("pos.gather"):
         words_h = _host_u32(words)
-        x0_h = x0.cpu().numpy()
-        rng_h = rng_b.cpu().numpy()
-        box = tuple(t.cpu().numpy() for t in box)
+        x0_h = _host(x0)
+        rng_h = _host(rng_b)
+        box = tuple(_host(t) for t in box)
     comp = _entropy(words_h, accel, "pos")
     out = []
-    for b in range(B):
-        meta = Writer()
-        for v in x0_h[b]:
-            meta.f32(float(v))
-        for v in x0_h[b] + rng_h[b]:
-            meta.f32(float(v))
-        meta.f32(acc.width)
-        meta.u8(depth).u8(0).u16(0)
-        meta.u64(seed)
-        out.append(_float_blocks(meta, words_h, comp, b, depth, accel))
+    with phase("pos.wrap"):
+        for b in range(B):
+            meta = Writer()
+            for v in x0_h[b]:
+                meta.f32(float(v))
+            for v in x0_h[b] + rng_h[b]:
+                meta.f32(float(v))
+            meta.f32(acc.width)
+            meta.u8(depth).u8(0).u16(0)
+            meta.u64(seed)
+            out.append(_float_blocks(meta, words_h, comp, b, depth, accel))
     return out, depth, box
 
 
@@ -295,33 +321,35 @@ def _encode_vel_batch(vel, B: int, nb: int, acc, seed: int, accel: int,
                       scale_mode: str = "div"):
     sym = int(acc.sym_log10_scaled)
     thr = float(acc.sym_log10_threshold)
-    with phase("vel.h2d+stats", nbytes=_nbytes(vel)):
-        vel = engine.as_tensor(vel, torch.float32, device)
+    with phase("vel.upload"):
+        vel = _upload(vel, torch.float32, device)
+    with phase("vel.stats"):
         xb = vel.reshape(3, B, nb).transpose(0, 1).contiguous()
         x0, rng_b = _batched_stats_vel(xb, sym, thr)
         if depth is None:
             depth = engine.delta_to_depth(acc.delta, 0.0,
-                                          float(rng_b.max()))
+                                          float(_host(rng_b.max())))
     with phase("vel.binpack"):
         words = _batched_bin_pack_vel(xb, x0, rng_b, depth, sym, thr,
                                       scale_mode)
     with phase("vel.gather"):
         words_h = _host_u32(words)
-        x0_h = x0.cpu().numpy()
-        rng_h = rng_b.cpu().numpy()
+        x0_h = _host(x0)
+        rng_h = _host(rng_b)
     comp = _entropy(words_h, accel, "vel")
     out = []
-    for b in range(B):
-        meta = Writer()
-        for v in x0_h[b]:
-            meta.f32(float(v))
-        for v in x0_h[b] + rng_h[b]:
-            meta.f32(float(v))
-        meta.u8(depth).u8(0)
-        meta.u8(2 if sym else 0).u8(0)
-        meta.f32(thr)
-        meta.u64(seed)
-        out.append(_float_blocks(meta, words_h, comp, b, depth, accel))
+    with phase("vel.wrap"):
+        for b in range(B):
+            meta = Writer()
+            for v in x0_h[b]:
+                meta.f32(float(v))
+            for v in x0_h[b] + rng_h[b]:
+                meta.f32(float(v))
+            meta.u8(depth).u8(0)
+            meta.u8(2 if sym else 0).u8(0)
+            meta.f32(thr)
+            meta.u64(seed)
+            out.append(_float_blocks(meta, words_h, comp, b, depth, accel))
     return out, depth
 
 
@@ -335,29 +363,33 @@ def _encode_scalar_float_batch(vals, B: int, nb: int, acc, seed: int,
     scalar field."""
     mode = int(getattr(acc, "log10_scaled", 0))
     threshold = float(getattr(acc, "sym_log10_threshold", 0.0))
-    xb = engine.as_tensor(vals, torch.float32, device).reshape(B, nb)
-    x0, x1 = _batched_stats_scalar(xb, mode, threshold)
-    x0_h = x0.cpu().numpy()
-    x1_h = x1.cpu().numpy()
-    rng_h = x1_h.astype(np.float32) - x0_h.astype(np.float32)  # (B,)
-    if depth is None:
-        depth = engine.delta_to_depth(acc.delta, 0.0, float(rng_h.max()))
+    with phase("mass.upload"):
+        xb = _upload(vals, torch.float32, device).reshape(B, nb)
+    with phase("mass.stats"):
+        x0, x1 = _batched_stats_scalar(xb, mode, threshold)
+        x0_h = _host(x0)
+        x1_h = _host(x1)
+        rng_h = x1_h.astype(np.float32) - x0_h.astype(np.float32)  # (B,)
+        if depth is None:
+            depth = engine.delta_to_depth(acc.delta, 0.0,
+                                          float(rng_h.max()))
     with phase("mass.binpack"):
         words = _batched_bin_pack_scalar(
-            xb, x0, torch.from_numpy(rng_h).to(xb.device), depth, mode,
+            xb, x0, _card(torch.from_numpy(rng_h), xb.device), depth, mode,
             threshold, scale_mode)
     with phase("mass.gather"):
         words_h = _host_u32(words)  # (B, 1, wpb)
     comp = _entropy(words_h, accel, "mass")
     out = []
-    for b in range(B):
-        meta = Writer()
-        meta.f32(float(x0_h[b])).f32(float(x1_h[b]))
-        meta.u8(depth).u8(0)
-        meta.u8(mode).u8(0)
-        meta.f32(threshold)
-        meta.u64(seed)
-        out.append(_float_blocks(meta, words_h, comp, b, depth, accel))
+    with phase("mass.wrap"):
+        for b in range(B):
+            meta = Writer()
+            meta.f32(float(x0_h[b])).f32(float(x1_h[b]))
+            meta.u8(depth).u8(0)
+            meta.u8(mode).u8(0)
+            meta.f32(threshold)
+            meta.u64(seed)
+            out.append(_float_blocks(meta, words_h, comp, b, depth, accel))
     return out, depth
 
 
@@ -375,18 +407,19 @@ def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device,
     the widest block range is all-reduced here.  The unwrap's lift by L
     cancels in the relative bins (rel = shifted - gmin either way), so
     these give the single-host writer's bytes."""
-    with phase("ids.decompose", nbytes=_nbytes(ids)):
+    with phase("ids.decompose"):
         if id_sync is None:
-            ids = engine.as_tensor(ids, torch.int64, device).reshape(-1)
+            with phase("ids.upload"):
+                ids = _upload(ids, torch.int64, device).reshape(-1)
             qdims, x0g, _ = engine.id_decompose(ids, int(acc.width))
-            x0g = x0g.cpu().numpy().view(np.uint64)  # global per-dim offset
+            x0g = _host(x0g).view(np.uint64)  # global per-dim offset
         else:
             gmin = np.asarray(id_sync["gmin"], dtype=np.int64)
             lift = np.where(gmin < 0, np.int64(acc.width), np.int64(0))
             x0g = (gmin + lift).view(np.uint64)
             shifted = id_sync["shifted"]
-            qdims = shifted - torch.from_numpy(gmin).to(shifted.device)[
-                :, None]
+            qdims = shifted - _card(torch.from_numpy(gmin),
+                                    shifted.device)[:, None]
         # the low 32 bits, as the reference's u32 cast keeps them
         qd = qdims.bitwise_and_(kernels.M32).reshape(3, B, nb)
     # The stored per-block origin includes the global decompose offset,
@@ -394,34 +427,38 @@ def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device,
     with phase("ids.pack"):
         x0_rel = qd.amin(dim=2)                      # (3, B)
         rel = qd - x0_rel[:, :, None]
-        relmax_b = rel.amax(dim=2).cpu().numpy()     # (3, B)
-        x0_blocks = x0_rel.cpu().numpy().astype(np.uint64) + x0g[:, None]
+        relmax_b = _host(rel.amax(dim=2))            # (3, B)
+        x0_blocks = _host(x0_rel).astype(np.uint64) + x0g[:, None]
         relmax = relmax_b.max(axis=1)
         if id_sync is not None:
             # the widest block range over every process's blocks, as the
             # single-host writer sees it
             relmax = mh.allgather_i64(relmax).max(axis=0)
         widths = [int(relmax[i]).bit_length() for i in range(3)]
-        packed = [_host_u32(_batched_id_pack(kernels.i64_to_u32(rel[i]),
-                                             max(widths[i], 1)))
-                  for i in range(3)]
+        packed = []
+        for i in range(3):
+            words = _batched_id_pack(kernels.i64_to_u32(rel[i]),
+                                     max(widths[i], 1))
+            with phase("ids.gather"):
+                packed.append(_host_u32(words))
     payloads = [np.ascontiguousarray(packed[i][b])
                 for b in range(B) for i in range(3)]
     with phase("ids.entropy"):
         comp = entropy.encode_blocks(payloads, accel)
     out = []
-    for b in range(B):
-        meta = Writer()
-        meta.u64(int(acc.width))
-        for i in range(3):
-            meta.u64(int(x0_blocks[i, b]))
-        for i in range(3):
-            meta.u64(int(x0_blocks[i, b]) + int(relmax_b[i, b]))
-        blocks = [encode_block(meta.data, 0, True, accel)]
-        for i in range(3):
-            blocks.append(_wrap_precompressed(
-                packed[i][b], comp[b * 3 + i], max(widths[i], 1)))
-        out.append(blocks)
+    with phase("ids.wrap"):
+        for b in range(B):
+            meta = Writer()
+            meta.u64(int(acc.width))
+            for i in range(3):
+                meta.u64(int(x0_blocks[i, b]))
+            for i in range(3):
+                meta.u64(int(x0_blocks[i, b]) + int(relmax_b[i, b]))
+            blocks = [encode_block(meta.data, 0, True, accel)]
+            for i in range(3):
+                blocks.append(_wrap_precompressed(
+                    packed[i][b], comp[b * 3 + i], max(widths[i], 1)))
+            out.append(blocks)
     return out, widths
 
 
@@ -438,7 +475,7 @@ def _encode_float_blocks_deltas(arr, B: int, nb: int, code, acc, seed: int,
     codec = TrimV1_1(accel=accel)
     deltas = acc.deltas
     if isinstance(deltas, torch.Tensor):
-        deltas = deltas.cpu().numpy()
+        deltas = _host(deltas)
     deltas = np.asarray(deltas, dtype=np.float32)
     n = arr.shape[-1]
     if deltas.shape[0] != n:
@@ -446,7 +483,7 @@ def _encode_float_blocks_deltas(arr, B: int, nb: int, code, acc, seed: int,
             f"per-particle deltas length {deltas.shape[0]} != particle "
             f"count {n}")
     out = []
-    with phase("deltas.encode", nbytes=_nbytes(arr)):
+    with phase("deltas.encode"):
         for b in range(B):
             sl = slice(b * nb, (b + 1) * nb)
             data = arr[..., sl]
@@ -465,10 +502,11 @@ def _encode_float_blocks_deltas(arr, B: int, nb: int, code, acc, seed: int,
 def _blocks_box(pos, B: int, nb: int, device):
     """Per-block bounding box (lo, hi), host (B, 3) each, of the raw
     positions (3, B*nb)."""
-    xb = engine.as_tensor(pos, torch.float32, device).reshape(3, B, nb)
-    return xb.amin(dim=2).T.cpu().numpy(), xb.amax(dim=2).T.cpu().numpy()
+    xb = _upload(pos, torch.float32, device).reshape(3, B, nb)
+    return _host(xb.amin(dim=2).T), _host(xb.amax(dim=2).T)
 
 
+@operation("snapshot.compress")
 def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
                       num_blocks: int, seed: int = 0, accel: int = 1,
                       scale_mode: str = "div", mass=None,
@@ -549,7 +587,8 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
     with phase("serialize"):
         segments = [wire.serialize(fields, nb)
                     for fields in per_block_fields]
-    seg_io.write_segments(fp, segments, geometry)
+    with phase("segments.write"):
+        seg_io.write_segments(fp, segments, geometry)
     stats["bytes"] = sum(len(s) for s in segments) + \
         seg_io.IO_HEADER_BYTES * B
     stats["num_blocks"] = B
@@ -570,6 +609,7 @@ def _reject_deltas(spec: SnapshotSpec, writer: str) -> None:
                 "writer")
 
 
+@operation("snapshot.compress")
 def compress_snapshot_streaming(fp: BinaryIO, blocks_iter,
                                 spec: SnapshotSpec, seed: int = 0,
                                 accel: int = 1,
@@ -698,14 +738,15 @@ def compress_snapshot_multihost(fp: Optional[BinaryIO], pos, vel, ids,
                 field_blocks[b]))
 
     def blocks(arr):
-        arr = engine.as_tensor(arr, torch.float32, device)
+        arr = _upload(arr, torch.float32, device)
         return arr.reshape(3, B, nb).transpose(0, 1).contiguous()
 
     geo_blobs = [b""] * B
     if pos is not None:
         _, rng_b = _batched_stats_pos(blocks(pos), float(spec.pos.width))
         depth = engine.delta_to_depth(
-            spec.pos.delta, 0.0, mh.allgather_max_f32(float(rng_b.max())))
+            spec.pos.delta, 0.0,
+            mh.allgather_max_f32(float(_host(rng_b.max()))))
         fb, _, (lo, hi) = _encode_pos_batch(
             pos, B, nb, spec.pos, seed, accel, device, depth=depth,
             scale_mode=scale_mode)
@@ -719,7 +760,8 @@ def compress_snapshot_multihost(fp: Optional[BinaryIO], pos, vel, ids,
                                       int(spec.vel.sym_log10_scaled),
                                       float(spec.vel.sym_log10_threshold))
         depth = engine.delta_to_depth(
-            spec.vel.delta, 0.0, mh.allgather_max_f32(float(rng_b.max())))
+            spec.vel.delta, 0.0,
+            mh.allgather_max_f32(float(_host(rng_b.max()))))
         fb, _ = _encode_vel_batch(vel, B, nb, spec.vel, seed, accel, device,
                                   depth=depth, scale_mode=scale_mode)
         stats["vel_depth"] = depth
@@ -734,9 +776,9 @@ def compress_snapshot_multihost(fp: Optional[BinaryIO], pos, vel, ids,
         mode = int(getattr(spec.mass, "log10_scaled", 0))
         thr = float(getattr(spec.mass, "sym_log10_threshold", 0.0))
         x0, x1 = _batched_stats_scalar(
-            engine.as_tensor(mass, torch.float32, device).reshape(B, nb),
+            _upload(mass, torch.float32, device).reshape(B, nb),
             mode, thr)
-        local_g = float((x1.cpu().numpy() - x0.cpu().numpy()).max())
+        local_g = float((_host(x1) - _host(x0)).max())
         depth = engine.delta_to_depth(spec.mass.delta, 0.0,
                                       mh.allgather_max_f32(local_g))
         fb, _ = _encode_scalar_float_batch(mass, B, nb, spec.mass, seed,
@@ -780,8 +822,8 @@ def _id_unwrap_anchored(ids: torch.Tensor, width: int, anchor,
     ``id_decompose`` takes)."""
     xi = torch.stack(engine.id_split(ids, width))
     L = int(width)
-    a = torch.as_tensor(np.asarray(anchor, dtype=np.int64),
-                        device=xi.device)[:, None]
+    a = _card(torch.from_numpy(np.asarray(anchor, dtype=np.int64)),
+              xi.device)[:, None]
     d = xi - a
     move = torch.ones(xi.shape[1], dtype=torch.bool, device=xi.device)
     if exempt_first and xi.shape[1]:
@@ -797,7 +839,7 @@ def _multihost_id_sync(ids, width: int, device) -> dict:
     process then bins against the same frame, and PTID streams are
     byte-identical to the single-host writer's whatever the process count
     (one extra i64 triple all-gather per snapshot)."""
-    ids = engine.as_tensor(ids, torch.int64, device).reshape(-1)
+    ids = _upload(ids, torch.int64, device).reshape(-1)
     w = int(width)
     first = kernels.i64_to_u64(ids[0])
     ww = (w * w) & kernels.M64  # numpy's u64 product and quotient by 0
@@ -808,7 +850,7 @@ def _multihost_id_sync(ids, width: int, device) -> dict:
     anchor = mh.allgather_i64(anchor_local)[0]
     shifted = _id_unwrap_anchored(ids, w, anchor,
                                   exempt_first=mh.process_index() == 0)
-    gmin = mh.allgather_i64(shifted.amin(dim=1).cpu().numpy()).min(axis=0)
+    gmin = mh.allgather_i64(_host(shifted.amin(dim=1))).min(axis=0)
     return {"gmin": gmin, "shifted": shifted}
 
 
@@ -861,6 +903,7 @@ def _parse_want(fields):
     return want
 
 
+@operation("snapshot.decompress")
 def decompress_snapshot(fp: BinaryIO, batched: bool = True, box=None,
                         periodic=None, fields=None, device="cuda") -> dict:
     """Read a chained multi-segment snapshot back into concatenated field
@@ -883,12 +926,13 @@ def decompress_snapshot(fp: BinaryIO, batched: bool = True, box=None,
     FieldCodes) to decode; the rest are skipped entirely and absent from
     the result.  Selected fields are bit-identical to a full read."""
     want = _parse_want(fields)
-    if box is not None:
-        origin, width = box
-        segments = [s for _, s in seg_io.iter_segments_intersecting(
-            fp, origin, width, periodic)]
-    else:
-        segments = [s for _, s in seg_io.iter_segments(fp)]
+    with phase("decode.read"):
+        if box is not None:
+            origin, width = box
+            segments = [s for _, s in seg_io.iter_segments_intersecting(
+                fp, origin, width, periodic)]
+        else:
+            segments = [s for _, s in seg_io.iter_segments(fp)]
     return decode_segments(segments, batched, want, device)
 
 
@@ -993,8 +1037,8 @@ def _batched_float_decode(words: torch.Tensor, x0: np.ndarray,
     launch over all (block, dim) rows when 32 | nb, else K1 row by row."""
     b, d = words.shape[:2]
     if depth <= 24 and rows_kernel_eligible(depth, nb):
-        keys = torch.tensor(key, dtype=torch.int64,
-                            device=words.device).expand(b * d, 2)
+        keys = _card(torch.tensor(key, dtype=torch.int64),
+                     words.device).expand(b * d, 2)
         out = decode_rows_cuda(
             words.reshape(b * d, -1), keys, depth, nb, x0.reshape(b * d),
             np.repeat(rng_b, d), box=(box if periodic else 0.0),
@@ -1018,9 +1062,12 @@ def _stacked_words(blocks_by_seg, block: int):
     return np.stack(rows), widths.pop()
 
 
-def _to_device(words: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(
-        np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)).to(
+def _to_device(words: np.ndarray, device, name: str) -> torch.Tensor:
+    """Host u32 words as int32 on ``device``, in span
+    ``decode.<name>.upload``."""
+    with phase(f"decode.{name}.upload"):
+        return _card(torch.from_numpy(
+            np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)),
             device)
 
 
@@ -1084,7 +1131,10 @@ def _decompress_snapshot_batched(segments, want,
                 return None
             if depth < 1 or depth > 24:
                 return None  # foreign/corrupt depth: per-segment path
-            dims_h = [_stacked_words(blocks_by_seg, 1 + d) for d in range(3)]
+            name = "pos" if is_pos else "vel"
+            with phase(f"decode.{name}.entropy"):
+                dims_h = [_stacked_words(blocks_by_seg, 1 + d)
+                          for d in range(3)]
             if any(w is None or w[1] != depth for w in dims_h):
                 return None
             x0_np = np.array([m[0] for m in metas], dtype=np.float32)
@@ -1096,10 +1146,9 @@ def _decompress_snapshot_batched(segments, want,
                      x0_np).astype(np.float32)  # (B, 3)
             # the per-segment decode derives a key per dim; so does this
             keys = [_rng.field_key(seed, fi, d) for d in range(3)]
-            name = "pos" if is_pos else "vel"
             with phase(f"decode.{name}"):
                 dims = [_batched_float_decode(
-                    _to_device(dims_h[d][0], device)[:, None],
+                    _to_device(dims_h[d][0], device, name)[:, None],
                     x0_np[:, d:d + 1],
                     dx_np[:, d], keys[d], depth, nb, is_pos,
                     float(box))[:, 0] for d in range(3)]
@@ -1128,7 +1177,8 @@ def _decompress_snapshot_batched(segments, want,
                 return None
             if depth < 1 or depth > 24:
                 return None
-            stacked = _stacked_words(blocks_by_seg, 1)
+            with phase("decode.mass.entropy"):
+                stacked = _stacked_words(blocks_by_seg, 1)
             if stacked is None or stacked[1] != depth:
                 return None
             x0_np = np.array([m[0] for m in metas], dtype=np.float32)
@@ -1137,11 +1187,13 @@ def _decompress_snapshot_batched(segments, want,
             # f32(x0 + maxDiff) - f32(x0) form.
             dx_np = (np.array([m[1] for m in metas], dtype=np.float32)
                      - x0_np)
-            res = _batched_float_decode(
-                _to_device(stacked[0], device)[:, None], x0_np[:, None],
-                dx_np, _rng.field_key(seed, fi, 0), depth, nb, False, 0.0)
-            data = engine.unmap_float(res[:, 0], log10_scaled,
-                                      float(threshold))  # (B, nb)
+            with phase("decode.mass"):
+                res = _batched_float_decode(
+                    _to_device(stacked[0], device, "mass")[:, None],
+                    x0_np[:, None], dx_np, _rng.field_key(seed, fi, 0),
+                    depth, nb, False, 0.0)
+                data = engine.unmap_float(res[:, 0], log10_scaled,
+                                          float(threshold))  # (B, nb)
             out["mass"] = data.reshape(-1)
         elif code == int(FieldCode.PTID):
             metas = []
@@ -1155,23 +1207,26 @@ def _decompress_snapshot_batched(segments, want,
             width = metas[0][0]
             if any(m[0] != width for m in metas):
                 return None
-            dims = []
-            for d in range(3):
-                stacked = _stacked_words(blocks_by_seg, 1 + d)
-                if stacked is None:
-                    return None
-                words_d = _to_device(stacked[0], device)
-                wbits = stacked[1]
-                if rows_kernel_eligible(wbits, nb):
-                    bins = unpack_rows_cuda(words_d, wbits, nb)
-                else:
-                    bins = torch.stack([bitpack.uniform_unpack(r, wbits, nb)
-                                        for r in words_d])
-                dims.append(kernels.u32_to_i64(bins))
-            x0 = torch.tensor([[kernels.u64_to_i64(m[1][d]) for m in metas]
-                               for d in range(3)], dtype=torch.int64,
-                              device=device)
-            ids = engine.id_recompose(dims, x0, width)
+            with phase("decode.ids.entropy"):
+                dims_h = [_stacked_words(blocks_by_seg, 1 + d)
+                          for d in range(3)]
+            if any(w is None for w in dims_h):
+                return None
+            with phase("decode.ids"):
+                dims = []
+                for words_h, wbits in dims_h:
+                    words_d = _to_device(words_h, device, "ids")
+                    if rows_kernel_eligible(wbits, nb):
+                        bins = unpack_rows_cuda(words_d, wbits, nb)
+                    else:
+                        bins = torch.stack([
+                            bitpack.uniform_unpack(r, wbits, nb)
+                            for r in words_d])
+                    dims.append(kernels.u32_to_i64(bins))
+                x0 = _card(torch.tensor(
+                    [[kernels.u64_to_i64(m[1][d]) for m in metas]
+                     for d in range(3)], dtype=torch.int64), device)
+                ids = engine.id_recompose(dims, x0, width)
             out["ids"] = ids.reshape(-1)
         else:
             return None

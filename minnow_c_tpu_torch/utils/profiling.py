@@ -1,84 +1,96 @@
-"""Profiling and tracing helpers (port of ``minnow_c_tpu/utils/profiling.py``).
+"""Spans and per-operation records of the port's snapshot path.
 
-* ``trace(dir)``     -- context manager around ``torch.profiler.profile``
-  (host activity, and the card's kernels when CUDA is present); writes a
-  Chrome trace (``trace.json``, opens in Perfetto) into ``dir``.
-* ``annotate(name)`` -- named span (``torch.profiler.record_function``)
-  that shows up inside profiler traces.
-* ``timed(name)``    -- lightweight wall-clock span logger.
-* ``phase(name)``    -- the production span: always an ``annotate``;
-  additionally a ``timed`` print when ``MINNOW_PROFILE`` is set.  The
-  snapshot writer and reader wrap their pipeline phases (stats, bin+pack,
-  device-to-host gather, entropy, serialize, decode) in these, so
-  ``MINNOW_PROFILE=1 python ...`` attributes wall time per phase and a
-  ``trace()`` capture shows the same names on the timeline.  Kernels run
-  asynchronously, so under ``MINNOW_PROFILE`` a phase synchronises the
-  card at its start and end: the print then holds the device work the
-  phase launched.
+* ``phase(name)`` -- a named span (``torch.profiler.record_function``).
+  Under ``torch.profiler`` it lies on the timeline on the same clock as the
+  card's kernels and copies; with nothing listening it costs microseconds.
+  The snapshot writer and reader and the Gadget-2 driver wrap each step of
+  their pipelines in one (``PERF.md`` lists the names).
+* ``operation(name)`` -- the span of a public entry point.  The outermost
+  one open on a thread also keeps a ``Record``: its name, the host's
+  ``time.perf_counter()`` at open and close, and its counters; the last
+  ``MAX_RECORDS`` records are kept in memory and ``operations()`` returns
+  them.  An ``operation`` opened inside another is a ``phase`` only, so a
+  driver that calls an entry point gives one record.
+* ``count(key, n)`` -- adds ``n`` bytes to counter ``key`` of the open
+  record, and does nothing when none is open.  The snapshot path counts
+  every copy between host and card as ``h2d`` or ``d2h``; a copy that
+  stays on one side adds 0.
+
+With ``MINNOW_PROFILE`` set, closing a record prints one line to standard
+error, e.g. ``[minnow] g2.compress: 1712.3 ms  h2d 630.0 MB  d2h 288.1
+MB``.  Nothing synchronises the card: the wall is the host's, and for an
+entry point that returns tensors on the card it is the time to enqueue the
+work, not to finish it.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import sys
+import threading
 import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
 
 import torch
 
+MAX_RECORDS = 4096
 
-@contextlib.contextmanager
-def trace(log_dir: str = "minnow_trace"):
-    """Profile the enclosed block; yields the ``torch.profiler.profile``
-    object (for ``key_averages()``) and writes ``log_dir/trace.json``."""
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+_records: collections.deque = collections.deque(maxlen=MAX_RECORDS)
+_open = threading.local()
 
 
-def annotate(name: str):
-    """Named span that shows up inside profiler traces."""
+@dataclass
+class Record:
+    """One outermost operation: host wall (``perf_counter`` s) and byte
+    counters."""
+    name: str
+    start: float
+    end: Optional[float] = None
+    counters: Dict[str, int] = field(default_factory=dict)
+
+    def line(self) -> str:
+        wall = (self.end - self.start) * 1e3
+        parts = "".join(f"  {k} {v / 1e6:.1f} MB"
+                        for k, v in self.counters.items())
+        return f"[minnow] {self.name}: {wall:.1f} ms{parts}"
+
+
+def phase(name: str):
+    """A named span on the profiler's timeline."""
     return torch.profiler.record_function(name)
 
 
-def _sync() -> None:
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
 @contextlib.contextmanager
-def phase(name: str, sink=print, nbytes: int = 0):
-    """Production pipeline span: a profiler ``annotate`` always, plus a
-    wall-clock ``timed`` print when the ``MINNOW_PROFILE`` env var is
-    set.  ``nbytes`` (optional) adds a GB/s figure to the print."""
-    with contextlib.ExitStack() as st:
-        st.enter_context(annotate(name))
-        if os.environ.get("MINNOW_PROFILE"):
-            _sync()
-            t0 = time.perf_counter()
-            try:
-                yield
-            finally:
-                _sync()
-                dt = time.perf_counter() - t0
-                rate = f"  ({nbytes / dt / 1e9:.2f} GB/s)" \
-                    if nbytes and dt > 0 else ""
-                sink(f"[minnow] {name}: {dt * 1e3:.2f} ms{rate}")
-        else:
+def operation(name: str):
+    """The span of a public entry point, and its record when it is the
+    outermost one open (usable as a decorator)."""
+    if getattr(_open, "record", None) is not None:
+        with phase(name):
             yield
-
-
-@contextlib.contextmanager
-def timed(name: str, sink=print):
-    """Wall-clock span: ``with timed("lz4"): ...`` prints the elapsed
-    time.  Blocks on nothing -- callers must synchronise around device
-    work they want attributed."""
-    t0 = time.perf_counter()
+        return
+    rec = Record(name, time.perf_counter())
+    _open.record = rec
     try:
-        yield
+        with phase(name):
+            yield
     finally:
-        sink(f"[minnow] {name}: {(time.perf_counter() - t0) * 1e3:.2f} ms")
+        rec.end = time.perf_counter()
+        _open.record = None
+        _records.append(rec)
+        if os.environ.get("MINNOW_PROFILE"):
+            print(rec.line(), file=sys.stderr, flush=True)
+
+
+def count(key: str, n: int) -> None:
+    """Add ``n`` to counter ``key`` of the open record, if any."""
+    rec = getattr(_open, "record", None)
+    if rec is not None:
+        rec.counters[key] = rec.counters.get(key, 0) + int(n)
+
+
+def operations() -> List[Record]:
+    """The last ``MAX_RECORDS`` closed records, oldest first."""
+    return list(_records)

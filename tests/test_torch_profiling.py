@@ -1,0 +1,243 @@
+"""The port's spans, per-operation records and byte counters
+(``minnow_c_tpu_torch.utils.profiling``) on the snapshot path.
+
+The Gadget-2 driver and the snapshot entry points run on a small snapshot
+under ``torch.profiler`` (host activity): every span the path names is on
+the timeline, each inside its parent; each outermost entry point leaves one
+record, whose counters read 0 where no copy crosses to a card.  The last
+test runs on a card (marked ``cuda``): there the counters hold every byte
+the path moves between host and card.  This file imports no JAX."""
+
+import io
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import minnow_c_tpu_torch as mt
+from minnow_c_tpu_torch.drivers import gadget2
+from minnow_c_tpu_torch.parallel import snapshot
+from minnow_c_tpu_torch.utils import profiling
+
+BOX = 64.0
+N = 4096
+BLOCKS = 2
+
+# the spans the benchmark's readers ask for by name
+BENCHMARK_READS = ("pos.binpack", "vel.binpack", "pos.entropy",
+                   "vel.entropy", "ids.entropy", "serialize", "decode.parse")
+
+# child -> parent, for every span of a write and of a read
+WRITE = {"g2.parse": "g2.compress", "snapshot.compress": "g2.compress",
+         "ids.upload": "ids.decompose", "ids.gather": "ids.pack",
+         **{f"{f}.{step}": "snapshot.compress"
+            for f in ("pos", "vel", "mass")
+            for step in ("upload", "stats", "binpack", "gather", "entropy",
+                         "wrap")},
+         **{f"ids.{step}": "snapshot.compress"
+            for step in ("decompose", "pack", "entropy", "wrap")},
+         "serialize": "snapshot.compress",
+         "segments.write": "snapshot.compress"}
+READ = {"snapshot.decompress": "g2.decompress",
+        "g2.download": "g2.decompress", "g2.records": "g2.decompress",
+        "decode.read": "snapshot.decompress",
+        "decode.parse": "snapshot.decompress",
+        **{f"decode.{f}{step}": "snapshot.decompress"
+           for f in ("pos", "vel", "ids", "mass")
+           for step in ("", ".entropy")},
+        **{f"decode.{f}.upload": f"decode.{f}"
+           for f in ("pos", "vel", "ids", "mass")}}
+
+
+def gadget2_file() -> bytes:
+    """A format-1 file of N particles with per-particle masses."""
+    rng = np.random.default_rng(5)
+    pos = rng.uniform(0, BOX, (3, N)).astype(np.float32)
+    vel = rng.normal(0, 150, (3, N)).astype(np.float32)
+    ids = rng.permutation(32 ** 3)[:N].astype(np.uint64)
+    mass = rng.uniform(0.5, 4.0, N).astype(np.float32)
+    hdr = gadget2.Gadget2Header(
+        npart=(0, N, 0, 0, 0, 0), mass=(0.0,) * 6, time=0.5, redshift=1.5,
+        box_size=BOX, omega0=0.3, omega_lambda=0.7, hubble_param=0.7)
+    buf = io.BytesIO()
+    gadget2.write_snapshot(buf, hdr, pos, vel, ids, mass=mass)
+    return buf.getvalue()
+
+
+def spans(fn):
+    """Run ``fn`` under the profiler: its result and {span name: [(start,
+    end), ...]} of every record_function span."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    by = {}
+    for e in prof.events():
+        by.setdefault(e.name, []).append((e.time_range.start,
+                                          e.time_range.end))
+    return out, by
+
+
+def new_records(fn):
+    """The records that ``fn`` leaves, and its result."""
+    before = profiling.operations()
+    out = fn()
+    recs = profiling.operations()
+    last = [i for i, r in enumerate(recs) if before and r is before[-1]]
+    return recs[last[0] + 1 if last else 0:], out
+
+
+def compress(raw: bytes, device="cpu") -> bytes:
+    out = io.BytesIO()
+    gadget2.compress(io.BytesIO(raw), out, num_blocks=BLOCKS, device=device)
+    return out.getvalue()
+
+
+def decompress(packed: bytes, device="cpu") -> bytes:
+    out = io.BytesIO()
+    gadget2.decompress(io.BytesIO(packed), out, device=device)
+    return out.getvalue()
+
+
+@pytest.fixture(scope="module")
+def files():
+    raw = gadget2_file()
+    return raw, compress(raw)
+
+
+@pytest.mark.parametrize("op", ["write", "read"])
+def test_driver_spans_nest(files, op):
+    raw, packed = files
+    nesting = WRITE if op == "write" else READ
+    _, by = spans(lambda: compress(raw) if op == "write"
+                  else decompress(packed))
+    names = set(nesting) | set(nesting.values())
+    assert names <= set(by), sorted(names - set(by))
+    for child, parent in nesting.items():
+        for s, e in by[child]:
+            assert any(ps <= s and e <= pe for ps, pe in by[parent]), \
+                (child, parent)
+    if op == "read":    # the driver's download and records follow the read
+        (ds, de), = by["snapshot.decompress"]
+        for name in ("g2.download", "g2.records"):
+            assert all(s >= de for s, _ in by[name]), name
+
+
+def test_benchmark_span_names_stay(files):
+    raw, packed = files
+    _, w = spans(lambda: compress(raw))
+    _, r = spans(lambda: decompress(packed))
+    for name in BENCHMARK_READS:
+        assert name in w or name in r, name
+
+
+@pytest.mark.parametrize("op", ["write", "read"])
+def test_one_record_per_driver_operation(files, op):
+    raw, packed = files
+    recs, _ = new_records(lambda: compress(raw) if op == "write"
+                          else decompress(packed))
+    name = "g2.compress" if op == "write" else "g2.decompress"
+    assert [r.name for r in recs] == [name]
+    rec = recs[0]
+    assert rec.start < rec.end
+    # no copy crosses to a card on the CPU
+    assert rec.counters == {"h2d": 0, "d2h": 0}
+
+
+def test_one_record_per_snapshot_operation():
+    rng = np.random.default_rng(1)
+    pos = rng.uniform(0, BOX, (3, N)).astype(np.float32)
+    ids = rng.permutation(N).astype(np.uint64)
+    spec = mt.SnapshotSpec(pos=mt.PositionAccuracy(delta=1e-3, width=BOX),
+                           ids=mt.IDAccuracy(width=16))
+    fp = io.BytesIO()
+    recs, _ = new_records(lambda: mt.compress_snapshot(
+        fp, pos, None, ids, spec, num_blocks=BLOCKS, device="cpu"))
+    assert [r.name for r in recs] == ["snapshot.compress"]
+    assert recs[0].counters == {"h2d": 0, "d2h": 0}
+    fp.seek(0)
+    recs, out = new_records(lambda: mt.decompress_snapshot(fp,
+                                                           device="cpu"))
+    assert [r.name for r in recs] == ["snapshot.decompress"]
+    assert torch.equal(out["ids"], torch.from_numpy(ids.view(np.int64)))
+    recs, _ = new_records(lambda: snapshot.compress_snapshot_streaming(
+        io.BytesIO(), iter([{"pos": pos}]), spec, device="cpu"))
+    assert [r.name for r in recs] == ["snapshot.compress"]
+
+
+def test_count_outside_an_operation_is_a_no_op():
+    n = len(profiling.operations())
+    profiling.count("h2d", 5)
+    assert len(profiling.operations()) == n
+    with profiling.operation("unit"):
+        profiling.count("h2d", 3)
+        with profiling.operation("inner"):
+            profiling.count("h2d", 4)
+    rec = profiling.operations()[-1]
+    assert rec.name == "unit" and rec.counters == {"h2d": 7}
+    profiling.count("h2d", 5)
+    assert rec.counters == {"h2d": 7}
+
+
+def test_records_are_bounded():
+    for _ in range(profiling.MAX_RECORDS + 3):
+        with profiling.operation("many"):
+            pass
+    assert len(profiling.operations()) == profiling.MAX_RECORDS
+
+
+def test_record_kept_when_the_operation_raises():
+    with pytest.raises(ValueError):
+        with profiling.operation("fails"):
+            profiling.count("d2h", 1)
+            raise ValueError("x")
+    rec = profiling.operations()[-1]
+    assert rec.name == "fails" and rec.counters == {"d2h": 1}
+    with profiling.operation("after"):
+        pass
+    assert profiling.operations()[-1].name == "after"
+
+
+def test_profile_line_only_with_the_variable(files, monkeypatch, capsys):
+    raw, _ = files
+    monkeypatch.delenv("MINNOW_PROFILE", raising=False)
+    compress(raw)
+    with profiling.operation("quiet"):
+        profiling.count("h2d", 10)
+    got = capsys.readouterr()
+    assert got.out == "" and got.err == ""
+
+    monkeypatch.setenv("MINNOW_PROFILE", "1")
+    with profiling.operation("unit"):
+        profiling.count("h2d", 2_000_000)
+        with profiling.operation("nested"):
+            profiling.count("d2h", 288_100_000)
+    compress(raw)
+    got = capsys.readouterr()
+    assert got.out == ""
+    lines = got.err.splitlines()
+    assert len(lines) == 2
+    head, counters = lines[0].split(" ms")
+    assert head.startswith("[minnow] unit: ")
+    float(head.rsplit(" ", 1)[1])
+    assert counters == "  h2d 2.0 MB  d2h 288.1 MB"
+    assert lines[1].startswith("[minnow] g2.compress: ")
+    assert lines[1].endswith(" ms  h2d 0.0 MB  d2h 0.0 MB")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["write", "read"])
+def test_counters_hold_the_copies_on_a_card(files, op):
+    """Raw fields cross once (up for a write, down for a read); the packed
+    words cross the other way; the per-block stats, keys and origins add a
+    few hundred bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    raw, packed = files
+    recs, _ = new_records(lambda: compress(raw, "cuda") if op == "write"
+                          else decompress(packed, "cuda"))
+    c = recs[0].counters
+    fields = N * (3 * 4 + 3 * 4 + 8 + 4)
+    one, other = ("h2d", "d2h") if op == "write" else ("d2h", "h2d")
+    assert fields <= c[one] <= fields + 1024
+    # a block's words: its depths and ID widths over 32 bits a word
+    assert 0 < c[other] < fields
