@@ -12,7 +12,9 @@ followed by POS (3xN f32), VEL (3xN f32), ID (N u32/u64) records, each
 wrapped in Fortran-style 4-byte length markers), then compresses the
 fields through the snapshot pipeline into a chained-segment ``.min`` file,
 encoded on ``device``; ``decompress`` reads a ``.min`` back on ``device``
-and writes the Gadget-2 file from host copies of the decoded tensors.
+and writes the Gadget-2 file with one call from a host image of it, into
+which each decoded field is copied once (from the card: transposed there,
+into pinned memory).
 
 The driver honors the client-duty split (spec table 1): it owns
 segmenting (the ``num_blocks`` choice), accuracy targets, and file
@@ -21,11 +23,13 @@ open/close; the library owns compression and format.
 
 from __future__ import annotations
 
+import math
 import struct
 from dataclasses import dataclass
 from typing import BinaryIO, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..parallel import snapshot
 from ..types import (FloatAccuracy, IDAccuracy, PositionAccuracy,
@@ -33,6 +37,9 @@ from ..types import (FloatAccuracy, IDAccuracy, PositionAccuracy,
 from ..utils.profiling import count, operation, phase
 
 HEADER_BYTES = 256
+
+# the tensor dtype whose bytes a record holds, for each file dtype
+_ON_CARD = {"<f4": torch.float32, "<u8": torch.int64}
 
 
 @dataclass
@@ -168,10 +175,10 @@ def read_snapshot_ext(fp: BinaryIO
             ids, mass)
 
 
-def _extract_mass_record(hdr: Gadget2Header,
-                         mass: np.ndarray) -> np.ndarray:
-    """Inverse of the expansion in ``read_snapshot_ext``: the (nm,)
-    MASS-record entries for variable-mass types, in type order."""
+def _mass_record_parts(hdr: Gadget2Header, mass) -> list:
+    """Inverse of the expansion in ``read_snapshot_ext``: the slices of the
+    full (n,) ``mass`` that make the MASS record, the variable-mass types'
+    in type order."""
     parts = []
     off = 0
     for i in range(6):
@@ -179,7 +186,68 @@ def _extract_mass_record(hdr: Gadget2Header,
         if cnt and hdr.mass[i] == 0.0:
             parts.append(mass[off:off + cnt])
         off += cnt
-    return np.concatenate(parts) if parts else np.empty(0, np.float32)
+    return parts
+
+
+def _file_image(hdr: Gadget2Header, pos, vel, ids, mass=None
+                ) -> torch.Tensor:
+    """The format-1 file's bytes as one uint8 host tensor: the header, POS
+    and VEL as (n, 3) f32, the IDs as u64 and, when the header declares
+    per-particle masses, the MASS record, each record in its four-byte
+    length markers.  Every field is copied once, straight into its
+    record's slice.
+
+    The fields are numpy arrays or tensors.  From the card, the image is
+    pinned host memory (torch's caching host allocator reuses it from one
+    call to the next), pos and vel are transposed there, the copies are
+    enqueued without waiting and the stream is synchronised once; their
+    bytes count as ``d2h`` and, landing in pinned memory, ``d2h_pinned``.
+    On the host the image is ordinary memory and numpy casts into it as
+    ``astype`` would."""
+    on_card = isinstance(pos, torch.Tensor) and pos.is_cuda
+    if not on_card:
+        pos, vel, ids, mass = (t.numpy() if isinstance(t, torch.Tensor)
+                               else t for t in (pos, vel, ids, mass))
+        if mass is not None:
+            mass = np.asarray(mass, dtype=np.float32)
+    # each record's payload: its pieces as (file dtype, source in file order)
+    recs = [[("u1", np.frombuffer(hdr.pack(), np.uint8))],
+            [("<f4", pos.T)], [("<f4", vel.T)], [("<u8", ids)]]
+    if _variable_mass_types(hdr):
+        if mass is None:
+            raise ValueError(
+                "header declares per-particle masses (mass table 0 with "
+                "npart > 0) but no mass array was given")
+        recs.append([("<f4", p) for p in _mass_record_parts(hdr, mass)])
+    recs = [[(np.dtype(dt).itemsize * math.prod(src.shape), dt, src)
+             for dt, src in rec] for rec in recs]
+    markers = [np.frombuffer(struct.pack("<I", sum(b for b, _, _ in rec)),
+                             np.uint8) for rec in recs]
+    image = torch.empty(sum(b for rec in recs for b, _, _ in rec) +
+                        8 * len(recs), dtype=torch.uint8, pin_memory=on_card)
+    host = image.numpy()
+    crossed = 0
+    off = 0
+    for rec, marker in zip(recs, markers):
+        host[off:off + 4] = marker
+        off += 4
+        for nbytes, dt, src in rec:
+            if isinstance(src, torch.Tensor):   # on the card: lay out there
+                src = src.to(_ON_CARD[dt]).contiguous()
+                image[off:off + nbytes].copy_(
+                    src.view(-1).view(torch.uint8), non_blocking=True)
+                crossed += nbytes
+            else:
+                np.copyto(host[off:off + nbytes].view(dt).reshape(src.shape),
+                          src, casting="unsafe")
+            off += nbytes
+        host[off:off + 4] = marker
+        off += 4
+    if on_card:
+        torch.cuda.current_stream(pos.device).synchronize()
+    count("d2h", crossed)
+    count("d2h_pinned", crossed if image.is_pinned() else 0)
+    return image
 
 
 def write_snapshot(fp: BinaryIO, hdr: Gadget2Header, pos: np.ndarray,
@@ -189,17 +257,7 @@ def write_snapshot(fp: BinaryIO, hdr: Gadget2Header, pos: np.ndarray,
     ``mass``: optional full (n,) per-particle array; the MASS record is
     emitted (variable-mass types only, in type order) when the header
     declares per-particle masses."""
-    _write_record(fp, hdr.pack())
-    _write_record(fp, np.ascontiguousarray(pos.T, dtype="<f4").tobytes())
-    _write_record(fp, np.ascontiguousarray(vel.T, dtype="<f4").tobytes())
-    _write_record(fp, ids.astype("<u8").tobytes())
-    if _variable_mass_types(hdr):
-        if mass is None:
-            raise ValueError(
-                "header declares per-particle masses (mass table 0 with "
-                "npart > 0) but no mass array was given")
-        rec = _extract_mass_record(hdr, np.asarray(mass, dtype=np.float32))
-        _write_record(fp, rec.astype("<f4").tobytes())
+    fp.write(memoryview(_file_image(hdr, pos, vel, ids, mass).numpy()))
 
 
 @operation("g2.compress")
@@ -275,16 +333,13 @@ def compress(in_fp: BinaryIO, out_fp: BinaryIO,
 def decompress(in_fp: BinaryIO, out_fp: BinaryIO,
                device="cuda") -> Gadget2Header:
     """.g2.min -> Gadget-2 snapshot, decoded on ``device`` (``cuda``
-    unless the caller asks for ``cpu``)."""
+    unless the caller asks for ``cpu``) and laid out by ``_file_image``."""
     hdr = Gadget2Header.unpack(_read_record(in_fp))
     decoded = snapshot.decompress_snapshot(in_fp, device=device)
     with phase("g2.download"):
-        fields = {}
-        for k, v in decoded.items():
-            count("d2h", v.nbytes if v.is_cuda else 0)
-            fields[k] = v.cpu().numpy()
+        image = _file_image(hdr, decoded["pos"], decoded["vel"],
+                            decoded["ids"], decoded.get("mass"))
     del decoded
     with phase("g2.records"):
-        write_snapshot(out_fp, hdr, fields["pos"], fields["vel"],
-                       fields["ids"], mass=fields.get("mass"))
+        out_fp.write(memoryview(image.numpy()))
     return hdr

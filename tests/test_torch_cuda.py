@@ -22,6 +22,8 @@ from minnow_c_tpu_torch.algos import algo_coil_v1_1, algo_sort_v1_2, chunked
 from minnow_c_tpu_torch.ops import (chunked_cuda, decode_cuda, encode_cuda,
                                     kernels, scan_cuda)
 
+import gadget2_cases
+
 pytestmark = pytest.mark.cuda
 
 
@@ -1302,3 +1304,43 @@ def test_sharded_snapshot_codec_kernels(dev):
                        cpu.decode(want, seed=4)):
         assert _bits_np(a) == _bits_np(b) == _bits_np(c)
     np.testing.assert_array_equal(out[2].cpu().numpy().view(np.uint64), ids)
+
+
+@pytest.mark.parametrize("case", sorted(gadget2_cases.CASES))
+def test_gadget2_decompress_lays_the_file_out_on_the_card(dev, case):
+    """The driver's decompress on the card (transposes there, one copy a
+    field into a pinned image of the file, one write): its file equals
+    ``write_snapshot`` of host copies of the card's decode, byte for byte,
+    and the JAX package's decompress of the same ``.g2.min``, by the
+    digest ``test_torch_drivers.py`` holds against it.  Cases: table,
+    mixed and all-positive masses, IDs read from u32 records, n not a
+    multiple of 32.  The record counts as ``d2h`` the fields' bytes
+    (the MASS record's alone), all of them as ``d2h_pinned``."""
+    from minnow_c_tpu_torch.drivers import gadget2
+    from minnow_c_tpu_torch.utils import profiling
+    n, masses, _, blocks = gadget2_cases.CASES[case]
+    raw = gadget2_cases.raw_file(case)
+    packed = io.BytesIO()
+    gadget2.compress(io.BytesIO(raw), packed, num_blocks=blocks,
+                     device="cpu")
+    out = io.BytesIO()
+    gadget2.decompress(io.BytesIO(packed.getvalue()), out, device=dev)
+    rec = profiling.operations()[-1]
+    got = out.getvalue()
+    f = io.BytesIO(packed.getvalue())
+    hdr = gadget2.Gadget2Header.unpack(gadget2._read_record(f))
+    host = {k: v.cpu().numpy()
+            for k, v in mt.decompress_snapshot(f, device=dev).items()}
+    want = io.BytesIO()
+    gadget2.write_snapshot(want, hdr, host["pos"], host["vel"], host["ids"],
+                           mass=host.get("mass"))
+    assert got == want.getvalue()
+    assert gadget2_cases.digest(got, case) == gadget2_cases.DIGESTS[case]
+    npart, table, *_, mass0 = gadget2_cases.fields(case)
+    if masses == "positive":
+        *_, mass = gadget2.read_snapshot_ext(io.BytesIO(got))
+        assert (np.abs(mass / mass0 - 1) <= 1.0001e-4).all()
+    nm = sum(c for c, m in zip(npart, table) if c and m == 0.0)
+    assert rec.name == "g2.decompress"
+    assert rec.counters["d2h"] == 32 * n + 4 * nm
+    assert rec.counters["d2h_pinned"] == rec.counters["d2h"]

@@ -19,6 +19,8 @@ from minnow_c_tpu.drivers import gadget2 as jg2
 from minnow_c_tpu_torch import __main__ as tcli
 from minnow_c_tpu_torch.drivers import gadget2 as tg2
 
+import gadget2_cases
+
 BOX = 64.0
 
 
@@ -112,6 +114,75 @@ def test_gadget2_positive_masses_raise():
             assert np.minimum(e, BOX - e).max() <= 1e-3
             assert np.abs(vel - vel0).max() <= 1.0
             assert np.array_equal(ids, ids0)
+
+
+@pytest.mark.parametrize("case", ["table_3001", "mixed_u32_2001",
+                                  "positive_1000"])
+def test_file_image_matches_write_snapshot(case):
+    """The one routine that lays out a Gadget-2 file: from tensors, as the
+    driver's decompress hands it the decoded fields, its bytes equal the
+    JAX package's ``write_snapshot`` of the same arrays, and the port's."""
+    npart, table, pos, vel, ids, mass = gadget2_cases.fields(case)
+    if gadget2_cases.CASES[case][2] == "<u4":
+        ids = ids.astype(np.uint32)
+    hdr = tg2.Gadget2Header(npart=npart, mass=table, time=0.5,
+                            redshift=1.5, box_size=BOX, omega0=0.3,
+                            omega_lambda=0.7, hubble_param=0.7)
+    want = io.BytesIO()
+    jg2.write_snapshot(want, hdr, pos, vel, ids, mass=mass)
+    got = io.BytesIO()
+    tg2.write_snapshot(got, hdr, pos, vel, ids, mass=mass)
+    assert got.getvalue() == want.getvalue()
+    image = tg2._file_image(
+        hdr, torch.from_numpy(pos), torch.from_numpy(vel),
+        torch.from_numpy(ids.astype(np.uint64).view(np.int64)),
+        None if mass is None else torch.from_numpy(mass))
+    assert image.dtype == torch.uint8 and not image.is_pinned()
+    assert image.numpy().tobytes() == want.getvalue()
+
+
+def test_declared_masses_without_a_mass_field_raise():
+    """A header that declares per-particle masses needs them: writing it
+    without a mass array raises ValueError, from numpy arrays and from
+    tensors, and so does decompressing a file compressed from a legacy
+    snapshot that lost its MASS record, in both packages."""
+    n = 64
+    hdr = tg2.Gadget2Header(npart=(0, n, 0, 0, 0, 0), mass=(0.0,) * 6,
+                            time=1.0, redshift=0.0, box_size=BOX,
+                            omega0=0.3, omega_lambda=0.7, hubble_param=0.7)
+    pos = np.linspace(0, BOX, 3 * n, endpoint=False,
+                      dtype=np.float32).reshape(3, n)
+    vel = np.zeros((3, n), np.float32)
+    ids = np.arange(n, dtype=np.uint64)
+    with pytest.raises(ValueError, match="per-particle masses"):
+        tg2.write_snapshot(io.BytesIO(), hdr, pos, vel, ids)
+    with pytest.raises(ValueError, match="per-particle masses"):
+        tg2._file_image(hdr, torch.from_numpy(pos), torch.from_numpy(vel),
+                        torch.from_numpy(ids.view(np.int64)))
+    legacy = io.BytesIO()
+    for payload in (hdr.pack(), pos.T.tobytes(), vel.T.tobytes(),
+                    ids.tobytes()):
+        tg2._write_record(legacy, payload)
+    with pytest.warns(UserWarning, match="no MASS"):
+        blob = _compress(tg2, legacy.getvalue(), device="cpu")
+    for g2, kw in ((jg2, {}), (tg2, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="per-particle masses"):
+            _decompress(g2, blob, **kw)
+
+
+@pytest.mark.parametrize("case", sorted(gadget2_cases.CASES))
+def test_gadget2_decompress_digests_hold_the_jax_package(case):
+    """``fixtures/gadget2_decompress.json`` pins the JAX package's
+    decompress of each case's ``.g2.min`` (the port's, on the CPU), so a
+    card, which has no JAX, checks its file against it
+    (``test_torch_cuda.py``); the port's CPU decompress gives it too."""
+    _, _, _, blocks = gadget2_cases.CASES[case]
+    blob = _compress(tg2, gadget2_cases.raw_file(case), num_blocks=blocks,
+                     device="cpu")
+    want = gadget2_cases.DIGESTS[case]
+    assert gadget2_cases.digest(_decompress(jg2, blob), case) == want
+    assert gadget2_cases.digest(_decompress(tg2, blob, device="cpu"),
+                                case) == want
 
 
 def _run(main, argv, capsys):

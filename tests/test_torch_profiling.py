@@ -139,8 +139,10 @@ def test_one_record_per_driver_operation(files, op):
     assert [r.name for r in recs] == [name]
     rec = recs[0]
     assert rec.start < rec.end
-    # no copy crosses to a card on the CPU
-    assert rec.counters == {"h2d": 0, "d2h": 0}
+    # no copy crosses to a card on the CPU; a read's file lands in
+    # ordinary memory
+    assert rec.counters == ({"h2d": 0, "d2h": 0} if op == "write" else
+                            {"h2d": 0, "d2h": 0, "d2h_pinned": 0})
 
 
 def test_one_record_per_snapshot_operation():
@@ -224,6 +226,19 @@ def test_profile_line_only_with_the_variable(files, monkeypatch, capsys):
     assert lines[1].endswith(" ms  h2d 0.0 MB  d2h 0.0 MB")
 
 
+def test_decompress_lands_nothing_in_pinned_memory_on_the_cpu(
+        files, monkeypatch, capsys):
+    """On the CPU the driver lays the read's file out in ordinary memory:
+    its record and its ``MINNOW_PROFILE`` line read ``d2h_pinned`` 0."""
+    _, packed = files
+    monkeypatch.setenv("MINNOW_PROFILE", "1")
+    recs, _ = new_records(lambda: decompress(packed))
+    assert recs[0].counters["d2h_pinned"] == 0
+    line, = capsys.readouterr().err.splitlines()
+    assert line.startswith("[minnow] g2.decompress: ")
+    assert line.endswith(" ms  h2d 0.0 MB  d2h 0.0 MB  d2h_pinned 0.0 MB")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["write", "read"])
 def test_counters_hold_the_copies_on_a_card(files, op):
@@ -241,3 +256,5 @@ def test_counters_hold_the_copies_on_a_card(files, op):
     assert fields <= c[one] <= fields + 1024
     # a block's words: its depths and ID widths over 32 bits a word
     assert 0 < c[other] < fields
+    if op == "read":    # the fields, and only they, land in pinned memory
+        assert c["d2h"] == fields and c["d2h_pinned"] == c["d2h"]
