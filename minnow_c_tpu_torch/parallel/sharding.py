@@ -384,13 +384,16 @@ class ShardedPositionCodec(_MeshCodecBase):
 
 def spmd_depth_for(delta: float, width: float) -> int:
     """Static depth for the spmd profile: the range of any block never
-    exceeds the box width, so this depth always satisfies ``delta``."""
-    return engine.delta_to_depth(delta, 0.0, width)
+    exceeds the box width, so this depth, by the room rule at the box's
+    magnitude (``engine.delta_to_depth``), always satisfies ``delta``."""
+    return engine.delta_to_depth(delta, 0.0, width, magnitude=width)
 
 
 def adaptive_depth_for(codec: ShardedPositionCodec, x, delta: float) -> int:
-    """Tightest shared depth across blocks (one host sync)."""
-    return engine.delta_to_depth(delta, 0.0, codec.global_range(x))
+    """Tightest shared depth across blocks by the room rule (one host
+    sync)."""
+    return engine.delta_to_depth(delta, 0.0, codec.global_range(x),
+                                 magnitude=codec.width)
 
 
 # ---------------------------------------------------------------------------

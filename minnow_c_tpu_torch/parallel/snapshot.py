@@ -128,6 +128,36 @@ def _float_rows_stats(x: torch.Tensor, box):
     return mn.reshape(b, d), rng_b
 
 
+def _open_counters(*keys: str) -> None:
+    """Give the open record each counter from the operation's start, 0
+    until a step adds to it: a write's ``packed_bits`` (depth or ID width
+    times elements, every field's packed bins before LZ4) and
+    ``depth_room`` (fields the room rule made deeper), a read's ``h2d``
+    and ``d2h`` (a read that leaves its fields on the card downloads
+    nothing)."""
+    for key in keys:
+        count(key, 0)
+
+
+def _float_extent(x0: torch.Tensor, rng_b: torch.Tensor) -> tuple:
+    """The widest block range and the largest |x0| or |x0 + range| of
+    every (block, dim), host floats in one copy: what the room rule of a
+    field without a box needs (``engine.delta_to_depth``)."""
+    x0 = x0.reshape(rng_b.shape[0], -1)
+    mag = torch.maximum(x0.abs(), (x0 + rng_b[:, None]).abs()).amax()
+    rng, mag = _host(torch.stack([rng_b.amax(), mag]))
+    return float(rng), float(mag)
+
+
+def _float_depth(delta: float, rng: float, magnitude: float) -> int:
+    """A float field's shared depth by the room rule over the widest
+    block range; counts ``depth_room`` 1 when the room made it deeper than
+    the reference's rule."""
+    depth = engine.delta_to_depth(delta, 0.0, rng, magnitude=magnitude)
+    count("depth_room", int(depth > engine.delta_to_depth(delta, 0.0, rng)))
+    return depth
+
+
 def _batched_stats_pos(x: torch.Tensor, width: float):
     """(B, 3, nb) -> per-block x0 (B, 3), per-block shared range (B,) of
     the periodically unwrapped positions.  The unwrapped plane is not
@@ -290,11 +320,12 @@ def _encode_pos_batch(pos, B: int, nb: int, acc, seed: int, accel: int,
         x0, rng_b = _batched_stats_pos(xb, float(acc.width))
         box = (xb.amin(dim=2), xb.amax(dim=2))
         if depth is None:
-            depth = engine.delta_to_depth(acc.delta, 0.0,
-                                          float(_host(rng_b.max())))
+            depth = _float_depth(acc.delta, float(_host(rng_b.max())),
+                                 float(acc.width))
     with phase("pos.binpack"):
         words = _batched_bin_pack_pos(xb, x0, rng_b, depth, float(acc.width),
                                       scale_mode)
+    count("packed_bits", depth * xb.numel())
     with phase("pos.gather"):
         words_h = _host_u32(words)
         x0_h = _host(x0)
@@ -327,11 +358,11 @@ def _encode_vel_batch(vel, B: int, nb: int, acc, seed: int, accel: int,
         xb = vel.reshape(3, B, nb).transpose(0, 1).contiguous()
         x0, rng_b = _batched_stats_vel(xb, sym, thr)
         if depth is None:
-            depth = engine.delta_to_depth(acc.delta, 0.0,
-                                          float(_host(rng_b.max())))
+            depth = _float_depth(acc.delta, *_float_extent(x0, rng_b))
     with phase("vel.binpack"):
         words = _batched_bin_pack_vel(xb, x0, rng_b, depth, sym, thr,
                                       scale_mode)
+    count("packed_bits", depth * xb.numel())
     with phase("vel.gather"):
         words_h = _host_u32(words)
         x0_h = _host(x0)
@@ -371,12 +402,13 @@ def _encode_scalar_float_batch(vals, B: int, nb: int, acc, seed: int,
         x1_h = _host(x1)
         rng_h = x1_h.astype(np.float32) - x0_h.astype(np.float32)  # (B,)
         if depth is None:
-            depth = engine.delta_to_depth(acc.delta, 0.0,
-                                          float(rng_h.max()))
+            depth = _float_depth(acc.delta, float(rng_h.max()),
+                                 float(np.abs([x0_h, x1_h]).max()))
     with phase("mass.binpack"):
         words = _batched_bin_pack_scalar(
             xb, x0, _card(torch.from_numpy(rng_h), xb.device), depth, mode,
             threshold, scale_mode)
+    count("packed_bits", depth * xb.numel())
     with phase("mass.gather"):
         words_h = _host_u32(words)  # (B, 1, wpb)
     comp = _entropy(words_h, accel, "mass")
@@ -435,6 +467,7 @@ def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device,
             # single-host writer sees it
             relmax = mh.allgather_i64(relmax).max(axis=0)
         widths = [int(relmax[i]).bit_length() for i in range(3)]
+        count("packed_bits", sum(max(w, 1) for w in widths) * B * nb)
         packed = []
         for i in range(3):
             words = _batched_id_pack(kernels.i64_to_u32(rel[i]),
@@ -495,6 +528,8 @@ def _encode_float_blocks_deltas(arr, B: int, nb: int, code, acc, seed: int,
                                                          deltas=deltas[sl]))
             qf = engine.quantize(f, seed=seed, scale_mode=scale_mode,
                                  device=device)
+            count("packed_bits", int(qf.quant.depths.astype(np.int64).sum())
+                  * (data.shape[0] if len(data.shape) == 2 else 1))
             out.append(codec.compress(qf))
     return out, TRIM11_VERSION
 
@@ -542,6 +577,7 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
     nb = n // num_blocks
     B = num_blocks
     stats = {}
+    _open_counters("packed_bits", "depth_room")
     per_block_fields: List[List[wire.WireField]] = [[] for _ in range(B)]
 
     def add_field(code, field_blocks, version=TRIM_VERSION):
@@ -636,6 +672,7 @@ def compress_snapshot_streaming(fp: BinaryIO, blocks_iter,
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
     _reject_deltas(spec, "compress_snapshot_streaming")
     stats = {"bytes": 0, "num_blocks": 0}
+    _open_counters("packed_bits", "depth_room")
     depths = depths or {}
     encoders = {FieldCode.POSN: _encode_pos_batch,
                 FieldCode.VELC: _encode_vel_batch,
@@ -744,9 +781,9 @@ def compress_snapshot_multihost(fp: Optional[BinaryIO], pos, vel, ids,
     geo_blobs = [b""] * B
     if pos is not None:
         _, rng_b = _batched_stats_pos(blocks(pos), float(spec.pos.width))
-        depth = engine.delta_to_depth(
-            spec.pos.delta, 0.0,
-            mh.allgather_max_f32(float(_host(rng_b.max()))))
+        depth = _float_depth(spec.pos.delta,
+                             mh.allgather_max_f32(float(_host(rng_b.max()))),
+                             float(spec.pos.width))
         fb, _, (lo, hi) = _encode_pos_batch(
             pos, B, nb, spec.pos, seed, accel, device, depth=depth,
             scale_mode=scale_mode)
@@ -756,12 +793,11 @@ def compress_snapshot_multihost(fp: Optional[BinaryIO], pos, vel, ids,
                                  *(float(v) for v in hi[b] - lo[b]))
                      for b in range(B)]
     if vel is not None:
-        _, rng_b = _batched_stats_vel(blocks(vel),
-                                      int(spec.vel.sym_log10_scaled),
-                                      float(spec.vel.sym_log10_threshold))
-        depth = engine.delta_to_depth(
-            spec.vel.delta, 0.0,
-            mh.allgather_max_f32(float(_host(rng_b.max()))))
+        x0, rng_b = _batched_stats_vel(blocks(vel),
+                                       int(spec.vel.sym_log10_scaled),
+                                       float(spec.vel.sym_log10_threshold))
+        depth = _float_depth(spec.vel.delta, *(
+            mh.allgather_max_f32(v) for v in _float_extent(x0, rng_b)))
         fb, _ = _encode_vel_batch(vel, B, nb, spec.vel, seed, accel, device,
                                   depth=depth, scale_mode=scale_mode)
         stats["vel_depth"] = depth
@@ -778,9 +814,10 @@ def compress_snapshot_multihost(fp: Optional[BinaryIO], pos, vel, ids,
         x0, x1 = _batched_stats_scalar(
             _upload(mass, torch.float32, device).reshape(B, nb),
             mode, thr)
-        local_g = float((_host(x1) - _host(x0)).max())
-        depth = engine.delta_to_depth(spec.mass.delta, 0.0,
-                                      mh.allgather_max_f32(local_g))
+        x0_h, x1_h = _host(x0), _host(x1)
+        depth = _float_depth(
+            spec.mass.delta, mh.allgather_max_f32(float((x1_h - x0_h).max())),
+            mh.allgather_max_f32(float(np.abs([x0_h, x1_h]).max())))
         fb, _ = _encode_scalar_float_batch(mass, B, nb, spec.mass, seed,
                                            accel, device, depth=depth,
                                            scale_mode=scale_mode)
@@ -925,6 +962,7 @@ def decompress_snapshot(fp: BinaryIO, batched: bool = True, box=None,
     ``fields``: optional subset of {"pos", "vel", "ids", "mass"} (or
     FieldCodes) to decode; the rest are skipped entirely and absent from
     the result.  Selected fields are bit-identical to a full read."""
+    _open_counters("h2d", "d2h")
     want = _parse_want(fields)
     with phase("decode.read"):
         if box is not None:

@@ -29,6 +29,9 @@ module docstring); this port reproduces its bits.
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -77,18 +80,74 @@ def as_tensor(data, dtype: torch.dtype, device) -> torch.Tensor:
 # depth <-> delta (quant.c:654-733), C-exact f32 arithmetic
 # ---------------------------------------------------------------------------
 
-def delta_to_depth(delta: float, x0: float, x1: float) -> int:
+# The room rule of the snapshot writers.  A bin narrower than delta does
+# not alone keep a decode within delta: the encoder and the decoder round
+# in f32 on the way.  Count each rounding in u = ulp_below(M), M a bound on
+# |x| of the field's values (the box for positions, which lie in [0, box);
+# the largest |x0| or |x0 + range| for the other fields, after the map).  A
+# result below M rounds by at most u/2, one below 2M by at most u (the
+# periodic unwrap moves a position up to 1.5 box).  Positions, div map:
+#
+#   encoder   unwrap x + box (< 2M)                             1
+#             t = x - x0 (<= range <= M)                        1/2
+#             map t / range (q < 1, so 2^-25 * range)           1/2
+#   decoder   stored x1 = x0 + range (< 2M)                     1
+#   range     rebuilt range' = x1 - x0, the largest over dims   1/2
+#             x0 + range' (< 2M), less x0                       1 + 1/2
+#   value     x0 + w * (bin + r), r the dither, as one FMA      1
+#             (< 2M); bin + r rounds within [bin, bin + 1]
+#
+# An original thus lies within 5u of its stored bin as the decoder sees
+# it, and a decode within the bin width plus 6u of the original: k = 6.
+# The worst cases beyond it need every rounding at its largest in one
+# direction: the recip map's rounded reciprocal adds up to 1 (a decode 7,
+# the stored bin 6), and a field without the unwrap, whose range reaches
+# 2M, trades the unwrap's 1 for 3/2 more in t, the map and the rebuilt
+# range (6.5).  k = 7 would deepen a 64-wide box at delta 1e-3 whose
+# blocks span it (6.1u of room), which the reference keeps at depth 16.
+ROOM_ULPS = 6
+
+
+def ulp_below(magnitude: float) -> float:
+    """The spacing of f32 values of magnitude below ``magnitude``:
+    2^(e - 24) for ``|magnitude|`` in (2^(e-1), 2^e], 0 for 0."""
+    m, e = math.frexp(abs(float(magnitude)))
+    if m == 0:
+        return 0.0
+    return math.ldexp(1.0, e - 24 - (m == 0.5))
+
+
+def delta_to_depth(delta: float, x0: float, x1: float,
+                   magnitude: Optional[float] = None) -> int:
     """Minimal bit depth whose bin width beats ``delta`` over [x0, x1]:
     first depth with ``delta * 2^depth > x1 - x0`` in f32
-    (deltaToDepth, quant.c:681-696)."""
+    (deltaToDepth, quant.c:681-696).
+
+    With ``magnitude``, a bound on |x| of the field's values, the room
+    rule: the first depth whose bin width plus ``ROOM_ULPS`` ulps below
+    that magnitude stays under ``delta`` (the derivation above), never
+    shallower than the first rule.  A constant field keeps depth 0, which
+    decodes exactly; ValueError when no depth up to ``MAX_DEPTH`` leaves
+    the room."""
     delta = np.float32(delta)
     rng = np.float32(x1) - np.float32(x0)
     for depth in range(MAX_DEPTH + 1):
         if delta * np.float32(1 << depth) > rng:
-            return depth
+            break
+    else:
+        raise ValueError(
+            f"accuracy {delta} over range [{x0}, {x1}] exceeds f32 "
+            f"granularity (> {MAX_DEPTH} bits of mantissa)")
+    if magnitude is None or rng == 0:
+        return depth
+    room = ROOM_ULPS * ulp_below(magnitude)
+    for d in range(depth, MAX_DEPTH + 1):
+        if float(rng) / (1 << d) + room < float(delta):
+            return d
     raise ValueError(
-        f"accuracy {delta} over range [{x0}, {x1}] exceeds f32 granularity "
-        f"(> {MAX_DEPTH} bits of mantissa)")
+        f"accuracy {delta} over range [{x0}, {x1}] leaves no room for "
+        f"{ROOM_ULPS} f32 ulps at magnitude {magnitude} within "
+        f"{MAX_DEPTH} bits")
 
 
 def deltas_to_depths(deltas, x0: float, x1: float) -> np.ndarray:

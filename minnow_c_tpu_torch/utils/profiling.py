@@ -11,16 +11,18 @@
   ``MAX_RECORDS`` records are kept in memory and ``operations()`` returns
   them.  An ``operation`` opened inside another is a ``phase`` only, so a
   driver that calls an entry point gives one record.
-* ``count(key, n)`` -- adds ``n`` bytes to counter ``key`` of the open
-  record, and does nothing when none is open.  The snapshot path counts
-  every copy between host and card as ``h2d`` or ``d2h``; a copy that
-  stays on one side adds 0.
+* ``count(key, n)`` -- adds ``n`` to counter ``key`` of the open record,
+  and does nothing when none is open.  The snapshot path counts the bytes
+  of every copy between host and card as ``h2d`` or ``d2h`` (a copy that
+  stays on one side adds 0); a write counts ``packed_bits``, the bits of
+  every field's packed bins before LZ4, and ``depth_room``, the fields
+  that the room rule of ``quant.engine.delta_to_depth`` made deeper.
 
 With ``MINNOW_PROFILE`` set, closing a record prints one line to standard
-error, e.g. ``[minnow] g2.compress: 1712.3 ms  h2d 630.0 MB  d2h 288.1
-MB``.  Nothing synchronises the card: the wall is the host's, and for an
-entry point that returns tensors on the card it is the time to enqueue the
-work, not to finish it.
+error, e.g. ``[minnow] g2.compress: 1712.3 ms  packed_bits 2302.9 Mbit
+depth_room 0  h2d 630.0 MB  d2h 288.1 MB``.  Nothing synchronises the
+card: the wall is the host's, and for an entry point that returns tensors
+on the card it is the time to enqueue the work, not to finish it.
 """
 
 from __future__ import annotations
@@ -53,9 +55,17 @@ class Record:
 
     def line(self) -> str:
         wall = (self.end - self.start) * 1e3
-        parts = "".join(f"  {k} {v / 1e6:.1f} MB"
+        parts = "".join(f"  {k} {_shown(k, v)}"
                         for k, v in self.counters.items())
         return f"[minnow] {self.name}: {wall:.1f} ms{parts}"
+
+
+def _shown(key: str, n: int) -> str:
+    """A counter as the line shows it: ``depth_room`` a count,
+    ``packed_bits`` in Mbit, every other in MB."""
+    if key == "depth_room":
+        return str(n)
+    return f"{n / 1e6:.1f} {'Mbit' if key == 'packed_bits' else 'MB'}"
 
 
 def phase(name: str):

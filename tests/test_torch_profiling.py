@@ -140,9 +140,13 @@ def test_one_record_per_driver_operation(files, op):
     rec = recs[0]
     assert rec.start < rec.end
     # no copy crosses to a card on the CPU; a read's file lands in
-    # ordinary memory
-    assert rec.counters == ({"h2d": 0, "d2h": 0} if op == "write" else
-                            {"h2d": 0, "d2h": 0, "d2h_pinned": 0})
+    # ordinary memory; a write counts its packed bins, and in a 64-wide box
+    # the room rule makes no field deeper
+    c = dict(rec.counters)
+    if op == "write":
+        assert c.pop("packed_bits") > 0 and c.pop("depth_room") == 0
+    assert c == ({"h2d": 0, "d2h": 0} if op == "write" else
+                 {"h2d": 0, "d2h": 0, "d2h_pinned": 0})
 
 
 def test_one_record_per_snapshot_operation():
@@ -152,18 +156,67 @@ def test_one_record_per_snapshot_operation():
     spec = mt.SnapshotSpec(pos=mt.PositionAccuracy(delta=1e-3, width=BOX),
                            ids=mt.IDAccuracy(width=16))
     fp = io.BytesIO()
-    recs, _ = new_records(lambda: mt.compress_snapshot(
+    recs, st = new_records(lambda: mt.compress_snapshot(
         fp, pos, None, ids, spec, num_blocks=BLOCKS, device="cpu"))
     assert [r.name for r in recs] == ["snapshot.compress"]
-    assert recs[0].counters == {"h2d": 0, "d2h": 0}
+    assert recs[0].counters == {
+        "packed_bits": N * (3 * st["pos_depth"] + sum(st["id_widths"])),
+        "depth_room": 0, "h2d": 0, "d2h": 0}
     fp.seek(0)
     recs, out = new_records(lambda: mt.decompress_snapshot(fp,
                                                            device="cpu"))
     assert [r.name for r in recs] == ["snapshot.decompress"]
+    # a read that leaves its fields where they were decoded still says so
+    assert recs[0].counters == {"h2d": 0, "d2h": 0}
     assert torch.equal(out["ids"], torch.from_numpy(ids.view(np.int64)))
     recs, _ = new_records(lambda: snapshot.compress_snapshot_streaming(
         io.BytesIO(), iter([{"pos": pos}]), spec, device="cpu"))
     assert [r.name for r in recs] == ["snapshot.compress"]
+
+
+def test_packed_bits_are_depths_and_widths_times_elements():
+    """A write's ``packed_bits``: each float field's depth and each ID
+    dimension's width times its elements."""
+    rng = np.random.default_rng(2)
+    pos = rng.uniform(0, BOX, (3, N)).astype(np.float32)
+    vel = rng.normal(0, 150, (3, N)).astype(np.float32)
+    ids = rng.permutation(32 ** 3)[:N].astype(np.uint64)
+    mass = rng.uniform(0.5, 4.0, N).astype(np.float32)
+    spec = mt.SnapshotSpec(pos=mt.PositionAccuracy(delta=1e-3, width=BOX),
+                           vel=mt.VelocityAccuracy(delta=1.0),
+                           ids=mt.IDAccuracy(width=32),
+                           mass=mt.FloatAccuracy(delta=1e-3))
+    recs, st = new_records(lambda: mt.compress_snapshot(
+        io.BytesIO(), pos, vel, ids, spec, num_blocks=BLOCKS, mass=mass,
+        device="cpu"))
+    want = N * (3 * st["pos_depth"] + 3 * st["vel_depth"] +
+                sum(max(w, 1) for w in st["id_widths"]) + st["mass_depth"])
+    assert recs[0].counters["packed_bits"] == want
+
+
+@pytest.mark.parametrize("box, deeper", [(64.0, 0), (256.0, 1)])
+def test_depth_room_counts_the_fields_it_deepens(monkeypatch, capsys, box,
+                                                 deeper):
+    """Positions spanning a 256 box at 1e-3 need the room rule's extra bit
+    (depth 19 where the reference takes 18); a 64-wide box has room at
+    depth 16, and velocities at 1 km/s have room to spare.  The
+    ``MINNOW_PROFILE`` line shows both counters."""
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(0, box, (3, N)).astype(np.float32)
+    vel = rng.normal(0, 150, (3, N)).astype(np.float32)
+    spec = mt.SnapshotSpec(pos=mt.PositionAccuracy(delta=1e-3, width=box),
+                           vel=mt.VelocityAccuracy(delta=1.0))
+    monkeypatch.setenv("MINNOW_PROFILE", "1")
+    recs, st = new_records(lambda: mt.compress_snapshot(
+        io.BytesIO(), pos, vel, None, spec, num_blocks=BLOCKS,
+        device="cpu"))
+    assert st["pos_depth"] == (19 if deeper else 16)
+    c = recs[0].counters
+    assert c["depth_room"] == deeper
+    assert c["packed_bits"] == 3 * N * (st["pos_depth"] + st["vel_depth"])
+    line, = capsys.readouterr().err.splitlines()
+    assert f"  packed_bits {c['packed_bits'] / 1e6:.1f} Mbit  " \
+        f"depth_room {deeper}  " in line
 
 
 def test_count_outside_an_operation_is_a_no_op():
@@ -223,7 +276,8 @@ def test_profile_line_only_with_the_variable(files, monkeypatch, capsys):
     float(head.rsplit(" ", 1)[1])
     assert counters == "  h2d 2.0 MB  d2h 288.1 MB"
     assert lines[1].startswith("[minnow] g2.compress: ")
-    assert lines[1].endswith(" ms  h2d 0.0 MB  d2h 0.0 MB")
+    assert lines[1].endswith(" ms  packed_bits 0.5 Mbit  depth_room 0  "
+                             "h2d 0.0 MB  d2h 0.0 MB")
 
 
 def test_decompress_lands_nothing_in_pinned_memory_on_the_cpu(
