@@ -46,6 +46,12 @@ def compress_bound(n: int) -> int:
 
 def encode(data, accel: int = 1) -> bytes:
     """LZ4-compress one buffer (util_EntropyEncode, util.c:408-421)."""
+    return encode_view(data, accel).tobytes()
+
+
+def encode_view(data, accel: int = 1) -> np.ndarray:
+    """``encode``'s bytes as a uint8 view into a buffer of their own, of
+    ``compress_bound`` bytes: no copy of the written bytes."""
     arr = _to_u8(data)
     n = arr.size
     if n > 0x7E000000:  # LZ4 block format limit; beyond it the i32
@@ -59,7 +65,7 @@ def encode(data, accel: int = 1) -> bytes:
                                             out.ctypes.data, bound, accel)
     if written <= 0 and n > 0:
         raise RuntimeError("LZ4 compression failed")
-    return out[:written].tobytes()
+    return out[:written]
 
 
 def decode(data, uncompressed_size: int) -> np.ndarray:
@@ -77,18 +83,23 @@ def decode(data, uncompressed_size: int) -> np.ndarray:
     return out
 
 
+def pool_map(fn, *items) -> list:
+    """``fn`` over independent items (``map``'s arguments) in the pool's
+    host threads, results in order; one item runs in this thread.  The
+    native calls release the GIL."""
+    if len(items[0]) <= 1:
+        return list(map(fn, *items))
+    return list(_get_pool().map(fn, *items))
+
+
 def encode_blocks(blocks: Sequence, accel: int = 1) -> List[bytes]:
     """Compress independent blocks in parallel host threads."""
-    if len(blocks) <= 1:
-        return [encode(b, accel) for b in blocks]
-    return list(_get_pool().map(lambda b: encode(b, accel), blocks))
+    return pool_map(lambda b: encode(b, accel), blocks)
 
 
 def decode_blocks(blocks: Sequence, sizes: Sequence[int]) -> List[np.ndarray]:
     """Decompress independent blocks in parallel host threads."""
-    if len(blocks) <= 1:
-        return [decode(b, s) for b, s in zip(blocks, sizes)]
-    return list(_get_pool().map(lambda bs: decode(*bs), zip(blocks, sizes)))
+    return pool_map(decode, blocks, sizes)
 
 
 def _to_u8(data) -> np.ndarray:

@@ -5,10 +5,12 @@ Port of ``minnow_c_tpu/parallel/snapshot.py`` (the single-host writer and
 reader).  A snapshot is split into equal particle blocks; the positions,
 velocities and masses of all blocks are unwrapped, reduced to per-block
 stats, binned and bitpacked in batched device passes over (block, dim)
-rows; IDs are decomposed device-wide and packed per block.  Each block is
-then assembled on the host, with LZ4 and checksums, into a *standard*
-wire-format segment (Trim v1.0 layout), and the segments are written in
-file order with chained IOHeaders.  The files are byte-identical to the
+rows; IDs are decomposed device-wide and packed per block.  On the host,
+one pool task a (block, dim) payload takes its LZ4, prelude, pad and
+checksum (``_entropy``); each block is then a *standard* wire-format
+segment (Trim v1.0 layout) given as its header and those parts, and the
+segments are written in file order with chained IOHeaders, the stored
+bytes straight from the LZ4 outputs.  The files are byte-identical to the
 JAX package's writer, and either package reads the other's.
 
 Depth policy: one depth per field across all blocks; ranges stay per
@@ -55,6 +57,7 @@ from ..algos.algo_trim_v1_0 import VERSION as TRIM_VERSION
 from ..algos.blocks import FLAG_LZ4, decode_block, encode_block
 from ..ops import bitpack, entropy, kernels
 from ..ops import rng as _rng
+from ..ops.checksum import CHECKSUM_INIT, checksum
 from ..ops.decode_cuda import (decode_cuda, decode_rows_cuda,
                                rows_kernel_eligible, unpack_rows_cuda)
 from ..ops.encode_cuda import encode_recip_cuda, encode_recip_rows_cuda
@@ -131,8 +134,10 @@ def _float_rows_stats(x: torch.Tensor, box):
 def _open_counters(*keys: str) -> None:
     """Give the open record each counter from the operation's start, 0
     until a step adds to it: a write's ``packed_bits`` (depth or ID width
-    times elements, every field's packed bins before LZ4) and
-    ``depth_room`` (fields the room rule made deeper), a read's ``h2d``
+    times elements, every field's packed bins before LZ4),
+    ``depth_room`` (fields the room rule made deeper) and
+    ``pooled_sum_bytes`` (stored block bytes whose checksum a pool task
+    took, ``_entropy``), a read's ``h2d``
     and ``d2h`` (a read that leaves its fields on the card downloads
     nothing)."""
     for key in keys:
@@ -286,23 +291,62 @@ def _batched_id_pack(rel: torch.Tensor, w: int) -> torch.Tensor:
 # Field encoders: device passes -> per-block wire block lists
 # ---------------------------------------------------------------------------
 
-def _entropy(words_h: np.ndarray, accel: int, name: str) -> List[bytes]:
-    """LZ4 of every (block, dim) payload of (B, D, words) host words, in
-    block-major order."""
-    b, d = words_h.shape[:2]
-    payloads = [np.ascontiguousarray(words_h[i, j])
-                for i in range(b) for j in range(d)]
+def _stored_block(words: np.ndarray, width: int,
+                  accel: int) -> wire.StoredBlock:
+    """``encode_block(words, width)``'s block as the buffers it is stored
+    in (prelude, payload, zero pad; empty ones left out) and their
+    checksum, chained through the parts.  The stored payload is a view of
+    the LZ4 output, or of ``words``' own bytes when LZ4 does not shrink
+    them: no copy."""
+    raw = np.ascontiguousarray(words)
+    raw = raw.astype(raw.dtype.newbyteorder("<"), copy=False)
+    raw = raw.reshape(-1).view(np.uint8)
+    if raw.size > 0xFFFFFFFF:
+        raise ValueError(
+            f"block payload of {raw.size} bytes exceeds the u32 prelude "
+            "length; use more blocks (spec table 1)")
+    stored, flags = raw, 0
+    if raw.size > 0:
+        comp = entropy.encode_view(raw, accel)
+        if comp.size < raw.size:
+            stored, flags = comp, FLAG_LZ4
+    prelude = struct.pack("<IIBBHI", raw.size, stored.size, width, flags,
+                          0, 0)
+    pad = bytes(-stored.size % 8)
+    parts = tuple(p for p in (prelude, stored, pad) if len(p))
+    c = CHECKSUM_INIT
+    for p in parts:
+        c = checksum(p, c)
+    return wire.StoredBlock(parts, c)
+
+
+def _entropy(rows: List[np.ndarray], widths: List[int], accel: int,
+             name: str) -> List[wire.StoredBlock]:
+    """Every payload of host words (rows in block-major order, each with
+    its bit width) as its stored block, one pool task each: LZ4, prelude,
+    pad and the chained checksum.  Their bytes count as
+    ``pooled_sum_bytes``."""
     with phase(f"{name}.entropy"):
-        return entropy.encode_blocks(payloads, accel)
+        out = entropy.pool_map(lambda r, w: _stored_block(r, w, accel),
+                               rows, widths)
+    count("pooled_sum_bytes", sum(map(len, out)))
+    return out
 
 
-def _float_blocks(meta: Writer, words_h: np.ndarray, comp: List[bytes],
-                  b: int, depth: int, accel: int) -> List[bytes]:
-    """Block ``b``'s wire blocks: its meta, then one per dim."""
-    d = words_h.shape[1]
-    return [encode_block(meta.data, 0, True, accel)] + [
-        _wrap_precompressed(words_h[b, i], comp[b * d + i], depth)
-        for i in range(d)]
+def _float_entropy(words_h: np.ndarray, depth: int, accel: int,
+                   name: str) -> List[wire.StoredBlock]:
+    """``_entropy`` of every (block, dim) row of (B, D, words) host
+    words."""
+    b, d, w = words_h.shape
+    rows = list(words_h.reshape(b * d, w))
+    return _entropy(rows, [depth] * len(rows), accel, name)
+
+
+def _float_blocks(meta: Writer, stored: List[wire.StoredBlock], b: int,
+                  d: int, accel: int) -> list:
+    """Block ``b``'s wire blocks: its meta, then its ``d`` stored dims."""
+    return [encode_block(meta.data, 0, True, accel)] + \
+        stored[b * d:(b + 1) * d]
 
 
 def _encode_pos_batch(pos, B: int, nb: int, acc, seed: int, accel: int,
@@ -331,7 +375,7 @@ def _encode_pos_batch(pos, B: int, nb: int, acc, seed: int, accel: int,
         x0_h = _host(x0)
         rng_h = _host(rng_b)
         box = tuple(_host(t) for t in box)
-    comp = _entropy(words_h, accel, "pos")
+    stored = _float_entropy(words_h, depth, accel, "pos")
     out = []
     with phase("pos.wrap"):
         for b in range(B):
@@ -343,7 +387,8 @@ def _encode_pos_batch(pos, B: int, nb: int, acc, seed: int, accel: int,
             meta.f32(acc.width)
             meta.u8(depth).u8(0).u16(0)
             meta.u64(seed)
-            out.append(_float_blocks(meta, words_h, comp, b, depth, accel))
+            out.append(_float_blocks(meta, stored, b, words_h.shape[1],
+                                     accel))
     return out, depth, box
 
 
@@ -367,7 +412,7 @@ def _encode_vel_batch(vel, B: int, nb: int, acc, seed: int, accel: int,
         words_h = _host_u32(words)
         x0_h = _host(x0)
         rng_h = _host(rng_b)
-    comp = _entropy(words_h, accel, "vel")
+    stored = _float_entropy(words_h, depth, accel, "vel")
     out = []
     with phase("vel.wrap"):
         for b in range(B):
@@ -380,7 +425,8 @@ def _encode_vel_batch(vel, B: int, nb: int, acc, seed: int, accel: int,
             meta.u8(2 if sym else 0).u8(0)
             meta.f32(thr)
             meta.u64(seed)
-            out.append(_float_blocks(meta, words_h, comp, b, depth, accel))
+            out.append(_float_blocks(meta, stored, b, words_h.shape[1],
+                                     accel))
     return out, depth
 
 
@@ -411,7 +457,7 @@ def _encode_scalar_float_batch(vals, B: int, nb: int, acc, seed: int,
     count("packed_bits", depth * xb.numel())
     with phase("mass.gather"):
         words_h = _host_u32(words)  # (B, 1, wpb)
-    comp = _entropy(words_h, accel, "mass")
+    stored = _float_entropy(words_h, depth, accel, "mass")
     out = []
     with phase("mass.wrap"):
         for b in range(B):
@@ -421,7 +467,8 @@ def _encode_scalar_float_batch(vals, B: int, nb: int, acc, seed: int,
             meta.u8(mode).u8(0)
             meta.f32(threshold)
             meta.u64(seed)
-            out.append(_float_blocks(meta, words_h, comp, b, depth, accel))
+            out.append(_float_blocks(meta, stored, b, words_h.shape[1],
+                                     accel))
     return out, depth
 
 
@@ -474,10 +521,9 @@ def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device,
                                      max(widths[i], 1))
             with phase("ids.gather"):
                 packed.append(_host_u32(words))
-    payloads = [np.ascontiguousarray(packed[i][b])
-                for b in range(B) for i in range(3)]
-    with phase("ids.entropy"):
-        comp = entropy.encode_blocks(payloads, accel)
+    stored = _entropy([packed[i][b] for b in range(B) for i in range(3)],
+                      [max(widths[i], 1) for _ in range(B) for i in range(3)],
+                      accel, "ids")
     out = []
     with phase("ids.wrap"):
         for b in range(B):
@@ -487,11 +533,8 @@ def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device,
                 meta.u64(int(x0_blocks[i, b]))
             for i in range(3):
                 meta.u64(int(x0_blocks[i, b]) + int(relmax_b[i, b]))
-            blocks = [encode_block(meta.data, 0, True, accel)]
-            for i in range(3):
-                blocks.append(_wrap_precompressed(
-                    packed[i][b], comp[b * 3 + i], max(widths[i], 1)))
-            out.append(blocks)
+            out.append([encode_block(meta.data, 0, True, accel)] +
+                       stored[b * 3:(b + 1) * 3])
     return out, widths
 
 
@@ -577,7 +620,7 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
     nb = n // num_blocks
     B = num_blocks
     stats = {}
-    _open_counters("packed_bits", "depth_room")
+    _open_counters("packed_bits", "depth_room", "pooled_sum_bytes")
     per_block_fields: List[List[wire.WireField]] = [[] for _ in range(B)]
 
     def add_field(code, field_blocks, version=TRIM_VERSION):
@@ -621,11 +664,11 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
 
     # ---- serialize + chain -----------------------------------------------
     with phase("serialize"):
-        segments = [wire.serialize(fields, nb)
+        segments = [wire.serialize_parts(fields, nb)
                     for fields in per_block_fields]
     with phase("segments.write"):
         seg_io.write_segments(fp, segments, geometry)
-    stats["bytes"] = sum(len(s) for s in segments) + \
+    stats["bytes"] = sum(map(seg_io.segment_nbytes, segments)) + \
         seg_io.IO_HEADER_BYTES * B
     stats["num_blocks"] = B
     return stats
@@ -672,7 +715,7 @@ def compress_snapshot_streaming(fp: BinaryIO, blocks_iter,
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
     _reject_deltas(spec, "compress_snapshot_streaming")
     stats = {"bytes": 0, "num_blocks": 0}
-    _open_counters("packed_bits", "depth_room")
+    _open_counters("packed_bits", "depth_room", "pooled_sum_bytes")
     depths = depths or {}
     encoders = {FieldCode.POSN: _encode_pos_batch,
                 FieldCode.VELC: _encode_vel_batch,
@@ -719,8 +762,9 @@ def compress_snapshot_streaming(fp: BinaryIO, blocks_iter,
                     fb[0]))
             if mass is not None:
                 float_field(mass, FieldCode.UNSF, spec.mass, "mass")
-            seg = wire.serialize(fields, nb)
-            stats["bytes"] += len(seg) + seg_io.IO_HEADER_BYTES
+            seg = wire.serialize_parts(fields, nb)
+            stats["bytes"] += seg_io.segment_nbytes(seg) + \
+                seg_io.IO_HEADER_BYTES
             stats["num_blocks"] += 1
             yield seg, geometry
 
@@ -889,28 +933,6 @@ def _multihost_id_sync(ids, width: int, device) -> dict:
                                   exempt_first=mh.process_index() == 0)
     gmin = mh.allgather_i64(_host(shifted.amin(dim=1))).min(axis=0)
     return {"gmin": gmin, "shifted": shifted}
-
-
-def _wrap_precompressed(raw_words: np.ndarray, comp: bytes,
-                        width: int) -> bytes:
-    """Build a block from an already-entropy-coded payload, choosing the
-    smaller representation (mirrors blocks.encode_block)."""
-    raw = np.ascontiguousarray(raw_words)
-    raw_bytes = raw.astype(raw.dtype.newbyteorder("<"), copy=False).tobytes()
-    if max(len(raw_bytes), len(comp)) > 0xFFFFFFFF:
-        raise ValueError(
-            f"block payload of {len(raw_bytes)} bytes exceeds the u32 "
-            "prelude length; use more blocks (spec table 1)")
-    if len(comp) < len(raw_bytes):
-        w = Writer()
-        w.u32(len(raw_bytes)).u32(len(comp)).u8(width).u8(FLAG_LZ4)
-        w.u16(0).u32(0)
-        w.raw(comp).align(8)
-        return w.data
-    w = Writer()
-    w.u32(len(raw_bytes)).u32(len(raw_bytes)).u8(width).u8(0).u16(0).u32(0)
-    w.raw(raw_bytes).align(8)
-    return w.data
 
 
 # ---------------------------------------------------------------------------

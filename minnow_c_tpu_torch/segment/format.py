@@ -16,13 +16,19 @@ stored bytes; a failed block checksum yields ``None`` for that block so
 codecs can localize the damage instead of failing the segment
 (header_format.tex:186-196).
 
+``serialize_parts`` gives a segment as the buffers it is written in: the
+header it builds, then each block's stored parts as the writer made them
+(``StoredBlock``: prelude, payload, pad, with their checksum), so a block's
+bytes go from the LZ4 output to the file with no copy.  ``serialize`` is
+their join.
+
 All values little-endian (spec "Endianness" section).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Union
 
 from ..ops.checksum import checksum
 from .stream import Reader, Writer
@@ -32,6 +38,19 @@ FIELD_HEADER_BYTES = 16
 BLOCK_HEADER_BYTES = 8
 
 
+@dataclass(frozen=True)
+class StoredBlock:
+    """A block as the buffers it is stored in, in order, and the checksum
+    of their concatenation (the snapshot writer's pool tasks build them:
+    ``parallel.snapshot._stored_block``)."""
+
+    parts: tuple
+    checksum: int
+
+    def __len__(self) -> int:
+        return sum(len(p) for p in self.parts)
+
+
 @dataclass
 class WireField:
     """One field's wire identity + its blocks."""
@@ -39,38 +58,37 @@ class WireField:
     field_code: int
     algo_code: int
     version: int
-    blocks: List[Optional[bytes]]  # None marks a corrupt block after read
+    # bytes or StoredBlock; None marks a corrupt block after read
+    blocks: List[Union[bytes, StoredBlock, None]]
+
+
+def serialize_parts(fields: List[WireField], particle_num: int) -> list:
+    """A spec segment as the buffers it is written in, in order: the
+    header (segment, field and block headers), then every block's parts.
+    A ``StoredBlock``'s checksum is taken as given, a bytes block's is
+    taken here; no block byte is copied."""
+    blocks = [b if isinstance(b, StoredBlock) else StoredBlock((b,),
+                                                               checksum(b))
+              for f in fields for b in f.blocks]
+    w = Writer()
+    w.u32(0)  # checksum patched below
+    w.i32(len(blocks)).i32(len(fields)).i32(particle_num)
+    for f in fields:
+        w.u32(f.field_code).u32(f.algo_code).u32(f.version)
+        w.i32(len(f.blocks))
+    for b in blocks:
+        if len(b) % 8 != 0:
+            raise ValueError("blocks must be 8-aligned")
+        w.u32(len(b)).u32(b.checksum)
+    # Header checksum over BlockNum .. end of BlockHeaders.
+    w.patch_u32(0, checksum(w.view(4, len(w))))
+    return [w.data] + [p for b in blocks for p in b.parts]
 
 
 def serialize(fields: List[WireField], particle_num: int) -> bytes:
-    """Serialize compressed fields into a spec segment."""
-    w = Writer()
-    block_num = sum(len(f.blocks) for f in fields)
-    w.u32(0)  # checksum back-patched below
-    w.i32(block_num)
-    w.i32(len(fields))
-    w.i32(particle_num)
-    for f in fields:
-        w.u32(f.field_code)
-        w.u32(f.algo_code)
-        w.u32(f.version)
-        w.i32(len(f.blocks))
-    for f in fields:
-        for b in f.blocks:
-            if len(b) % 8 != 0:
-                raise ValueError("blocks must be 8-aligned")
-            w.u32(len(b))
-            w.u32(checksum(b))
-    for f in fields:
-        for b in f.blocks:
-            w.raw(b)
-    # Header checksum over BlockNum .. end of BlockHeaders, back-patched
-    # in place (copying the whole segment just to stamp 4 bytes costs ~3x
-    # peak memory on multi-GB snapshot segments).
-    hdr_span = 12 + FIELD_HEADER_BYTES * len(fields) + \
-        BLOCK_HEADER_BYTES * block_num
-    w.patch_u32(0, checksum(w.view(4, 4 + hdr_span)))
-    return w.data
+    """Serialize compressed fields into a spec segment: the join of
+    ``serialize_parts``."""
+    return b"".join(serialize_parts(fields, particle_num))
 
 
 @dataclass

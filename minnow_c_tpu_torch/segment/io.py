@@ -61,16 +61,28 @@ class IOHeader:
                    segment_bytes=r.u64(), next_io_header=r.u64())
 
 
+def _parts(seg) -> Sequence:
+    """A segment's buffers in write order: the list it is given as
+    (``format.serialize_parts``), or the bytes alone."""
+    return seg if isinstance(seg, (list, tuple)) else (seg,)
+
+
+def segment_nbytes(seg) -> int:
+    """Length of a segment given as bytes or as a list of buffers."""
+    return sum(map(len, _parts(seg)))
+
+
 def write_segments(fp: BinaryIO,
-                   segments: Sequence[bytes],
+                   segments: Sequence,
                    geometry: Optional[Sequence[Tuple[Tuple[float, float,
                                                            float],
                                                      Tuple[float, float,
                                                            float]]]] = None
                    ) -> None:
-    """Write segments with chained IOHeaders.  ``geometry[i]`` is the
-    (origin, width) bounding box the client assigns to segment i (spatial
-    indexing is client data, table 1 of the spec)."""
+    """Write segments with chained IOHeaders.  A segment is bytes, or a
+    list of buffers written in order (``format.serialize_parts``).
+    ``geometry[i]`` is the (origin, width) bounding box the client assigns
+    to segment i (spatial indexing is client data, table 1 of the spec)."""
     write_segments_streaming(
         fp, ((seg, None if geometry is None else geometry[i])
              for i, seg in enumerate(segments)))
@@ -78,21 +90,23 @@ def write_segments(fp: BinaryIO,
 
 def write_segments_streaming(fp: BinaryIO, seg_iter) -> int:
     """Incremental variant of ``write_segments``: consume an iterator of
-    ``(segment_bytes, (origin, width) | None)`` pairs, writing each
-    segment (with its chained IOHeader) before pulling the next -- peak
-    memory is one segment regardless of file size.  One-item lookahead
-    resolves the last header's ``NextIOHeader = 0``.  Returns the number
-    of segments written."""
+    ``(segment, (origin, width) | None)`` pairs, writing each segment
+    (with its chained IOHeader) before pulling the next -- peak memory is
+    one segment regardless of file size.  One-item lookahead resolves the
+    last header's ``NextIOHeader = 0``.  Returns the number of segments
+    written."""
     def write_one(item, offset, last):
         seg, geom = item
         org, wid = ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0)) if geom is None \
             else geom
-        next_off = 0 if last else offset + IO_HEADER_BYTES + len(seg)
+        parts = _parts(seg)
+        n = sum(map(len, parts))
+        next_off = 0 if last else offset + IO_HEADER_BYTES + n
         hd = IOHeader(magic=MAGIC, version=LIBRARY_VERSION, origin=org,
-                      width=wid, segment_bytes=len(seg),
-                      next_io_header=next_off)
+                      width=wid, segment_bytes=n, next_io_header=next_off)
         fp.write(hd.pack())
-        fp.write(seg)
+        for part in parts:
+            fp.write(part)
         return next_off
 
     count = 0

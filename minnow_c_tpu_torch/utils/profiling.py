@@ -15,14 +15,17 @@
   and does nothing when none is open.  The snapshot path counts the bytes
   of every copy between host and card as ``h2d`` or ``d2h`` (a copy that
   stays on one side adds 0); a write counts ``packed_bits``, the bits of
-  every field's packed bins before LZ4, and ``depth_room``, the fields
-  that the room rule of ``quant.engine.delta_to_depth`` made deeper.
+  every field's packed bins before LZ4, ``depth_room``, the fields that
+  the room rule of ``quant.engine.delta_to_depth`` made deeper, and
+  ``pooled_sum_bytes``, the stored block bytes whose checksum a pool task
+  took (``parallel.snapshot._entropy``).
 
 With ``MINNOW_PROFILE`` set, closing a record prints one line to standard
 error, e.g. ``[minnow] g2.compress: 1712.3 ms  packed_bits 2302.9 Mbit
-depth_room 0  h2d 630.0 MB  d2h 288.1 MB``.  Nothing synchronises the
-card: the wall is the host's, and for an entry point that returns tensors
-on the card it is the time to enqueue the work, not to finish it.
+depth_room 0  pooled_sum_bytes 232.4 MB  h2d 630.0 MB  d2h 288.1 MB``.
+Nothing synchronises the card: the wall is the host's, and for an entry
+point that returns tensors on the card it is the time to enqueue the
+work, not to finish it.
 """
 
 from __future__ import annotations

@@ -18,6 +18,8 @@ from torch.profiler import ProfilerActivity, profile
 import minnow_c_tpu_torch as mt
 from minnow_c_tpu_torch.drivers import gadget2
 from minnow_c_tpu_torch.parallel import snapshot
+from minnow_c_tpu_torch.segment import format as wire
+from minnow_c_tpu_torch.segment import io as seg_io
 from minnow_c_tpu_torch.utils import profiling
 
 BOX = 64.0
@@ -98,6 +100,17 @@ def decompress(packed: bytes, device="cpu") -> bytes:
     return out.getvalue()
 
 
+def block_bytes(packed: bytes):
+    """A snapshot file's stored block bytes: those of its payload blocks
+    (every block of a field but its first, the meta block), and of all."""
+    payload = every = 0
+    for _, seg in seg_io.iter_segments(io.BytesIO(packed)):
+        for f in wire.deserialize(seg).fields:
+            payload += sum(map(len, f.blocks[1:]))
+            every += sum(map(len, f.blocks))
+    return payload, every
+
+
 @pytest.fixture(scope="module")
 def files():
     raw = gadget2_file()
@@ -140,11 +153,13 @@ def test_one_record_per_driver_operation(files, op):
     rec = recs[0]
     assert rec.start < rec.end
     # no copy crosses to a card on the CPU; a read's file lands in
-    # ordinary memory; a write counts its packed bins, and in a 64-wide box
-    # the room rule makes no field deeper
+    # ordinary memory; a write counts its packed bins and the blocks its
+    # pool tasks took, and in a 64-wide box the room rule makes no field
+    # deeper
     c = dict(rec.counters)
     if op == "write":
         assert c.pop("packed_bits") > 0 and c.pop("depth_room") == 0
+        assert c.pop("pooled_sum_bytes") > 0
     assert c == ({"h2d": 0, "d2h": 0} if op == "write" else
                  {"h2d": 0, "d2h": 0, "d2h_pinned": 0})
 
@@ -161,7 +176,8 @@ def test_one_record_per_snapshot_operation():
     assert [r.name for r in recs] == ["snapshot.compress"]
     assert recs[0].counters == {
         "packed_bits": N * (3 * st["pos_depth"] + sum(st["id_widths"])),
-        "depth_room": 0, "h2d": 0, "d2h": 0}
+        "depth_room": 0, "pooled_sum_bytes": block_bytes(fp.getvalue())[0],
+        "h2d": 0, "d2h": 0}
     fp.seek(0)
     recs, out = new_records(lambda: mt.decompress_snapshot(fp,
                                                            device="cpu"))
@@ -192,6 +208,44 @@ def test_packed_bits_are_depths_and_widths_times_elements():
     want = N * (3 * st["pos_depth"] + 3 * st["vel_depth"] +
                 sum(max(w, 1) for w in st["id_widths"]) + st["mass_depth"])
     assert recs[0].counters["packed_bits"] == want
+
+
+@pytest.mark.parametrize("writer", ["compress_snapshot", "streaming"])
+def test_pooled_sum_bytes_are_the_payload_blocks(writer):
+    """A write's ``pooled_sum_bytes``, on its record from the start, are
+    the stored bytes of every payload block: at least 0.999 of the file's
+    block bytes, the meta blocks the rest.  A field in the Deltas coding
+    takes no pool task: a write of it alone reads 0."""
+    n = 1 << 16
+    rng = np.random.default_rng(6)
+    pos = rng.uniform(0, BOX, (3, n)).astype(np.float32)
+    vel = rng.normal(0, 150, (3, n)).astype(np.float32)
+    ids = rng.permutation(64 ** 3)[:n].astype(np.uint64)
+    spec = mt.SnapshotSpec(pos=mt.PositionAccuracy(delta=1e-3, width=BOX),
+                           vel=mt.VelocityAccuracy(delta=1.0),
+                           ids=mt.IDAccuracy(width=64))
+    fp = io.BytesIO()
+    if writer == "streaming":
+        half = n // BLOCKS
+        blocks = ({"pos": pos[:, s:s + half], "vel": vel[:, s:s + half],
+                   "ids": ids[s:s + half]} for s in range(0, n, half))
+        recs, _ = new_records(lambda: snapshot.compress_snapshot_streaming(
+            fp, blocks, spec, device="cpu"))
+    else:
+        recs, _ = new_records(lambda: mt.compress_snapshot(
+            fp, pos, vel, ids, spec, num_blocks=BLOCKS, device="cpu"))
+    c = recs[0].counters
+    assert list(c)[:3] == ["packed_bits", "depth_room", "pooled_sum_bytes"]
+    payload, every = block_bytes(fp.getvalue())
+    assert c["pooled_sum_bytes"] == payload
+    assert payload / every >= 0.999
+
+    deltas = mt.SnapshotSpec(pos=mt.PositionAccuracy(
+        delta=1e-3, width=BOX, deltas=np.full(n, 1e-3, np.float32)))
+    recs, _ = new_records(lambda: mt.compress_snapshot(
+        io.BytesIO(), pos, None, None, deltas, num_blocks=BLOCKS,
+        device="cpu"))
+    assert recs[0].counters["pooled_sum_bytes"] == 0
 
 
 @pytest.mark.parametrize("box, deeper", [(64.0, 0), (256.0, 1)])
@@ -266,7 +320,8 @@ def test_profile_line_only_with_the_variable(files, monkeypatch, capsys):
         profiling.count("h2d", 2_000_000)
         with profiling.operation("nested"):
             profiling.count("d2h", 288_100_000)
-    compress(raw)
+    recs, _ = new_records(lambda: compress(raw))
+    pooled = recs[0].counters["pooled_sum_bytes"]
     got = capsys.readouterr()
     assert got.out == ""
     lines = got.err.splitlines()
@@ -277,6 +332,7 @@ def test_profile_line_only_with_the_variable(files, monkeypatch, capsys):
     assert counters == "  h2d 2.0 MB  d2h 288.1 MB"
     assert lines[1].startswith("[minnow] g2.compress: ")
     assert lines[1].endswith(" ms  packed_bits 0.5 Mbit  depth_room 0  "
+                             f"pooled_sum_bytes {pooled / 1e6:.1f} MB  "
                              "h2d 0.0 MB  d2h 0.0 MB")
 
 
