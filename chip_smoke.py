@@ -1357,7 +1357,7 @@ def time_rows_kernels(mt, data, dev):
     dimension's 64 rows (decode) and one ID dimension's 64 rows
     (unpack)."""
     from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
-    from minnow_c_tpu_torch.parallel import snapshot as snap
+    from minnow_c_tpu_torch.parallel.rows import block_stats
     from minnow_c_tpu_torch.quant import engine
     pos, _, ids, _, stats = data
     B, nb = SNAP_BLOCKS, pos.shape[1] // SNAP_BLOCKS
@@ -1365,7 +1365,8 @@ def time_rows_kernels(mt, data, dev):
     box = torch.full((3 * B,), BOX, device=dev)
     anchor = rows[:, 0].contiguous()
     depth = stats["pos_depth"]
-    x0, rng = snap._batched_stats_pos(rows.reshape(B, 3, nb), BOX)
+    x0, rng = block_stats(rows, BOX)
+    x0 = x0.reshape(B, 3)
     bins = kernels.uniform_bin_index(
         kernels.undo_periodic(rows, BOX), depth, x0.reshape(-1, 1),
         rng.repeat_interleave(3)[:, None])
@@ -2089,12 +2090,13 @@ def check_cli_kernels(pos, ids, p2, dev, blocks: int = 2) -> dict:
     block."""
     from minnow_c_tpu_torch.ops import decode_cuda, encode_cuda, kernels
     from minnow_c_tpu_torch.ops import rng as _rng
-    from minnow_c_tpu_torch.parallel import snapshot as snap
+    from minnow_c_tpu_torch.parallel.rows import block_stats
     from minnow_c_tpu_torch.quant import engine
     nb = ids.size // blocks
     xb = torch.from_numpy(pos).to(dev).reshape(3, blocks, nb).transpose(
         0, 1).contiguous()
-    x0, rng_b = snap._batched_stats_pos(xb, BOX)
+    x0, rng_b = block_stats(xb.reshape(3 * blocks, nb), BOX)
+    x0 = x0.reshape(blocks, 3)
     depth = engine.delta_to_depth(POS_DELTA, 0.0, float(rng_b.max()))
     x0_h, rng_h = x0.cpu().numpy(), rng_b.cpu().numpy()
     row = xb[0, 0]

@@ -307,8 +307,8 @@ def config4_100m(device, blocks: int = 8, nb: int = 12_582_912) -> dict:
     for name, ms in harness.check_floors(bodies, device).items():
         out[name.replace("GBps", "device_ms")] = ms
     out["note"] = ("harness device phases, rate of the raw positions; the "
-                   "recip encode reads each row's range to the host once a "
-                   "call (sharding._rows_encode); error over the whole "
+                   "recip encode reads each block's range to the host once "
+                   "a call (rows.bin_pack); error over the whole "
                    "output; peaks include the harness's four held outputs")
     return out
 

@@ -5,7 +5,8 @@ Port of ``minnow_c_tpu/parallel/sharding.py``.  A snapshot is split into
 equal particle blocks, and the blocks are split over the shards of a
 :class:`Mesh` in contiguous runs.  The JAX package runs each codec as one
 SPMD program under ``shard_map``; here each shard runs its blocks in one
-batched pass over their (B_local*3, n_b) block-major rows:
+batched pass over their (B_local*3, n_b) block-major rows, through the
+row steps of ``rows`` that the snapshot writer and reader take too:
 
 * encode: K6 ``stats_rows`` (each row's min / max after the periodic
   unwrap around its element 0), then the C-exact bin map and K7
@@ -45,16 +46,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops import bitpack, kernels
+from ..ops import kernels
 from ..ops import rng as _rng
-from ..ops.decode_cuda import (decode_plain, decode_rows_cuda,
-                               rows_kernel_eligible, unpack_rows_cuda)
-from ..ops.encode_cuda import (encode_recip_rows_cuda,
-                               encode_recip_rows_plain, pack_rows_cuda,
-                               pack_rows_plain, stats_rows_cuda,
-                               stats_rows_plain)
 from ..quant import engine
-from . import multihost
+from . import multihost, rows
 from .multihost import BlockShards
 
 
@@ -106,98 +101,12 @@ def block_split(x, num_blocks: int):
         np.moveaxis(x, 1, 0)
 
 
-# ---------------------------------------------------------------------------
-# Per-shard building blocks, shared by both codecs (so the snapshot codec's
-# position bits equal the position codec's by construction)
-# ---------------------------------------------------------------------------
-
-def _rows_stats(rows: torch.Tensor, box, fused: bool = True):
-    """(min (R,), max (R,)) of (R, n) rows after the unwrap around each
-    row's element 0 in a box of ``box`` (None: no unwrap): one K6 launch
-    (its plain version when not ``fused``).  The snapshot writer's stats
-    too."""
-    periodic = box is not None
-    boxes = torch.full((rows.shape[0],),
-                       float(np.float32(box if periodic else 0.0)),
-                       dtype=torch.float32, device=rows.device)
-    stats = stats_rows_cuda if fused else stats_rows_plain
-    return stats(rows, boxes, rows[:, 0].contiguous(), periodic)
-
-
-def _block_stats(rows: torch.Tensor, box, fused: bool = True):
-    """Rows (b*3, n) -> each row's x0 (b*3,) and each block's range shared
-    by its three dims (b,)."""
-    mn, mx = _rows_stats(rows, box, fused)
-    return mn, kernels.ftz(mx - mn).reshape(-1, 3).amax(dim=1)
-
-
-def _rows_encode(rows: torch.Tensor, x0: torch.Tensor, rng_b: torch.Tensor,
-                 depth: int, box, scale_mode: str,
-                 fused: bool) -> torch.Tensor:
-    """Bin and pack (b*3, n) raw rows at ``depth`` with per-row x0 and the
-    block's range: (b*3, n*depth/32) words.
-
-    div: the unwrap around each row's element 0 (again, as the stats pass
-    did, bit for bit), the C-exact map ``kernels.uniform_bin_index``, K7.
-    recip: each row's recip = rn(1 / range) on the host (IEEE division),
-    then the unwrap, ``((x - x0) * recip) * 2^depth`` in three rounded ops
-    and the pack, all in one K8 launch (``kernels.recip_scaled_bins`` and
-    K7 at a depth outside K8's 1-24)."""
-    periodic = box is not None
-    rng_r = rng_b.repeat_interleave(3)
-    pack = pack_rows_cuda if fused else pack_rows_plain
-    if scale_mode == "recip":
-        recip = torch.from_numpy(np.asarray(kernels.exact_recip(
-            rng_r.cpu().numpy()), dtype=np.float32)).to(rows.device)
-        boxf = float(np.float32(box if periodic else 0.0))
-        if 1 <= depth <= 24:  # and 32 | n: rows_kernel_eligible
-            boxes = torch.full((rows.shape[0],), boxf, dtype=torch.float32,
-                               device=rows.device)
-            encode = encode_recip_rows_cuda if fused else \
-                encode_recip_rows_plain
-            return encode(rows, depth, x0, recip, boxes,
-                          rows[:, 0].contiguous(), periodic)
-        bins = kernels.recip_scaled_bins(rows, x0[:, None], recip[:, None],
-                                         boxf, rows[:, :1], depth, periodic)
-        return pack(bins, depth)
-    u = kernels.undo_periodic(rows, box) if periodic else rows
-    bins = kernels.uniform_bin_index(u, depth, x0[:, None], rng_r[:, None])
-    del u
-    return pack(bins, depth)
-
-
 def _block_keys(seed: int, blocks) -> list:
     """The dither keys of blocks x 3 dims, block-major: [(k0, k1)] * 3B.
     The JAX package takes the seed as a u32."""
     seed = int(seed) & kernels.M32
     return [_rng.field_key(seed, int(bi), d) for bi in blocks
             for d in range(3)]
-
-
-def _rows_decode(words: torch.Tensor, x0: torch.Tensor, rng_b: torch.Tensor,
-                 keys: list, depth: int, n_b: int, box,
-                 fused: bool) -> torch.Tensor:
-    """Dithered decode of (b*3, W) word rows to (b*3, n_b) floats, row r
-    with ``keys[r]``, x0[r] and its block's range, the dither counter from
-    0 in every row, rewrapped into the box when ``box`` is not None: one
-    K2 launch, or row by row through K1's plain version when not
-    ``fused`` (the JAX package's ``_float_rows_decode``)."""
-    periodic = box is not None
-    boxf = box if periodic else 0.0
-    rng_r = rng_b.repeat_interleave(3)
-    if fused and 1 <= depth <= 24 and rows_kernel_eligible(depth, n_b):
-        return decode_rows_cuda(
-            words, torch.tensor(keys, dtype=torch.int64,
-                                device=words.device),
-            depth, n_b, x0, rng_r, box=boxf, periodic=periodic)
-    x0_h, rng_h = x0.cpu().numpy(), rng_r.cpu().numpy()
-    out = torch.empty((words.shape[0], n_b), dtype=torch.float32,
-                      device=words.device)
-    for r in range(words.shape[0]):
-        out[r] = decode_plain(words[r], keys[r][0], keys[r][1], x0_h[r],
-                              kernels.bin_width(rng_h[r], depth), boxf, n_b,
-                              depth, 0, periodic)
-    return out
 
 
 def _id_encode(ids: torch.Tensor, grid: int, width: int,
@@ -211,19 +120,14 @@ def _id_encode(ids: torch.Tensor, grid: int, width: int,
     x0 = kernels.u64_minmax(dims, -1)[0]
     bins = kernels.i64_to_u32(dims.sub_(x0[..., None]).bitwise_and_(
         kernels.M32))
-    pack = pack_rows_cuda if fused else pack_rows_plain
-    return pack(bins.reshape(-1, ids.shape[1]), width), x0
+    return rows.pack(bins.reshape(-1, ids.shape[1]), width, fused), x0
 
 
 def _id_decode(words: torch.Tensor, x0: torch.Tensor, grid: int,
                width: int, n_b: int, fused: bool) -> torch.Tensor:
     """Inverse of ``_id_encode`` (undoID, quant.c:553-587): (b*3, W) words
     and (b, 3) origins -> (b, n_b) IDs, exact.  One K3 launch."""
-    if fused and rows_kernel_eligible(width, n_b):
-        bins = unpack_rows_cuda(words, width, n_b)
-    else:
-        bins = torch.stack([bitpack.uniform_unpack(w, width, n_b)
-                            for w in words])
+    bins = rows.unpack(words, width, n_b, fused)
     dims = kernels.u32_to_i64(bins).reshape(-1, 3, n_b)
     return engine.id_recompose(dims.transpose(0, 1), x0.T, grid)
 
@@ -299,13 +203,13 @@ class _MeshCodecBase:
                 "header_format.tex table 1) -- misaligned packs would "
                 "decode to a wrong-length block")
 
-    def _float_encode(self, rows, b0: int, bs: int, dev, depth: int, box):
+    def _float_encode(self, xr, b0: int, bs: int, dev, depth: int, box):
         """One shard's float field: rows of blocks [b0, b0 + bs) -> words,
         x0 (bs, 3), range (bs,)."""
-        r = _tensor(rows[3 * b0:3 * (b0 + bs)], dev).to(torch.float32)
-        mn, rng_b = _block_stats(r, box, self._fused)
-        words = _rows_encode(r, mn, rng_b, depth, box, self.scale_mode,
-                             self._fused)
+        r = _tensor(xr[3 * b0:3 * (b0 + bs)], dev).to(torch.float32)
+        mn, rng_b = rows.block_stats(r, box, self._fused)
+        words = rows.bin_pack(r, mn, rng_b, depth, box, self.scale_mode,
+                              self._fused)
         return words, mn.reshape(bs, 3), rng_b
 
 
@@ -339,11 +243,10 @@ class ShardedPositionCodec(_MeshCodecBase):
         size and 32 | n_b.  Returns (words (B*3, W) block-major rows,
         x0 (B, 3), range (B,)), BlockShards for a BlockShards input."""
         sharded = isinstance(x, BlockShards)
-        rows, first, total = _float_input(x)
-        self._check_aligned(rows.shape[1])
-        parts = [self._float_encode(rows, b0, bs, dev, self.depth,
-                                    self.width)
-                 for dev, b0, bs in _shards(self.mesh, rows.shape[0] // 3)]
+        xr, first, total = _float_input(x)
+        self._check_aligned(xr.shape[1])
+        parts = [self._float_encode(xr, b0, bs, dev, self.depth, self.width)
+                 for dev, b0, bs in _shards(self.mesh, xr.shape[0] // 3)]
         words, x0, rng_b = (_gather(p, self.mesh) for p in zip(*parts))
         return (_out(words, sharded, 3 * first, 3 * total),
                 _out(x0, sharded, first, total),
@@ -360,11 +263,11 @@ class ShardedPositionCodec(_MeshCodecBase):
         n_b = (words.shape[1] * 32) // depth if depth else 0
         parts = []
         for dev, b0, bs in _shards(self.mesh, x0.shape[0]):
-            parts.append(_rows_decode(
+            parts.append(rows.decode(
                 _tensor(words[3 * b0:3 * (b0 + bs)], dev),
-                _tensor(x0[b0:b0 + bs], dev).reshape(-1),
-                _tensor(rng_b[b0:b0 + bs], dev),
                 _block_keys(seed, range(first + b0, first + b0 + bs)),
+                _tensor(x0[b0:b0 + bs], dev).reshape(-1),
+                _tensor(rng_b[b0:b0 + bs], dev).repeat_interleave(3),
                 depth, n_b, self.width, self._fused))
         return _out(_gather(parts, self.mesh), sharded, 3 * first,
                     3 * total)
@@ -372,11 +275,11 @@ class ShardedPositionCodec(_MeshCodecBase):
     def global_range(self, x) -> float:
         """Adaptive profile phase 1: the largest block range over every
         shard and process -- the one scalar that syncs to the host."""
-        rows = _float_input(x)[0]
-        g = np.max([_block_stats(
-            _tensor(rows[3 * b0:3 * (b0 + bs)], dev).to(torch.float32),
+        xr = _float_input(x)[0]
+        g = np.max([rows.block_stats(
+            _tensor(xr[3 * b0:3 * (b0 + bs)], dev).to(torch.float32),
             self.width, self._fused)[1].max().item()
-            for dev, b0, bs in _shards(self.mesh, rows.shape[0] // 3)])
+            for dev, b0, bs in _shards(self.mesh, xr.shape[0] // 3)])
         if isinstance(x, BlockShards):
             return multihost.allgather_max_f32(g)
         return float(np.float32(g))
@@ -481,14 +384,16 @@ class ShardedSnapshotCodec(_MeshCodecBase):
             blk = slice(b0, b0 + bs)
             row = slice(3 * b0, 3 * (b0 + bs))
             bi = range(first + b0, first + b0 + bs)
-            pos.append(_rows_decode(
-                _tensor(pw[row], dev), _tensor(px0[blk], dev).reshape(-1),
-                _tensor(prng[blk], dev), _block_keys(seed, bi),
+            pos.append(rows.decode(
+                _tensor(pw[row], dev), _block_keys(seed, bi),
+                _tensor(px0[blk], dev).reshape(-1),
+                _tensor(prng[blk], dev).repeat_interleave(3),
                 self.pos_depth, n_b, self.box, self._fused))
-            vel.append(_rows_decode(
-                _tensor(vw[row], dev), _tensor(vx0[blk], dev).reshape(-1),
-                _tensor(vrng[blk], dev),
+            vel.append(rows.decode(
+                _tensor(vw[row], dev),
                 _block_keys(seed, (b_total + b for b in bi)),
+                _tensor(vx0[blk], dev).reshape(-1),
+                _tensor(vrng[blk], dev).repeat_interleave(3),
                 self.vel_depth, n_b, None, self._fused))
             ids.append(_id_decode(_tensor(iw[row], dev),
                                   _tensor(ix0[blk], dev), self.id_grid,

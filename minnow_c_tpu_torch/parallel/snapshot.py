@@ -16,13 +16,21 @@ JAX package's writer, and either package reads the other's.
 Depth policy: one depth per field across all blocks; ranges stay per
 block.  Encode runs on the device of the given tensors (numpy input goes
 to ``device=``, ``cuda`` unless the caller asks for ``cpu``); decode
-returns tensors on ``device``.  The batched passes
-go through the rows kernels: K6 ``stats_rows`` (per-block stats), K7
-``pack_rows`` (every pack when 32 | nb), K8 ``encode_recip_rows`` (the
-whole float bin map and pack in the recip scale mode, 32 | nb), K2
-``decode_rows`` (float decode) and K3 ``unpack_rows`` (ID decode); with
-32 ∤ nb the blocks pack and decode row by row through K4 (or K5 in the
-recip mode) and K1.
+returns tensors on ``device``.
+
+Each float field kind (POSN, VELC, UNSF) is one entry of ``_KINDS``: its
+dims, its map, whether it is periodic; from these one encoder
+(``_encode_float``), one meta writer (``_float_meta``) and one meta reader
+(``_read_meta``) serve every kind, and the batched reader decodes every
+kind in one branch.  One field assembly (``_encode_fields``) encodes the
+fields of a write for the three writers, which differ only in how the
+field's depth is picked (a *depth rule*) and how the segments reach the
+file.  The batched passes run through the row steps of ``rows``, which
+pick the kernels: K6 ``stats_rows`` (per-block stats), K7 ``pack_rows``
+(every pack when 32 | nb), K8 ``encode_recip_rows`` (the whole float bin
+map and pack in the recip scale mode, 32 | nb), K2 ``decode_rows`` (float
+decode) and K3 ``unpack_rows`` (ID decode); with 32 ∤ nb the blocks pack
+and decode row by row through K4 (or K5 in the recip mode) and K1.
 
 The log10 / symlog10 maps run as torch ops (``engine.map_float``) on the
 whole (block, dim) rows before the stats and again before the bin map, so
@@ -34,7 +42,7 @@ chunk bodies pack with K7; the batched read leaves such a file to the
 per-segment decode, as the JAX package's does.
 
 ``compress_snapshot_streaming`` writes a snapshot block by block, one
-segment per block, with the same encoders at B = 1.
+segment per block, with the same field assembly at B = 1.
 
 ``compress_snapshot_multihost`` and ``decompress_snapshot_multihost`` are
 the distributed client's writer and reader: each process of a
@@ -48,19 +56,16 @@ from __future__ import annotations
 import dataclasses
 import struct
 from dataclasses import dataclass
-from typing import BinaryIO, List, Optional
+from typing import BinaryIO, Callable, List, Optional
 
 import numpy as np
 import torch
 
 from ..algos.algo_trim_v1_0 import VERSION as TRIM_VERSION
 from ..algos.blocks import FLAG_LZ4, decode_block, encode_block
-from ..ops import bitpack, entropy, kernels
+from ..ops import entropy, kernels
 from ..ops import rng as _rng
 from ..ops.checksum import CHECKSUM_INIT, checksum
-from ..ops.decode_cuda import (decode_cuda, decode_rows_cuda,
-                               rows_kernel_eligible, unpack_rows_cuda)
-from ..ops.encode_cuda import encode_recip_cuda, encode_recip_rows_cuda
 from ..quant import engine
 from ..segment import format as wire
 from ..segment import io as seg_io
@@ -71,7 +76,8 @@ from ..types import (AlgoCode, FieldCode, FloatAccuracy, IDAccuracy,
 from ..utils import native_order
 from ..utils.profiling import count, operation, phase
 from . import multihost as mh
-from .sharding import _block_stats, _rows_stats, make_mesh
+from . import rows
+from .sharding import make_mesh
 
 @dataclass(frozen=True)
 class SnapshotSpec:
@@ -85,50 +91,48 @@ class SnapshotSpec:
     mass: Optional[FloatAccuracy] = None
 
 
-def _nbytes(a) -> int:
-    return a.numel() * a.element_size() if isinstance(a, torch.Tensor) \
-        else np.asarray(a).nbytes
+@dataclass(frozen=True)
+class _FloatKind:
+    """One float field kind of a snapshot.
+
+    A kind of 3 dims forms each block's range shared by its dims
+    (``rows.block_stats``) and stores x1 = x0 + range, which the decode
+    turns back into the bin range f32(x0 + maxDiff) - f32(x0).  UNSF (1
+    dim) stores its raw x0 and x1, the true max, and its bin range is
+    f32(x1) - f32(x0).  A periodic kind (positions) unwraps in the box
+    ``acc.width``, stores the box in its meta, and gives the room rule
+    the box as its magnitude; the others give their largest |x0| or
+    |x1|."""
+
+    name: str           # span prefix, stats key and SnapshotSpec field
+    code: int
+    dims: int
+    periodic: bool
+    map_of: Callable    # accuracy -> (map mode, threshold)
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A tensor's host copy as numpy; its bytes count as ``d2h`` when it
-    leaves the card."""
-    count("d2h", _nbytes(t) if t.is_cuda else 0)
-    return t.cpu().numpy()
+_KINDS = {k.name: k for k in (
+    _FloatKind("pos", int(FieldCode.POSN), 3, True, lambda acc: (0, 0.0)),
+    _FloatKind("vel", int(FieldCode.VELC), 3, False, lambda acc: (
+        2 if acc.sym_log10_scaled else 0, float(acc.sym_log10_threshold))),
+    _FloatKind("mass", int(FieldCode.UNSF), 1, False, lambda acc: (
+        int(getattr(acc, "log10_scaled", 0)),
+        float(getattr(acc, "sym_log10_threshold", 0.0)))))}
+_KIND_BY_CODE = {k.code: k for k in _KINDS.values()}
 
 
 def _host_u32(words: torch.Tensor) -> np.ndarray:
     """int32 words of u32 bits -> host uint32 array."""
-    return _host(words).view(np.uint32)
-
-
-def _card(t: torch.Tensor, device) -> torch.Tensor:
-    """A host tensor on ``device``; its bytes count as ``h2d`` when that
-    is the card."""
-    out = t.to(device)
-    count("h2d", _nbytes(out) if out.is_cuda and not t.is_cuda else 0)
-    return out
+    return rows.host(words).view(np.uint32)
 
 
 def _upload(data, dtype: torch.dtype, device) -> torch.Tensor:
     """``engine.as_tensor``; numpy input that goes to the card counts as
     ``h2d`` (a tensor stays on its own device)."""
     t = engine.as_tensor(data, dtype, device)
-    count("h2d", _nbytes(t) if t.is_cuda and
+    count("h2d", t.numel() * t.element_size() if t.is_cuda and
           not isinstance(data, torch.Tensor) else 0)
     return t
-
-
-# ---------------------------------------------------------------------------
-# Per-block stats (sharding._rows_stats_raw / _float_rows_stats)
-# ---------------------------------------------------------------------------
-
-def _float_rows_stats(x: torch.Tensor, box):
-    """(B, 3, nb) -> x0 (B, 3), per-block shared range (B,) =
-    max over dims of (max - min)."""
-    b, d, nb = x.shape
-    mn, rng_b = _block_stats(x.reshape(b * d, nb), box)
-    return mn.reshape(b, d), rng_b
 
 
 def _open_counters(*keys: str) -> None:
@@ -150,7 +154,7 @@ def _float_extent(x0: torch.Tensor, rng_b: torch.Tensor) -> tuple:
     field without a box needs (``engine.delta_to_depth``)."""
     x0 = x0.reshape(rng_b.shape[0], -1)
     mag = torch.maximum(x0.abs(), (x0 + rng_b[:, None]).abs()).amax()
-    rng, mag = _host(torch.stack([rng_b.amax(), mag]))
+    rng, mag = rows.host(torch.stack([rng_b.amax(), mag]))
     return float(rng), float(mag)
 
 
@@ -163,133 +167,33 @@ def _float_depth(delta: float, rng: float, magnitude: float) -> int:
     return depth
 
 
-def _batched_stats_pos(x: torch.Tensor, width: float):
-    """(B, 3, nb) -> per-block x0 (B, 3), per-block shared range (B,) of
-    the periodically unwrapped positions.  The unwrapped plane is not
-    kept: the pack phase recomputes it, bit-identically."""
-    return _float_rows_stats(x, width)
-
-
-def _batched_stats_vel(x: torch.Tensor, sym_log10_scaled: int = 0,
-                       threshold: float = 0.0):
-    """Velocity analog of ``_batched_stats_pos``: stats of the mapped
-    plane (the identity or the symlog map)."""
-    xm = engine.map_float(x, 2 if sym_log10_scaled else 0, threshold)
-    return _float_rows_stats(xm, None)
-
-
-def _batched_stats_scalar(x: torch.Tensor, mode: int = 0,
-                          threshold: float = 0.0):
-    """(B, nb) scalar float field -> per-block (x0 (B,), x1 (B,)) of the
-    mapped plane.  Raw min AND max: the UNSF decode derives its bin width
-    as f32(x1) - f32(x0), so the stored x1 must be the true max."""
-    return _rows_stats(engine.map_float(x, mode, threshold), None)
+def _depth_by_room(kind: _FloatKind, delta: float, extent) -> int:
+    """``compress_snapshot``'s depth rule: ``_float_depth`` over the
+    field's own ``extent()`` (widest block range, magnitude)."""
+    return _float_depth(delta, *extent())
 
 
 # ---------------------------------------------------------------------------
-# Bin + pack
+# Bin + pack, and the host wire of a field
 # ---------------------------------------------------------------------------
 
-def _pack_bins_rows(bins: torch.Tensor, depth: int) -> torch.Tensor:
-    """(B, D, nb) u32 bins -> (B, D, words) packed streams."""
-    b, d, nb = bins.shape
-    rows = bins.reshape(b * d, nb)
-    if nb % 32 == 0:
-        words = bitpack.uniform_pack_rows(rows, depth)
-    else:
-        words = torch.stack([bitpack.uniform_pack(r, depth) for r in rows])
-    return words.reshape(b, d, -1)
-
-
-def _bin_pack_rows(x: torch.Tensor, x0: torch.Tensor, rng_b: torch.Tensor,
-                   depth: int, box, scale_mode: str) -> torch.Tensor:
+def _bin_pack(x: torch.Tensor, x0: torch.Tensor, rng_b: torch.Tensor,
+              depth: int, box, scale_mode: str) -> torch.Tensor:
     """(B, D, nb) mapped floats (RAW positions when ``box`` is not None),
-    x0 (B, D), shared range (B,) -> (B, D, words): the bin map of every
-    row in ``scale_mode``, then the pack."""
-    if scale_mode == "recip":
-        return _recip_rows(x, x0, rng_b, depth, box)
+    x0 (B*D,), shared range (B,) -> (B, D, words): ``rows.bin_pack``."""
     b, d, nb = x.shape
-    rows = x.reshape(b * d, nb)
-    if box is not None:
-        rows = kernels.undo_periodic(rows, box)
-    bins = kernels.uniform_bin_index(
-        rows, depth, x0.reshape(b * d, 1),
-        rng_b.repeat_interleave(d)[:, None])
-    return _pack_bins_rows(bins.reshape(b, d, nb), depth)
-
-
-def _recip_rows(x: torch.Tensor, x0: torch.Tensor, rng_b: torch.Tensor,
-                depth: int, box) -> torch.Tensor:
-    """The recip scale mode's bin map and pack of (B, D, nb) RAW floats
-    (``sharding._float_rows_encode_recip``): row (b, d) maps with x0[b, d]
-    and the block's recip = rn(1 / rng_b[b]), unwrapped around its own raw
-    element 0 when ``box`` is not None.  One K8 launch when 32 | nb, else
-    K5 row by row; a depth outside 1-24 takes the plain map and the
-    pack."""
-    b, d, nb = x.shape
-    periodic = box is not None
-    boxf = float(np.float32(box if periodic else 0.0))
-    rows = x.reshape(b * d, nb)
-    recip = np.repeat(np.atleast_1d(kernels.exact_recip(
-        _host(rng_b))), d)                                   # (B*D,)
-    kernel_width = 1 <= depth <= 24
-    if kernel_width and nb % 32:
-        x0_h = _host(x0.reshape(b * d))
-        anchors = _host(rows[:, 0])
-        return torch.stack([
-            encode_recip_cuda(rows[r], depth, x0_h[r], recip[r], boxf,
-                              anchors[r], periodic)
-            for r in range(b * d)]).reshape(b, d, -1)
-    recip_t = _card(torch.from_numpy(recip), x.device)
-    if kernel_width:
-        boxes = torch.full((b * d,), boxf, dtype=torch.float32,
-                           device=x.device)
-        return encode_recip_rows_cuda(
-            rows, depth, x0.reshape(b * d), recip_t, boxes, rows[:, 0],
-            periodic).reshape(b, d, -1)
-    bins = kernels.recip_scaled_bins(rows, x0.reshape(b * d, 1),
-                                     recip_t[:, None], boxf, rows[:, :1],
-                                     depth, periodic)
-    return _pack_bins_rows(bins.reshape(b, d, nb), depth)
+    return rows.bin_pack(x.reshape(b * d, nb), x0, rng_b, depth, box,
+                         scale_mode).reshape(b, d, -1)
 
 
 def _batched_bin_pack_pos(x: torch.Tensor, x0: torch.Tensor,
                           rng_b: torch.Tensor, depth: int, width: float,
                           scale_mode: str = "div"):
     """(B, 3, nb) RAW positions -> (B, 3, words) packed bins at ``depth``;
-    recomputes the periodic unwrap of the stats pass."""
-    return _bin_pack_rows(x, x0, rng_b, depth, float(width), scale_mode)
+    recomputes the periodic unwrap of the stats pass.  The writer looks it
+    up through the module, so a test can alter the positions' bins."""
+    return _bin_pack(x, x0, rng_b, depth, float(width), scale_mode)
 
-
-def _batched_bin_pack_vel(x: torch.Tensor, x0: torch.Tensor,
-                          rng_b: torch.Tensor, depth: int,
-                          sym_log10_scaled: int = 0,
-                          threshold: float = 0.0, scale_mode: str = "div"):
-    """Velocity analog: recomputes the map (the identity or the symlog,
-    bit-identical to the stats pass's), then bins and packs."""
-    xm = engine.map_float(x, 2 if sym_log10_scaled else 0, threshold)
-    return _bin_pack_rows(xm, x0, rng_b, depth, None, scale_mode)
-
-
-def _batched_bin_pack_scalar(x: torch.Tensor, x0: torch.Tensor,
-                             rng_b: torch.Tensor, depth: int, mode: int = 0,
-                             threshold: float = 0.0,
-                             scale_mode: str = "div"):
-    """(B, nb) scalar floats -> (B, 1, words) packed bins."""
-    xm = engine.map_float(x, mode, threshold)
-    return _bin_pack_rows(xm[:, None, :], x0[:, None], rng_b, depth, None,
-                          scale_mode)
-
-
-def _batched_id_pack(rel: torch.Tensor, w: int) -> torch.Tensor:
-    """(B, nb) u32 relative ID coordinates -> (B, words); each block's
-    stream is padded on its own, so any (nb, width) is valid."""
-    return _pack_bins_rows(rel[:, None, :], w)[:, 0]
-
-
-# ---------------------------------------------------------------------------
-# Field encoders: device passes -> per-block wire block lists
-# ---------------------------------------------------------------------------
 
 def _stored_block(words: np.ndarray, width: int,
                   accel: int) -> wire.StoredBlock:
@@ -320,156 +224,121 @@ def _stored_block(words: np.ndarray, width: int,
     return wire.StoredBlock(parts, c)
 
 
-def _entropy(rows: List[np.ndarray], widths: List[int], accel: int,
+def _entropy(payloads: List[np.ndarray], widths: List[int], accel: int,
              name: str) -> List[wire.StoredBlock]:
-    """Every payload of host words (rows in block-major order, each with
-    its bit width) as its stored block, one pool task each: LZ4, prelude,
-    pad and the chained checksum.  Their bytes count as
-    ``pooled_sum_bytes``."""
+    """Every payload of host words (block-major order, each with its bit
+    width) as its stored block, one pool task each: LZ4, prelude, pad and
+    the chained checksum.  Their bytes count as ``pooled_sum_bytes``."""
     with phase(f"{name}.entropy"):
         out = entropy.pool_map(lambda r, w: _stored_block(r, w, accel),
-                               rows, widths)
+                               payloads, widths)
     count("pooled_sum_bytes", sum(map(len, out)))
     return out
 
 
-def _float_entropy(words_h: np.ndarray, depth: int, accel: int,
-                   name: str) -> List[wire.StoredBlock]:
-    """``_entropy`` of every (block, dim) row of (B, D, words) host
-    words."""
-    b, d, w = words_h.shape
-    rows = list(words_h.reshape(b * d, w))
-    return _entropy(rows, [depth] * len(rows), accel, name)
+def _float_meta(kind: _FloatKind, x0, x1, box, depth: int, mode: int,
+                thr: float, seed: int) -> bytes:
+    """A float block's meta (Trim v1.0): x0 and x1 of each dim (f32);
+    then for positions the box (f32), the depth, a zero flag and a zero
+    u16, for the other kinds the depth, a zero flag, the map mode, a zero
+    u8 and the threshold (f32); then the seed (u64)."""
+    meta = Writer()
+    for v in (*x0, *x1):
+        meta.f32(float(v))
+    if kind.periodic:
+        meta.f32(box).u8(depth).u8(0).u16(0)
+    else:
+        meta.u8(depth).u8(0).u8(mode).u8(0).f32(thr)
+    return meta.u64(seed).data
 
 
-def _float_blocks(meta: Writer, stored: List[wire.StoredBlock], b: int,
-                  d: int, accel: int) -> list:
-    """Block ``b``'s wire blocks: its meta, then its ``d`` stored dims."""
-    return [encode_block(meta.data, 0, True, accel)] + \
-        stored[b * d:(b + 1) * d]
+def _read_meta(kind: _FloatKind, data: np.ndarray) -> Optional[tuple]:
+    """Inverse of ``_float_meta``: (x0, x1, (depth, seed, box, map mode,
+    threshold)) of a block's meta bytes; None for a block with
+    per-particle depths."""
+    r = Reader(data.tobytes())
+    x0 = [r.f32() for _ in range(kind.dims)]
+    x1 = [r.f32() for _ in range(kind.dims)]
+    box = r.f32() if kind.periodic else 0.0
+    depth = r.u8()
+    if r.u8():
+        return None
+    if kind.periodic:
+        r.u16()
+        mode, thr = 0, 0.0
+    else:
+        mode = r.u8()
+        r.u8()
+        thr = r.f32()
+    return x0, x1, (depth, r.u64(), box, mode, thr)
 
 
-def _encode_pos_batch(pos, B: int, nb: int, acc, seed: int, accel: int,
-                      device, depth: Optional[int] = None,
-                      scale_mode: str = "div"):
-    """Batched device encode of positions (3, B*nb) -> per-block wire
-    block lists (Trim v1.0 layout), the shared depth (``depth=None``
-    derives it from the observed global range), and the per-block bounding
-    boxes of the raw positions (lo, hi), host (B, 3) each.  Numpy input
+# ---------------------------------------------------------------------------
+# Field encoders: device passes -> per-block wire block lists
+# ---------------------------------------------------------------------------
+
+def _encode_float(kind: _FloatKind, arr, B: int, nb: int, acc, seed: int,
+                  accel: int, device, depth_rule, scale_mode: str):
+    """Batched device encode of a float field of ``kind`` ((3, B*nb), or
+    (B*nb,) for UNSF) -> per-block wire block lists (Trim v1.0 layout),
+    the shared depth, and for positions the per-block bounding boxes of
+    the raw values (lo, hi), host (B, 3) each (else None).  The depth is
+    ``depth_rule(kind, delta, extent)``; ``extent()`` downloads the widest
+    block range and the room rule's magnitude, host floats.  Numpy input
     goes to ``device``."""
-    with phase("pos.upload"):
-        pos = _upload(pos, torch.float32, device)
-    with phase("pos.stats"):
-        xb = pos.reshape(3, B, nb).transpose(0, 1).contiguous()
-        x0, rng_b = _batched_stats_pos(xb, float(acc.width))
-        box = (xb.amin(dim=2), xb.amax(dim=2))
-        if depth is None:
-            depth = _float_depth(acc.delta, float(_host(rng_b.max())),
-                                 float(acc.width))
-    with phase("pos.binpack"):
-        words = _batched_bin_pack_pos(xb, x0, rng_b, depth, float(acc.width),
-                                      scale_mode)
+    name, d = kind.name, kind.dims
+    box = float(acc.width) if kind.periodic else None
+    mode, thr = kind.map_of(acc)
+    with phase(f"{name}.upload"):
+        x = _upload(arr, torch.float32, device)
+    with phase(f"{name}.stats"):
+        xb = x.reshape(d, B, nb).transpose(0, 1).contiguous()
+        if d == 1:   # UNSF: the raw extremes of the mapped rows
+            x0, x1 = rows.stats(
+                engine.map_float(xb, mode, thr).reshape(B, nb), None)
+            x0_h, x1_h = rows.host(x0), rows.host(x1)
+            rng_h = x1_h - x0_h
+        else:
+            x0, rng_b = rows.block_stats(
+                engine.map_float(xb, mode, thr).reshape(B * d, nb), box)
+        if box is not None:
+            lo, hi = xb.amin(dim=2), xb.amax(dim=2)
+
+        def extent():
+            """The widest block range and the room rule's magnitude: the
+            box for positions, else the largest |x0| or |x1|."""
+            if d == 1:
+                return float(rng_h.max()), float(np.abs([x0_h, x1_h]).max())
+            if box is None:
+                return _float_extent(x0, rng_b)
+            return float(rows.host(rng_b.max())), box
+        depth = depth_rule(kind, acc.delta, extent)
+    with phase(f"{name}.binpack"):
+        if d == 1:
+            rng_b = rows.card(torch.from_numpy(rng_h), x.device)
+        if box is None:
+            words = _bin_pack(engine.map_float(xb, mode, thr), x0, rng_b,
+                              depth, None, scale_mode)
+        else:
+            words = _batched_bin_pack_pos(xb, x0, rng_b, depth, box,
+                                          scale_mode)
     count("packed_bits", depth * xb.numel())
-    with phase("pos.gather"):
+    bounds = None
+    with phase(f"{name}.gather"):
         words_h = _host_u32(words)
-        x0_h = _host(x0)
-        rng_h = _host(rng_b)
-        box = tuple(_host(t) for t in box)
-    stored = _float_entropy(words_h, depth, accel, "pos")
-    out = []
-    with phase("pos.wrap"):
-        for b in range(B):
-            meta = Writer()
-            for v in x0_h[b]:
-                meta.f32(float(v))
-            for v in x0_h[b] + rng_h[b]:
-                meta.f32(float(v))
-            meta.f32(acc.width)
-            meta.u8(depth).u8(0).u16(0)
-            meta.u64(seed)
-            out.append(_float_blocks(meta, stored, b, words_h.shape[1],
-                                     accel))
-    return out, depth, box
-
-
-def _encode_vel_batch(vel, B: int, nb: int, acc, seed: int, accel: int,
-                      device, depth: Optional[int] = None,
-                      scale_mode: str = "div"):
-    sym = int(acc.sym_log10_scaled)
-    thr = float(acc.sym_log10_threshold)
-    with phase("vel.upload"):
-        vel = _upload(vel, torch.float32, device)
-    with phase("vel.stats"):
-        xb = vel.reshape(3, B, nb).transpose(0, 1).contiguous()
-        x0, rng_b = _batched_stats_vel(xb, sym, thr)
-        if depth is None:
-            depth = _float_depth(acc.delta, *_float_extent(x0, rng_b))
-    with phase("vel.binpack"):
-        words = _batched_bin_pack_vel(xb, x0, rng_b, depth, sym, thr,
-                                      scale_mode)
-    count("packed_bits", depth * xb.numel())
-    with phase("vel.gather"):
-        words_h = _host_u32(words)
-        x0_h = _host(x0)
-        rng_h = _host(rng_b)
-    stored = _float_entropy(words_h, depth, accel, "vel")
-    out = []
-    with phase("vel.wrap"):
-        for b in range(B):
-            meta = Writer()
-            for v in x0_h[b]:
-                meta.f32(float(v))
-            for v in x0_h[b] + rng_h[b]:
-                meta.f32(float(v))
-            meta.u8(depth).u8(0)
-            meta.u8(2 if sym else 0).u8(0)
-            meta.f32(thr)
-            meta.u64(seed)
-            out.append(_float_blocks(meta, stored, b, words_h.shape[1],
-                                     accel))
-    return out, depth
-
-
-def _encode_scalar_float_batch(vals, B: int, nb: int, acc, seed: int,
-                               accel: int, device,
-                               depth: Optional[int] = None,
-                               scale_mode: str = "div"):
-    """Batched device encode of a scalar per-particle float field (n,) ->
-    per-block UNSF wire block lists (Trim v1.0 layout) + the shared
-    depth.  Used for Gadget-2 per-particle MASS and any other auxiliary
-    scalar field."""
-    mode = int(getattr(acc, "log10_scaled", 0))
-    threshold = float(getattr(acc, "sym_log10_threshold", 0.0))
-    with phase("mass.upload"):
-        xb = _upload(vals, torch.float32, device).reshape(B, nb)
-    with phase("mass.stats"):
-        x0, x1 = _batched_stats_scalar(xb, mode, threshold)
-        x0_h = _host(x0)
-        x1_h = _host(x1)
-        rng_h = x1_h.astype(np.float32) - x0_h.astype(np.float32)  # (B,)
-        if depth is None:
-            depth = _float_depth(acc.delta, float(rng_h.max()),
-                                 float(np.abs([x0_h, x1_h]).max()))
-    with phase("mass.binpack"):
-        words = _batched_bin_pack_scalar(
-            xb, x0, _card(torch.from_numpy(rng_h), xb.device), depth, mode,
-            threshold, scale_mode)
-    count("packed_bits", depth * xb.numel())
-    with phase("mass.gather"):
-        words_h = _host_u32(words)  # (B, 1, wpb)
-    stored = _float_entropy(words_h, depth, accel, "mass")
-    out = []
-    with phase("mass.wrap"):
-        for b in range(B):
-            meta = Writer()
-            meta.f32(float(x0_h[b])).f32(float(x1_h[b]))
-            meta.u8(depth).u8(0)
-            meta.u8(mode).u8(0)
-            meta.f32(threshold)
-            meta.u64(seed)
-            out.append(_float_blocks(meta, stored, b, words_h.shape[1],
-                                     accel))
-    return out, depth
+        if d > 1:
+            x0_h = rows.host(x0)
+            x1_h = x0_h.reshape(B, d) + rows.host(rng_b)[:, None]
+        if box is not None:
+            bounds = rows.host(lo), rows.host(hi)
+    stored = _entropy(list(words_h.reshape(B * d, -1)), [depth] * (B * d),
+                      accel, name)
+    x0_h, x1_h = x0_h.reshape(B, d), x1_h.reshape(B, d)
+    with phase(f"{name}.wrap"):
+        out = [[encode_block(_float_meta(kind, x0_h[b], x1_h[b], box, depth,
+                                         mode, thr, seed), 0, True, accel)]
+               + stored[b * d:(b + 1) * d] for b in range(B)]
+    return out, depth, bounds
 
 
 def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device,
@@ -491,14 +360,14 @@ def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device,
             with phase("ids.upload"):
                 ids = _upload(ids, torch.int64, device).reshape(-1)
             qdims, x0g, _ = engine.id_decompose(ids, int(acc.width))
-            x0g = _host(x0g).view(np.uint64)  # global per-dim offset
+            x0g = rows.host(x0g).view(np.uint64)  # global per-dim offset
         else:
             gmin = np.asarray(id_sync["gmin"], dtype=np.int64)
             lift = np.where(gmin < 0, np.int64(acc.width), np.int64(0))
             x0g = (gmin + lift).view(np.uint64)
             shifted = id_sync["shifted"]
-            qdims = shifted - _card(torch.from_numpy(gmin),
-                                    shifted.device)[:, None]
+            qdims = shifted - rows.card(torch.from_numpy(gmin),
+                                        shifted.device)[:, None]
         # the low 32 bits, as the reference's u32 cast keeps them
         qd = qdims.bitwise_and_(kernels.M32).reshape(3, B, nb)
     # The stored per-block origin includes the global decompose offset,
@@ -506,8 +375,8 @@ def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device,
     with phase("ids.pack"):
         x0_rel = qd.amin(dim=2)                      # (3, B)
         rel = qd - x0_rel[:, :, None]
-        relmax_b = _host(rel.amax(dim=2))            # (3, B)
-        x0_blocks = _host(x0_rel).astype(np.uint64) + x0g[:, None]
+        relmax_b = rows.host(rel.amax(dim=2))        # (3, B)
+        x0_blocks = rows.host(x0_rel).astype(np.uint64) + x0g[:, None]
         relmax = relmax_b.max(axis=1)
         if id_sync is not None:
             # the widest block range over every process's blocks, as the
@@ -517,8 +386,7 @@ def _encode_id_batch(ids, B: int, nb: int, acc, accel: int, device,
         count("packed_bits", sum(max(w, 1) for w in widths) * B * nb)
         packed = []
         for i in range(3):
-            words = _batched_id_pack(kernels.i64_to_u32(rel[i]),
-                                     max(widths[i], 1))
+            words = rows.pack(kernels.i64_to_u32(rel[i]), max(widths[i], 1))
             with phase("ids.gather"):
                 packed.append(_host_u32(words))
     stored = _entropy([packed[i][b] for b in range(B) for i in range(3)],
@@ -551,7 +419,7 @@ def _encode_float_blocks_deltas(arr, B: int, nb: int, code, acc, seed: int,
     codec = TrimV1_1(accel=accel)
     deltas = acc.deltas
     if isinstance(deltas, torch.Tensor):
-        deltas = _host(deltas)
+        deltas = rows.host(deltas)
     deltas = np.asarray(deltas, dtype=np.float32)
     n = arr.shape[-1]
     if deltas.shape[0] != n:
@@ -581,7 +449,79 @@ def _blocks_box(pos, B: int, nb: int, device):
     """Per-block bounding box (lo, hi), host (B, 3) each, of the raw
     positions (3, B*nb)."""
     xb = _upload(pos, torch.float32, device).reshape(3, B, nb)
-    return _host(xb.amin(dim=2).T), _host(xb.amax(dim=2).T)
+    return rows.host(xb.amin(dim=2).T), rows.host(xb.amax(dim=2).T)
+
+
+def _encode_fields(arrays: dict, spec: SnapshotSpec, B: int, nb: int,
+                   seed: int, accel: int, scale_mode: str, device,
+                   depth_rule, id_sync=None, deltas=None):
+    """The given fields of ``arrays`` ({"pos", "vel", "ids", "mass"} in
+    file order, each (3, B*nb) or (B*nb,), or None) as B blocks -> (each
+    block's WireFields, each block's IOHeader geometry (origin, width) of
+    its raw positions or None, stats {"<field>_depth", "id_widths"}).
+
+    ``depth_rule`` picks each float field's depth (``_encode_float``).  A
+    float field whose accuracy carries per-particle deltas, or that
+    ``deltas`` ({field: (B*nb,) accuracies}) gives them, is written in Trim
+    v1.1's Deltas coding.  ``id_sync(ids, width, device)`` gives the IDs'
+    synced frame (``_multihost_id_sync``)."""
+    fields: List[List[wire.WireField]] = [[] for _ in range(B)]
+    geometry, stats = None, {}
+    for name, arr in arrays.items():
+        if arr is None:
+            continue
+        acc, kind = getattr(spec, name), _KINDS.get(name)
+        version, bounds = TRIM_VERSION, None
+        if (deltas or {}).get(name) is not None:
+            acc = dataclasses.replace(acc, deltas=deltas[name])
+        if kind is None:
+            code = int(FieldCode.PTID)
+            blocks, stats["id_widths"] = _encode_id_batch(
+                arr, B, nb, acc, accel, device,
+                id_sync and id_sync(arr, int(acc.width), device))
+        elif getattr(acc, "deltas", None) is not None:
+            code = kind.code
+            blocks, version = _encode_float_blocks_deltas(
+                arr, B, nb, code, acc, seed, accel, scale_mode, device)
+            stats[f"{name}_depth"] = "per-particle"
+            if kind.periodic:
+                bounds = _blocks_box(arr, B, nb, device)
+        else:
+            code = kind.code
+            blocks, stats[f"{name}_depth"], bounds = _encode_float(
+                kind, arr, B, nb, acc, seed, accel, device, depth_rule,
+                scale_mode)
+        for b in range(B):
+            fields[b].append(wire.WireField(code, int(AlgoCode.TRIM),
+                                            version, blocks[b]))
+        if bounds is not None:
+            # IOHeader Origin/Width (header_format.tex:206-218): per-block
+            # bounding box of the raw (wrapped) positions, for skip-ahead
+            # spatial queries.
+            lo, hi = bounds
+            geometry = [(tuple(map(float, lo[b])),
+                         tuple(map(float, hi[b] - lo[b]))) for b in range(B)]
+    return fields, geometry, stats
+
+
+def _writer_arrays(spec: SnapshotSpec, blocks: int, what: str, pos, vel,
+                   ids, mass):
+    """The arrays of a whole-snapshot writer as ``_encode_fields`` takes
+    them, in native byte order, and the particles a block; ValueError when
+    none is given, when ``mass`` comes without ``spec.mass``, or when the
+    particles do not divide into ``blocks``."""
+    arrays = dict(zip(("pos", "vel", "ids", "mass"),
+                      (native_order(a) for a in (pos, vel, ids, mass))))
+    if arrays["mass"] is not None and spec.mass is None:
+        raise ValueError("mass array given without spec.mass accuracy")
+    given = [a for a in arrays.values() if a is not None]
+    if not given:
+        raise ValueError("no fields given")
+    n = given[0].shape[-1]
+    if n % blocks:
+        raise ValueError(f"{n} {what}particles do not divide into {blocks} "
+                         "blocks; pad the tail (client duty)")
+    return arrays, n // blocks
 
 
 @operation("snapshot.compress")
@@ -607,70 +547,18 @@ def compress_snapshot(fp: BinaryIO, pos, vel, ids, spec: SnapshotSpec,
     Deltas coding; its stats entry is "per-particle"."""
     if scale_mode not in ("div", "recip"):
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
-    pos, vel, ids, mass = (native_order(a) for a in (pos, vel, ids, mass))
-    if mass is not None and spec.mass is None:
-        raise ValueError("mass array given without spec.mass accuracy")
-    given = [a for a in (pos, vel, ids, mass) if a is not None]
-    if not given:
-        raise ValueError("no fields given")
-    n = given[0].shape[-1]
-    if n % num_blocks:
-        raise ValueError(f"{n} particles do not divide into {num_blocks} "
-                         "blocks; pad the tail (client duty)")
-    nb = n // num_blocks
-    B = num_blocks
-    stats = {}
+    arrays, nb = _writer_arrays(spec, num_blocks, "", pos, vel, ids, mass)
     _open_counters("packed_bits", "depth_room", "pooled_sum_bytes")
-    per_block_fields: List[List[wire.WireField]] = [[] for _ in range(B)]
-
-    def add_field(code, field_blocks, version=TRIM_VERSION):
-        for b in range(B):
-            per_block_fields[b].append(wire.WireField(
-                int(code), int(AlgoCode.TRIM), version, field_blocks[b]))
-
-    def float_field(name, arr, code, encode):
-        acc = getattr(spec, name)
-        if getattr(acc, "deltas", None) is not None:
-            field_blocks, version = _encode_float_blocks_deltas(
-                arr, B, nb, code, acc, seed, accel, scale_mode, device)
-            stats[f"{name}_depth"] = "per-particle"
-            add_field(code, field_blocks, version)
-            return None
-        out = encode(arr, B, nb, acc, seed, accel, device,
-                     scale_mode=scale_mode)
-        stats[f"{name}_depth"] = out[1]
-        add_field(code, out[0])
-        return out
-
-    geometry = None
-    if pos is not None:
-        out = float_field("pos", pos, FieldCode.POSN, _encode_pos_batch)
-        lo, hi = _blocks_box(pos, B, nb, device) if out is None else out[2]
-        # IOHeader Origin/Width (header_format.tex:206-218): per-block
-        # bounding box of the raw (wrapped) positions, for skip-ahead
-        # spatial queries.
-        geometry = [(tuple(float(lo[b, d]) for d in range(3)),
-                     tuple(float(hi[b, d] - lo[b, d]) for d in range(3)))
-                    for b in range(B)]
-    if vel is not None:
-        float_field("vel", vel, FieldCode.VELC, _encode_vel_batch)
-    if ids is not None:
-        field_blocks, widths = _encode_id_batch(ids, B, nb, spec.ids, accel,
-                                                device)
-        stats["id_widths"] = widths
-        add_field(FieldCode.PTID, field_blocks)
-    if mass is not None:
-        float_field("mass", mass, FieldCode.UNSF, _encode_scalar_float_batch)
-
-    # ---- serialize + chain -----------------------------------------------
+    fields, geometry, stats = _encode_fields(
+        arrays, spec, num_blocks, nb, seed, accel, scale_mode, device,
+        _depth_by_room)
     with phase("serialize"):
-        segments = [wire.serialize_parts(fields, nb)
-                    for fields in per_block_fields]
+        segments = [wire.serialize_parts(f, nb) for f in fields]
     with phase("segments.write"):
         seg_io.write_segments(fp, segments, geometry)
     stats["bytes"] = sum(map(seg_io.segment_nbytes, segments)) + \
-        seg_io.IO_HEADER_BYTES * B
-    stats["num_blocks"] = B
+        seg_io.IO_HEADER_BYTES * num_blocks
+    stats["num_blocks"] = num_blocks
     return stats
 
 
@@ -717,56 +605,27 @@ def compress_snapshot_streaming(fp: BinaryIO, blocks_iter,
     stats = {"bytes": 0, "num_blocks": 0}
     _open_counters("packed_bits", "depth_room", "pooled_sum_bytes")
     depths = depths or {}
-    encoders = {FieldCode.POSN: _encode_pos_batch,
-                FieldCode.VELC: _encode_vel_batch,
-                FieldCode.UNSF: _encode_scalar_float_batch}
+
+    def depth_rule(kind, delta, extent):
+        """The depth pinned in ``depths``, else the block's own."""
+        pinned = depths.get(kind.name)
+        return _float_depth(delta, *extent()) if pinned is None else pinned
 
     def seg_gen():
         for blk in blocks_iter:
-            pos, vel, ids, mass = (native_order(blk.get(k))
-                                   for k in ("pos", "vel", "ids", "mass"))
-            nb = next(a.shape[-1] for a in (pos, vel, ids) if a is not None)
-            fields: List[wire.WireField] = []
-            geometry = None
-
-            def float_field(arr, code, acc, dkey):
-                bd = native_order(blk.get(dkey + "_deltas"))
-                if bd is not None:
-                    fbl, ver = _encode_float_blocks_deltas(
-                        arr, 1, nb, code, dataclasses.replace(acc, deltas=bd),
-                        seed, accel, scale_mode, device)
-                    fields.append(wire.WireField(int(code),
-                                                 int(AlgoCode.TRIM), ver,
-                                                 fbl[0]))
-                    return None
-                out = encoders[code](arr, 1, nb, acc, seed, accel, device,
-                                     depth=depths.get(dkey),
-                                     scale_mode=scale_mode)
-                fields.append(wire.WireField(int(code), int(AlgoCode.TRIM),
-                                             TRIM_VERSION, out[0][0]))
-                return out
-
-            if pos is not None:
-                out = float_field(pos, FieldCode.POSN, spec.pos, "pos")
-                lo, hi = _blocks_box(pos, 1, nb, device) if out is None \
-                    else out[2]
-                geometry = (tuple(float(v) for v in lo[0]),
-                            tuple(float(h - l) for h, l in zip(hi[0],
-                                                               lo[0])))
-            if vel is not None:
-                float_field(vel, FieldCode.VELC, spec.vel, "vel")
-            if ids is not None:
-                fb, _ = _encode_id_batch(ids, 1, nb, spec.ids, accel, device)
-                fields.append(wire.WireField(
-                    int(FieldCode.PTID), int(AlgoCode.TRIM), TRIM_VERSION,
-                    fb[0]))
-            if mass is not None:
-                float_field(mass, FieldCode.UNSF, spec.mass, "mass")
-            seg = wire.serialize_parts(fields, nb)
+            arrays = {k: native_order(blk.get(k))
+                      for k in ("pos", "vel", "ids", "mass")}
+            nb = next(arrays[k].shape[-1] for k in ("pos", "vel", "ids")
+                      if arrays[k] is not None)
+            fields, geometry, _ = _encode_fields(
+                arrays, spec, 1, nb, seed, accel, scale_mode, device,
+                depth_rule, deltas={k: native_order(blk.get(k + "_deltas"))
+                                    for k in _KINDS})
+            seg = wire.serialize_parts(fields[0], nb)
             stats["bytes"] += seg_io.segment_nbytes(seg) + \
                 seg_io.IO_HEADER_BYTES
             stats["num_blocks"] += 1
-            yield seg, geometry
+            yield seg, None if geometry is None else geometry[0]
 
     seg_io.write_segments_streaming(fp, seg_gen())
     return stats
@@ -788,100 +647,42 @@ def compress_snapshot_multihost(fp: Optional[BinaryIO], pos, vel, ids,
     Returns the same stats dict on every process.
 
     Depth policy: one scalar all-gather per float field syncs the global
-    range, so every process derives the shared depth the single-host
-    writer would; the PTID frame is synced by the global element-0 anchor
-    and the all-reduced per-dim minima and widest block ranges
+    range (and, but for positions, the largest magnitude), so every
+    process derives the shared depth the single-host writer would; the
+    PTID frame is synced by the global element-0 anchor and the
+    all-reduced per-dim minima and widest block ranges
     (``_multihost_id_sync``).  The file is byte-identical to a single-host
     :func:`compress_snapshot` of the concatenated data, whatever the
     process count."""
     if scale_mode not in ("div", "recip"):
         raise ValueError(f"unknown scale_mode {scale_mode!r}")
     _reject_deltas(spec, "compress_snapshot_multihost")
-    pos, vel, ids, mass = (native_order(a) for a in (pos, vel, ids, mass))
-    if mass is not None and spec.mass is None:
-        raise ValueError("mass array given without spec.mass accuracy")
-    given = [a for a in (pos, vel, ids, mass) if a is not None]
-    if not given:
-        raise ValueError("no fields given")
-    n = given[0].shape[-1]
     B = num_blocks_local
-    if n % B:
-        raise ValueError(f"{n} local particles do not divide into {B} "
-                         "blocks; pad the tail (client duty)")
-    nb = n // B
-    stats = {}
-    per_block_fields: List[List[wire.WireField]] = [[] for _ in range(B)]
+    arrays, nb = _writer_arrays(spec, B, "local ", pos, vel, ids, mass)
 
-    def add_field(code, field_blocks):
-        for b in range(B):
-            per_block_fields[b].append(wire.WireField(
-                int(code), int(AlgoCode.TRIM), TRIM_VERSION,
-                field_blocks[b]))
+    def depth_rule(kind, delta, extent):
+        """The room rule over every process's widest range and, but for
+        the box, its largest magnitude."""
+        rng, mag = extent()
+        return _float_depth(delta, mh.allgather_max_f32(rng),
+                            mag if kind.periodic else
+                            mh.allgather_max_f32(mag))
 
-    def blocks(arr):
-        arr = _upload(arr, torch.float32, device)
-        return arr.reshape(3, B, nb).transpose(0, 1).contiguous()
-
-    geo_blobs = [b""] * B
-    if pos is not None:
-        _, rng_b = _batched_stats_pos(blocks(pos), float(spec.pos.width))
-        depth = _float_depth(spec.pos.delta,
-                             mh.allgather_max_f32(float(_host(rng_b.max()))),
-                             float(spec.pos.width))
-        fb, _, (lo, hi) = _encode_pos_batch(
-            pos, B, nb, spec.pos, seed, accel, device, depth=depth,
-            scale_mode=scale_mode)
-        stats["pos_depth"] = depth
-        add_field(FieldCode.POSN, fb)
-        geo_blobs = [struct.pack("<6d", *(float(v) for v in lo[b]),
-                                 *(float(v) for v in hi[b] - lo[b]))
-                     for b in range(B)]
-    if vel is not None:
-        x0, rng_b = _batched_stats_vel(blocks(vel),
-                                       int(spec.vel.sym_log10_scaled),
-                                       float(spec.vel.sym_log10_threshold))
-        depth = _float_depth(spec.vel.delta, *(
-            mh.allgather_max_f32(v) for v in _float_extent(x0, rng_b)))
-        fb, _ = _encode_vel_batch(vel, B, nb, spec.vel, seed, accel, device,
-                                  depth=depth, scale_mode=scale_mode)
-        stats["vel_depth"] = depth
-        add_field(FieldCode.VELC, fb)
-    if ids is not None:
-        fb, widths = _encode_id_batch(
-            ids, B, nb, spec.ids, accel, device,
-            id_sync=_multihost_id_sync(ids, int(spec.ids.width), device))
-        stats["id_widths"] = widths
-        add_field(FieldCode.PTID, fb)
-    if mass is not None:
-        mode = int(getattr(spec.mass, "log10_scaled", 0))
-        thr = float(getattr(spec.mass, "sym_log10_threshold", 0.0))
-        x0, x1 = _batched_stats_scalar(
-            _upload(mass, torch.float32, device).reshape(B, nb),
-            mode, thr)
-        x0_h, x1_h = _host(x0), _host(x1)
-        depth = _float_depth(
-            spec.mass.delta, mh.allgather_max_f32(float((x1_h - x0_h).max())),
-            mh.allgather_max_f32(float(np.abs([x0_h, x1_h]).max())))
-        fb, _ = _encode_scalar_float_batch(mass, B, nb, spec.mass, seed,
-                                           accel, device, depth=depth,
-                                           scale_mode=scale_mode)
-        stats["mass_depth"] = depth
-        add_field(FieldCode.UNSF, fb)
-
+    fields, geometry, stats = _encode_fields(
+        arrays, spec, B, nb, seed, accel, scale_mode, device, depth_rule,
+        id_sync=_multihost_id_sync)
     with phase("serialize"):
-        segments = [wire.serialize(fields, nb)
-                    for fields in per_block_fields]
+        segments = [wire.serialize(f, nb) for f in fields]
     all_segs = mh.allgather_bytes(segments)
-    all_geos = mh.allgather_bytes(geo_blobs)
+    all_geos = mh.allgather_bytes(
+        [b""] * B if geometry is None else
+        [struct.pack("<6d", *origin, *width) for origin, width in geometry])
     if mh.process_index() == 0:
         if fp is None:
             raise ValueError("process 0 must pass a writable fp")
-        geometry = None
-        if pos is not None:
-            geometry = []
-            for blob in all_geos:
-                vals = struct.unpack("<6d", blob)
-                geometry.append((vals[:3], vals[3:]))
+        if geometry is not None:
+            geometry = [(vals[:3], vals[3:]) for vals in (
+                struct.unpack("<6d", blob) for blob in all_geos)]
         seg_io.write_segments(fp, all_segs, geometry)
         fp.flush()  # visible to the other processes before the barrier
     mh.barrier("minnow_snapshot_write")
@@ -903,7 +704,7 @@ def _id_unwrap_anchored(ids: torch.Tensor, width: int, anchor,
     ``id_decompose`` takes)."""
     xi = torch.stack(engine.id_split(ids, width))
     L = int(width)
-    a = _card(torch.from_numpy(np.asarray(anchor, dtype=np.int64)),
+    a = rows.card(torch.from_numpy(np.asarray(anchor, dtype=np.int64)),
               xi.device)[:, None]
     d = xi - a
     move = torch.ones(xi.shape[1], dtype=torch.bool, device=xi.device)
@@ -931,7 +732,7 @@ def _multihost_id_sync(ids, width: int, device) -> dict:
     anchor = mh.allgather_i64(anchor_local)[0]
     shifted = _id_unwrap_anchored(ids, w, anchor,
                                   exempt_first=mh.process_index() == 0)
-    gmin = mh.allgather_i64(_host(shifted.amin(dim=1))).min(axis=0)
+    gmin = mh.allgather_i64(rows.host(shifted.amin(dim=1))).min(axis=0)
     return {"gmin": gmin, "shifted": shifted}
 
 
@@ -939,9 +740,8 @@ def _multihost_id_sync(ids, width: int, device) -> dict:
 # Reader
 # ---------------------------------------------------------------------------
 
-_FIELD_BY_NAME = {"pos": int(FieldCode.POSN), "vel": int(FieldCode.VELC),
-                  "ids": int(FieldCode.PTID),
-                  "mass": int(FieldCode.UNSF)}
+_FIELD_BY_NAME = dict({name: k.code for name, k in _KINDS.items()},
+                      ids=int(FieldCode.PTID))
 
 
 def _parse_want(fields):
@@ -1088,45 +888,24 @@ def decompress_snapshot_multihost(fp: BinaryIO, mesh=None, fields=None,
     return out
 
 
-def _batched_float_decode(words: torch.Tensor, x0: np.ndarray,
-                          rng_b: np.ndarray, key, depth: int, nb: int,
-                          periodic: bool, box: float) -> torch.Tensor:
-    """(B, D, wpb) words -> (B, D, nb) floats; ``x0`` (B, D) and the bin
-    range ``rng_b`` (B,) are host f32.  Every row shares the dither key
-    and counters 0..nb, exactly what the per-segment decode does.  One K2
-    launch over all (block, dim) rows when 32 | nb, else K1 row by row."""
-    b, d = words.shape[:2]
-    if depth <= 24 and rows_kernel_eligible(depth, nb):
-        keys = _card(torch.tensor(key, dtype=torch.int64),
-                     words.device).expand(b * d, 2)
-        out = decode_rows_cuda(
-            words.reshape(b * d, -1), keys, depth, nb, x0.reshape(b * d),
-            np.repeat(rng_b, d), box=(box if periodic else 0.0),
-            periodic=periodic)
-        return out.reshape(b, d, nb)
-    return torch.stack([torch.stack([
-        decode_cuda(words[i, j], key, depth, nb, x0[i, j], rng_b[i], box,
-                    periodic) for j in range(d)]) for i in range(b)])
-
-
 def _stacked_words(blocks_by_seg, block: int):
     """The payload words of block ``block`` of every segment as host u32
     rows, and their shared width; None when the widths differ."""
-    rows, widths = [], set()
+    payloads, widths = [], set()
     for blocks in blocks_by_seg:
         payload, w, _ = decode_block(blocks[block])
         widths.add(w)
-        rows.append(np.frombuffer(payload.tobytes(), dtype="<u4"))
+        payloads.append(np.frombuffer(payload.tobytes(), dtype="<u4"))
     if len(widths) != 1:
         return None
-    return np.stack(rows), widths.pop()
+    return np.stack(payloads), widths.pop()
 
 
 def _to_device(words: np.ndarray, device, name: str) -> torch.Tensor:
     """Host u32 words as int32 on ``device``, in span
     ``decode.<name>.upload``."""
     with phase(f"decode.{name}.upload"):
-        return _card(torch.from_numpy(
+        return rows.card(torch.from_numpy(
             np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)),
             device)
 
@@ -1161,100 +940,46 @@ def _decompress_snapshot_batched(segments, want,
         if want is not None and code not in want:
             continue
         blocks_by_seg = [p.fields[fi].blocks for p in parsed]
-        if code in (int(FieldCode.POSN), int(FieldCode.VELC)):
-            is_pos = code == int(FieldCode.POSN)
+        kind = _KIND_BY_CODE.get(code)
+        if kind is not None:
             metas = []
-            for b in range(B):
-                meta, _, _ = decode_block(blocks_by_seg[b][0])
-                r = Reader(meta.tobytes())
-                x0 = [r.f32() for _ in range(3)]
-                x1 = [r.f32() for _ in range(3)]
-                box = r.f32() if is_pos else 0.0
-                depth = r.u8()
-                if r.u8():
+            for blocks in blocks_by_seg:
+                meta = _read_meta(kind, decode_block(blocks[0])[0])
+                if meta is None:
                     return None  # per-particle depths: per segment
-                symlog, threshold = 0, 0.0
-                if not is_pos:
-                    symlog = r.u8()
-                    r.u8()
-                    threshold = r.f32()
-                else:
-                    r.u16()
-                seed = r.u64()
-                metas.append((x0, x1, box, depth, seed, symlog, threshold))
-            depth = metas[0][3]
-            seed = metas[0][4]
-            box = metas[0][2]
-            symlog, threshold = metas[0][5], metas[0][6]
-            if any(m[3] != depth or m[4] != seed or m[2] != box or
-                   m[5] != symlog or m[6] != threshold for m in metas):
+                metas.append(meta)
+            depth, seed, box, mode, threshold = metas[0][2]
+            if any(a != b for m in metas for a, b in zip(m[2], metas[0][2])):
                 return None
             if depth < 1 or depth > 24:
                 return None  # foreign/corrupt depth: per-segment path
-            name = "pos" if is_pos else "vel"
+            name, nd = kind.name, kind.dims
             with phase(f"decode.{name}.entropy"):
                 dims_h = [_stacked_words(blocks_by_seg, 1 + d)
-                          for d in range(3)]
+                          for d in range(nd)]
             if any(w is None or w[1] != depth for w in dims_h):
                 return None
             x0_np = np.array([m[0] for m in metas], dtype=np.float32)
-            md_np = np.array(
-                [np.float32(np.max(np.float32(m[1]) - np.float32(m[0])))
-                 for m in metas], dtype=np.float64)
-            # canonical per-dim bin range: f32(x0 + maxDiff) - f32(x0)
-            dx_np = (np.float32(x0_np.astype(np.float64) + md_np[:, None]) -
-                     x0_np).astype(np.float32)  # (B, 3)
+            x1_np = np.array([m[1] for m in metas], dtype=np.float32)
+            if nd == 1:   # UNSF: f32(x1) - f32(x0), the scalar engine's
+                dx_np = x1_np - x0_np
+            else:         # canonical per-dim: f32(x0 + maxDiff) - f32(x0)
+                md_np = (x1_np - x0_np).max(axis=1).astype(np.float64)
+                dx_np = (np.float32(x0_np.astype(np.float64) +
+                                    md_np[:, None]) - x0_np).astype(
+                    np.float32)   # (B, 3)
             # the per-segment decode derives a key per dim; so does this
-            keys = [_rng.field_key(seed, fi, d) for d in range(3)]
             with phase(f"decode.{name}"):
-                dims = [_batched_float_decode(
-                    _to_device(dims_h[d][0], device, name)[:, None],
-                    x0_np[:, d:d + 1],
-                    dx_np[:, d], keys[d], depth, nb, is_pos,
-                    float(box))[:, 0] for d in range(3)]
-                data = engine.unmap_float(torch.stack(dims, dim=1), symlog,
-                                          float(threshold))  # (B, 3, nb)
-            out[name] = data.transpose(0, 1).reshape(3, B * nb)
-        elif code == int(FieldCode.UNSF):
-            metas = []
-            for b in range(B):
-                meta, _, _ = decode_block(blocks_by_seg[b][0])
-                r = Reader(meta.tobytes())
-                x0 = r.f32()
-                x1 = r.f32()
-                depth = r.u8()
-                if r.u8():
-                    return None  # per-particle depths: per segment
-                log10_scaled = r.u8()
-                r.u8()
-                threshold = r.f32()
-                seed = r.u64()
-                metas.append((x0, x1, depth, seed, log10_scaled,
-                              threshold))
-            depth, seed = metas[0][2], metas[0][3]
-            log10_scaled, threshold = metas[0][4], metas[0][5]
-            if any(m[2:] != metas[0][2:] for m in metas):
-                return None
-            if depth < 1 or depth > 24:
-                return None
-            with phase("decode.mass.entropy"):
-                stacked = _stacked_words(blocks_by_seg, 1)
-            if stacked is None or stacked[1] != depth:
-                return None
-            x0_np = np.array([m[0] for m in metas], dtype=np.float32)
-            # UNSF bin range is f32(x1) - f32(x0) directly (the scalar
-            # engine path), unlike the 3-dim fields' canonical
-            # f32(x0 + maxDiff) - f32(x0) form.
-            dx_np = (np.array([m[1] for m in metas], dtype=np.float32)
-                     - x0_np)
-            with phase("decode.mass"):
-                res = _batched_float_decode(
-                    _to_device(stacked[0], device, "mass")[:, None],
-                    x0_np[:, None], dx_np, _rng.field_key(seed, fi, 0),
-                    depth, nb, False, 0.0)
-                data = engine.unmap_float(res[:, 0], log10_scaled,
-                                          float(threshold))  # (B, nb)
-            out["mass"] = data.reshape(-1)
+                dims = [rows.decode(
+                    _to_device(dims_h[d][0], device, name),
+                    [_rng.field_key(seed, fi, d)], x0_np[:, d], dx_np[:, d],
+                    depth, nb, float(box) if kind.periodic else None)
+                    for d in range(nd)]
+                data = engine.unmap_float(
+                    torch.stack(dims, dim=1) if nd > 1 else dims[0][:, None],
+                    mode, float(threshold))  # (B, nd, nb)
+            flat = data.transpose(0, 1).reshape(nd, B * nb)
+            out[name] = flat if nd > 1 else flat[0]
         elif code == int(FieldCode.PTID):
             metas = []
             for b in range(B):
@@ -1276,14 +1001,9 @@ def _decompress_snapshot_batched(segments, want,
                 dims = []
                 for words_h, wbits in dims_h:
                     words_d = _to_device(words_h, device, "ids")
-                    if rows_kernel_eligible(wbits, nb):
-                        bins = unpack_rows_cuda(words_d, wbits, nb)
-                    else:
-                        bins = torch.stack([
-                            bitpack.uniform_unpack(r, wbits, nb)
-                            for r in words_d])
+                    bins = rows.unpack(words_d, wbits, nb)
                     dims.append(kernels.u32_to_i64(bins))
-                x0 = _card(torch.tensor(
+                x0 = rows.card(torch.tensor(
                     [[kernels.u64_to_i64(m[1][d]) for m in metas]
                      for d in range(3)], dtype=torch.int64), device)
                 ids = engine.id_recompose(dims, x0, width)

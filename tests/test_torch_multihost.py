@@ -9,7 +9,8 @@ port's and the JAX package's single-host ``compress_snapshot`` of the
 concatenated data; each rank's read must equal its slice of
 ``decompress_snapshot`` bitwise without reading a foreign segment body.
 Two ID sets: lattice IDs, and u64 IDs with the top bit set (on a 2^22
-grid, whose cube covers every u64).  The workers import no JAX.
+grid, whose cube covers every u64); the lattice IDs also with a mass
+field.  The workers import no JAX.
 """
 
 import io
@@ -47,6 +48,7 @@ assert multihost.process_count() == 2
 W = 64.0
 data = np.load(os.path.join(tmp, "data.npz"))
 gx, gv, gi, grid = data["gx"], data["gv"], data["gi"], int(data["grid"])
+gm = data["gm"] if "gm" in data.files else None
 lo, hi = proc_id * 4, (proc_id + 1) * 4
 mesh = make_mesh(4, device="cpu")    # 4 shards here, 8 over both ranks
 one = make_mesh(8, device="cpu")     # the one-process reference
@@ -108,12 +110,14 @@ def slab(blocks):   # (B_local, d, nb) -> (d, B_local*nb); (B_local, nb) -> n
 
 spec = mt.SnapshotSpec(pos=mt.PositionAccuracy(delta=1e-3, width=W),
                        vel=mt.VelocityAccuracy(delta=1.0),
-                       ids=mt.IDAccuracy(width=grid))
+                       ids=mt.IDAccuracy(width=grid),
+                       mass=None if gm is None else mt.FloatAccuracy(1e-3))
 path = os.path.join(tmp, "multi.min")
 fp = open(path, "wb") if proc_id == 0 else None
 st = snap_mod.compress_snapshot_multihost(
     fp, slab(gx[lo:hi]), slab(gv[lo:hi]), slab(gi[lo:hi]), spec,
-    num_blocks_local=4, seed=5, device="cpu")
+    num_blocks_local=4, seed=5, device="cpu",
+    mass=None if gm is None else slab(gm[lo:hi]))
 if fp is not None:
     fp.close()
 assert st["num_blocks"] == 8, st
@@ -127,9 +131,9 @@ assert np.abs(full["vel"].numpy() - slab(gv)).max() <= 1.0
 assert np.array_equal(full["ids"].numpy().view(np.uint64), gi.reshape(-1))
 if proc_id == 0:
     buf = io.BytesIO()
-    one_st = snap_mod.compress_snapshot(buf, slab(gx), slab(gv), slab(gi),
-                                        spec, num_blocks=8, seed=5,
-                                        device="cpu")
+    one_st = snap_mod.compress_snapshot(
+        buf, slab(gx), slab(gv), slab(gi), spec, num_blocks=8, seed=5,
+        device="cpu", mass=None if gm is None else slab(gm))
     assert buf.getvalue() == blob, "file differs from the one-host file"
     assert {k: v for k, v in one_st.items()} == st, (one_st, st)
     print("FILE_PARITY_OK", flush=True)
@@ -185,14 +189,16 @@ def _data(kind: str):
     rng = np.random.default_rng(0)
     gx = rng.uniform(0, W, (8, 3, 256)).astype(np.float32)
     gv = rng.normal(0, 200, (8, 3, 256)).astype(np.float32)
-    if kind == "lattice":
+    if kind.startswith("lattice"):
         grid = 1024
         gi = rng.permutation(1024 * 1024 * 2)[:8 * 256].astype(np.uint64)
     else:
         grid = 1 << 22
         gi = rng.integers(1 << 63, (1 << 64) - 1, 8 * 256, dtype=np.uint64,
                           endpoint=True)
-    return gx, gv, gi.reshape(8, 256), grid
+    gm = rng.uniform(0.5, 2.0, (8, 256)).astype(np.float32) \
+        if kind.endswith("_mass") else None
+    return gx, gv, gi.reshape(8, 256), grid, gm
 
 
 def _slab(blocks):
@@ -201,10 +207,11 @@ def _slab(blocks):
     return blocks.reshape(-1)
 
 
-@pytest.mark.parametrize("kind", ["lattice", "past_2_63"])
+@pytest.mark.parametrize("kind", ["lattice", "past_2_63", "lattice_mass"])
 def test_two_process_codecs_writer_reader(tmp_path, kind):
-    gx, gv, gi, grid = _data(kind)
-    np.savez(tmp_path / "data.npz", gx=gx, gv=gv, gi=gi, grid=grid)
+    gx, gv, gi, grid, gm = _data(kind)
+    np.savez(tmp_path / "data.npz", gx=gx, gv=gv, gi=gi, grid=grid,
+             **({} if gm is None else {"gm": gm}))
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -234,11 +241,47 @@ def test_two_process_codecs_writer_reader(tmp_path, kind):
     # the two processes' file == the JAX package's single-host file
     spec = jsnap.SnapshotSpec(pos=mnw.PositionAccuracy(delta=1e-3, width=W),
                               vel=mnw.VelocityAccuracy(delta=1.0),
-                              ids=mnw.IDAccuracy(width=grid))
+                              ids=mnw.IDAccuracy(width=grid),
+                              mass=None if gm is None else
+                              mnw.FloatAccuracy(1e-3))
     buf = io.BytesIO()
     jsnap.compress_snapshot(buf, _slab(gx), _slab(gv), _slab(gi), spec,
-                            num_blocks=8, seed=5)
+                            num_blocks=8, seed=5,
+                            mass=None if gm is None else _slab(gm))
     assert (tmp_path / "multi.min").read_bytes() == buf.getvalue()
+
+
+def test_one_process_multihost_writer_takes_each_stats_once(monkeypatch):
+    """Without a process group the multihost writer writes
+    ``compress_snapshot``'s bytes and stats for positions, symlog
+    velocities, IDs and log10 masses, and takes each float field's upload
+    and stats pass once: the depth rule syncs inside the encoder's own
+    stats step."""
+    import minnow_c_tpu_torch as mt
+    from minnow_c_tpu_torch.parallel import rows
+    from minnow_c_tpu_torch.parallel import snapshot as tsnap
+    gx, gv, gi, grid, _ = _data("lattice")
+    mass = np.random.default_rng(1).uniform(0.5, 2.0, 8 * 256).astype(
+        np.float32)
+    spec = mt.SnapshotSpec(
+        pos=mt.PositionAccuracy(delta=1e-3, width=W),
+        vel=mt.VelocityAccuracy(delta=1e-3, sym_log10_scaled=1,
+                                sym_log10_threshold=10.0),
+        ids=mt.IDAccuracy(width=grid),
+        mass=mt.FloatAccuracy(delta=1e-3, log10_scaled=1))
+    args = (_slab(gx), _slab(gv), _slab(gi), spec)
+    stats_calls = []
+    stats = rows.stats
+    monkeypatch.setattr(rows, "stats", lambda *a, **kw: (
+        stats_calls.append(a[0].shape), stats(*a, **kw))[1])
+    multi, one = io.BytesIO(), io.BytesIO()
+    st = tsnap.compress_snapshot_multihost(multi, *args, num_blocks_local=8,
+                                           seed=5, mass=mass, device="cpu")
+    assert stats_calls == [(24, 256), (24, 256), (8, 256)]
+    one_st = tsnap.compress_snapshot(one, *args, num_blocks=8, seed=5,
+                                     mass=mass, device="cpu")
+    assert multi.getvalue() == one.getvalue()
+    assert st == one_st
 
 
 def test_single_process_helpers_are_identities():

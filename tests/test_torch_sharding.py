@@ -250,9 +250,11 @@ def test_position_codec_matches_jax(n_dev, scale_mode, profile):
     assert periodic_err(want, x) <= 1e-3
 
 
-@pytest.mark.parametrize("scale_mode", ["div", "recip"])
+@pytest.mark.parametrize("scale_mode, fused_rows",
+                         [("div", None), ("recip", None), ("recip", False)],
+                         ids=["div", "recip", "recip-plain"])
 @pytest.mark.parametrize("ids_kind", ["lattice", "past_2_63"])
-def test_snapshot_codec_matches_jax(ids_kind, scale_mode):
+def test_snapshot_codec_matches_jax(ids_kind, scale_mode, fused_rows):
     B, nb = 8, 256
     pos, vel, _ = make_snap(B=B, nb=nb, seed=21)
     rng = np.random.default_rng(22)
@@ -268,7 +270,7 @@ def test_snapshot_codec_matches_jax(ids_kind, scale_mode):
               vel_depth=delta_to_depth(1.0, -2000.0, 2000.0), id_grid=grid,
               scale_mode=scale_mode)
     jcodec = jsh.ShardedSnapshotCodec(mesh=jsh.make_mesh(4), **kw)
-    tcodec = ShardedSnapshotCodec(mesh=mesh(4), **kw)
+    tcodec = ShardedSnapshotCodec(mesh=mesh(4), fused_rows=fused_rows, **kw)
     jenc = [np.asarray(a) for a in jcodec.encode(pos, vel, ids)]
     tenc = tcodec.encode(pos, vel, ids)
     assert len(tenc) == len(jenc) == 8
