@@ -9,10 +9,11 @@ The codec is our own native implementation of the public LZ4 block format
 (``native/minnow_native.cpp``); it is wire-compatible with standard LZ4, and
 the test suite cross-checks against the system ``liblz4`` when present.
 
-``encode_blocks`` / ``decode_blocks`` fan independent buffers across a
-thread pool -- the native calls release the GIL, so this is the host-side
-"shared memory parallelization" the spec assigns to minnow
-(header_format.tex:58-59).
+``decode_into`` decodes into a buffer the caller holds (the snapshot
+reader's rows).  ``encode_blocks`` / ``decode_blocks`` fan independent
+buffers across a thread pool -- the native calls release the GIL, so
+this is the host-side "shared memory parallelization" the spec assigns
+to minnow (header_format.tex:58-59).
 """
 
 from __future__ import annotations
@@ -81,6 +82,24 @@ def decode(data, uncompressed_size: int) -> np.ndarray:
     if consumed < 0:
         raise ValueError("malformed LZ4 stream")
     return out
+
+
+def decode_into(data, out: np.ndarray) -> None:
+    """``decode`` into the bytes of ``out`` (a writable C-contiguous array,
+    whose size in bytes is the uncompressed size): no buffer of its own.
+    Raises ValueError as ``decode`` does, on a malformed stream or one that
+    decodes to another size than ``out``'s."""
+    if not (out.flags.c_contiguous and out.flags.writeable):
+        raise ValueError("LZ4 decode needs a writable C-contiguous "
+                         "destination")
+    dst = out.reshape(-1).view(np.uint8)
+    if dst.size == 0:
+        return
+    arr = _to_u8(data)
+    consumed = native.lib().mnw_lz4_decompress(arr.ctypes.data, arr.size,
+                                               dst.ctypes.data, dst.size)
+    if consumed < 0:
+        raise ValueError("malformed LZ4 stream")
 
 
 def pool_map(fn, *items) -> list:

@@ -10,8 +10,13 @@ one pool task a (block, dim) payload takes its LZ4, prelude, pad and
 checksum (``_entropy``); each block is then a *standard* wire-format
 segment (Trim v1.0 layout) given as its header and those parts, and the
 segments are written in file order with chained IOHeaders, the stored
-bytes straight from the LZ4 outputs.  The files are byte-identical to the
-JAX package's writer, and either package reads the other's.
+bytes straight from the LZ4 outputs.  The batched reader mirrors it: it
+parses each segment's layout with no copy (``format.layout``), checks
+every stored block's checksum in one pool task a block on a view of the
+segment bytes, and LZ4-decodes each (segment, dim) payload straight into
+its row of one host array a dim (``_payload_words``).  The files are
+byte-identical to the JAX package's writer, and either package reads the
+other's.
 
 Depth policy: one depth per field across all blocks; ranges stay per
 block.  Encode runs on the device of the given tensors (numpy input goes
@@ -56,13 +61,14 @@ from __future__ import annotations
 import dataclasses
 import struct
 from dataclasses import dataclass
-from typing import BinaryIO, Callable, List, Optional
+from typing import BinaryIO, Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..algos.algo_trim_v1_0 import VERSION as TRIM_VERSION
-from ..algos.blocks import FLAG_LZ4, decode_block, encode_block
+from ..algos.blocks import (FLAG_LZ4, PRELUDE_BYTES, decode_block,
+                            encode_block)
 from ..ops import entropy, kernels
 from ..ops import rng as _rng
 from ..ops.checksum import CHECKSUM_INIT, checksum
@@ -70,7 +76,7 @@ from ..quant import engine
 from ..segment import format as wire
 from ..segment import io as seg_io
 from ..segment.api import decompress_segment
-from ..segment.stream import Reader, Writer
+from ..segment.stream import Reader, StreamUnderflowError, Writer
 from ..types import (AlgoCode, FieldCode, FloatAccuracy, IDAccuracy,
                      PositionAccuracy, VelocityAccuracy)
 from ..utils import native_order
@@ -141,9 +147,10 @@ def _open_counters(*keys: str) -> None:
     times elements, every field's packed bins before LZ4),
     ``depth_room`` (fields the room rule made deeper) and
     ``pooled_sum_bytes`` (stored block bytes whose checksum a pool task
-    took, ``_entropy``), a read's ``h2d``
-    and ``d2h`` (a read that leaves its fields on the card downloads
-    nothing)."""
+    took, ``_entropy``), a read's ``h2d`` and ``d2h`` (a read that leaves
+    its fields on the card downloads nothing) and ``pooled_decode_bytes``
+    (stored payload block bytes that a pool task decoded into their row,
+    ``_payload_words``; 0 when the read ran per segment)."""
     for key in keys:
         count(key, 0)
 
@@ -784,7 +791,7 @@ def decompress_snapshot(fp: BinaryIO, batched: bool = True, box=None,
     ``fields``: optional subset of {"pos", "vel", "ids", "mass"} (or
     FieldCodes) to decode; the rest are skipped entirely and absent from
     the result.  Selected fields are bit-identical to a full read."""
-    _open_counters("h2d", "d2h")
+    _open_counters("h2d", "d2h", "pooled_decode_bytes")
     want = _parse_want(fields)
     with phase("decode.read"):
         if box is not None:
@@ -888,66 +895,147 @@ def decompress_snapshot_multihost(fp: BinaryIO, mesh=None, fields=None,
     return out
 
 
-def _stacked_words(blocks_by_seg, block: int):
-    """The payload words of block ``block`` of every segment as host u32
-    rows, and their shared width; None when the widths differ."""
-    payloads, widths = [], set()
-    for blocks in blocks_by_seg:
-        payload, w, _ = decode_block(blocks[block])
-        widths.add(w)
-        payloads.append(np.frombuffer(payload.tobytes(), dtype="<u4"))
-    if len(widths) != 1:
+def _block_view(seg, span: wire.BlockSpan) -> np.ndarray:
+    """A stored block's bytes as a uint8 view of its segment's."""
+    return np.frombuffer(seg, np.uint8, count=span.length,
+                         offset=span.offset)
+
+
+def _meta(seg, field: wire.WireField) -> np.ndarray:
+    """The payload of a field's meta block (its first) in one segment."""
+    return decode_block(_block_view(seg, field.blocks[0]))[0]
+
+
+def _blocks_hold(segments, layouts) -> bool:
+    """Whether every stored block of every field matches the checksum its
+    block header states (``wire.deserialize``'s check), one pool task a
+    block on a view of its segment's bytes."""
+    spans = [(seg, b) for seg, lay in zip(segments, layouts)
+             for f in lay.fields for b in f.blocks]
+    if not spans:
+        return True
+    return all(entropy.pool_map(
+        lambda seg, b: checksum(_block_view(seg, b)) == b.checksum,
+        *zip(*spans)))
+
+
+class _Payload(NamedTuple):
+    """A payload block as its prelude gives it: its stored bytes (a view
+    of the segment's), raw length, width, and whether LZ4 codes them."""
+
+    stored: np.ndarray
+    raw_len: int
+    width: int
+    lz4: bool
+
+
+def _payload(seg, span: wire.BlockSpan) -> _Payload:
+    """A payload block's prelude, read as ``decode_block`` reads it.
+    Raises ValueError where ``decode_block`` would, and on a raw length
+    that is no whole number of u32 words."""
+    if span.length < PRELUDE_BYTES:
+        raise StreamUnderflowError(
+            f"block of {span.length} bytes has no {PRELUDE_BYTES}-byte "
+            "prelude")
+    raw_len, comp_len, width, flags = struct.unpack_from("<IIBB", seg,
+                                                         span.offset)
+    if flags & ~FLAG_LZ4:   # the one flag a writer sets
+        raise ValueError(f"unknown block flag bits {flags:#x}; refusing "
+                         "to return misdecoded payload")
+    if PRELUDE_BYTES + comp_len > span.length:
+        raise StreamUnderflowError(
+            f"block of {span.length} bytes cannot hold its stored "
+            f"payload of {comp_len}")
+    lz4 = bool(flags & FLAG_LZ4)
+    if not lz4 and comp_len != raw_len:
+        raise ValueError("block comp_len != raw_len without entropy flag")
+    if raw_len % 4:
+        raise ValueError(f"payload of {raw_len} bytes is no whole number "
+                         "of u32 words")
+    stored = np.frombuffer(seg, np.uint8, count=comp_len,
+                           offset=span.offset + PRELUDE_BYTES)
+    return _Payload(stored, raw_len, width, lz4)
+
+
+def _into_row(p: _Payload, row: np.ndarray) -> None:
+    """One pool task: a payload's stored bytes into its row of words."""
+    if p.lz4:
+        entropy.decode_into(p.stored, row)
+    else:
+        np.copyto(row.view(np.uint8), p.stored)
+
+
+def _payload_words(segments, layouts, fi: int, nd: int) -> Optional[list]:
+    """Payload blocks 1..``nd`` of field ``fi`` of every segment as one
+    host (B, words) u32 array a dim, and the dim's width: one pool task a
+    (segment, dim) LZ4-decodes its stored view (or copies a raw one)
+    straight into its row.  None when a dim's widths differ; their stored
+    bytes count as ``pooled_decode_bytes``."""
+    spans = [[lay.fields[fi].blocks[1 + d] for lay in layouts]
+             for d in range(nd)]
+    dims = [[_payload(seg, sp) for seg, sp in zip(segments, spans_d)]
+            for spans_d in spans]
+    if any(len({p.width for p in dim}) != 1 for dim in dims):
         return None
-    return np.stack(payloads), widths.pop()
+    if any(len({p.raw_len for p in dim}) != 1 for dim in dims):
+        raise ValueError("payload lengths differ across segments")
+    out = [(np.empty((len(dim), dim[0].raw_len // 4), "<u4"), dim[0].width)
+           for dim in dims]
+    tasks = [(p, words[b]) for dim, (words, _) in zip(dims, out)
+             for b, p in enumerate(dim)]
+    entropy.pool_map(_into_row, *zip(*tasks))
+    count("pooled_decode_bytes", sum(sp.length for spans_d in spans
+                                     for sp in spans_d))
+    return out
 
 
 def _to_device(words: np.ndarray, device, name: str) -> torch.Tensor:
-    """Host u32 words as int32 on ``device``, in span
+    """Host (B, words) u32 rows as int32 on ``device``, in span
     ``decode.<name>.upload``."""
     with phase(f"decode.{name}.upload"):
-        return rows.card(torch.from_numpy(
-            np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)),
-            device)
+        return rows.card(torch.from_numpy(words.view(np.int32)), device)
 
 
 def _decompress_snapshot_batched(segments, want,
                                  device) -> Optional[dict]:
     """Batched decode of a uniform snapshot file; None if the file doesn't
-    fit the writer's structure (the caller then decodes per segment)."""
-    try:
-        with phase("decode.parse"):
-            parsed = [wire.deserialize(s) for s in segments]
-    except ValueError:
-        return None
-    if not parsed:
-        return None
-    nb = parsed[0].particle_num
-    sig = [(f.field_code, f.algo_code, len(f.blocks))
-           for f in parsed[0].fields]
-    for p in parsed:
-        if p.particle_num != nb or \
-                [(f.field_code, f.algo_code, len(f.blocks))
-                 for f in p.fields] != sig:
+    fit the writer's structure or a block fails its checksum (the caller
+    then decodes per segment).  The host wire runs in the pool on views of
+    the segment bytes: every block's checksum (``decode.parse``), then
+    each field's payloads decoded into their rows (``_payload_words``)."""
+    with phase("decode.parse"):
+        try:
+            layouts = [wire.layout(s) for s in segments]
+        except ValueError:
             return None
-        for f in p.fields:
-            if (f.algo_code != int(AlgoCode.TRIM) or
-                    any(b is None for b in f.blocks)):
+        if not layouts:
+            return None
+        nb = layouts[0].particle_num
+        sig = [(f.field_code, f.algo_code, len(f.blocks))
+               for f in layouts[0].fields]
+        for lay in layouts:
+            if lay.particle_num != nb or \
+                    [(f.field_code, f.algo_code, len(f.blocks))
+                     for f in lay.fields] != sig:
                 return None
+        if any(algo != int(AlgoCode.TRIM) for _, algo, _ in sig) or \
+                not _blocks_hold(segments, layouts):
+            return None
 
-    B = len(parsed)
+    B = len(layouts)
     out = {}
     for fi, (code, _, _) in enumerate(sig):
         if want is not None and code not in want:
             continue
-        blocks_by_seg = [p.fields[fi].blocks for p in parsed]
+        fields = [lay.fields[fi] for lay in layouts]
         kind = _KIND_BY_CODE.get(code)
         if kind is not None:
             metas = []
-            for blocks in blocks_by_seg:
-                meta = _read_meta(kind, decode_block(blocks[0])[0])
-                if meta is None:
+            for b in range(B):
+                m = _read_meta(kind, _meta(segments[b], fields[b]))
+                if m is None:
                     return None  # per-particle depths: per segment
-                metas.append(meta)
+                metas.append(m)
             depth, seed, box, mode, threshold = metas[0][2]
             if any(a != b for m in metas for a, b in zip(m[2], metas[0][2])):
                 return None
@@ -955,9 +1043,8 @@ def _decompress_snapshot_batched(segments, want,
                 return None  # foreign/corrupt depth: per-segment path
             name, nd = kind.name, kind.dims
             with phase(f"decode.{name}.entropy"):
-                dims_h = [_stacked_words(blocks_by_seg, 1 + d)
-                          for d in range(nd)]
-            if any(w is None or w[1] != depth for w in dims_h):
+                dims_h = _payload_words(segments, layouts, fi, nd)
+            if dims_h is None or any(w != depth for _, w in dims_h):
                 return None
             x0_np = np.array([m[0] for m in metas], dtype=np.float32)
             x1_np = np.array([m[1] for m in metas], dtype=np.float32)
@@ -983,8 +1070,7 @@ def _decompress_snapshot_batched(segments, want,
         elif code == int(FieldCode.PTID):
             metas = []
             for b in range(B):
-                meta, _, _ = decode_block(blocks_by_seg[b][0])
-                r = Reader(meta.tobytes())
+                r = Reader(_meta(segments[b], fields[b]).tobytes())
                 width = r.u64()
                 x0 = [r.u64() for _ in range(3)]
                 _ = [r.u64() for _ in range(3)]
@@ -993,9 +1079,8 @@ def _decompress_snapshot_batched(segments, want,
             if any(m[0] != width for m in metas):
                 return None
             with phase("decode.ids.entropy"):
-                dims_h = [_stacked_words(blocks_by_seg, 1 + d)
-                          for d in range(3)]
-            if any(w is None for w in dims_h):
+                dims_h = _payload_words(segments, layouts, fi, 3)
+            if dims_h is None:
                 return None
             with phase("decode.ids"):
                 dims = []

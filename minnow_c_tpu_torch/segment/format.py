@@ -22,16 +22,21 @@ header it builds, then each block's stored parts as the writer made them
 bytes go from the LZ4 output to the file with no copy.  ``serialize`` is
 their join.
 
+``layout`` is the reader's counterpart: ``deserialize``'s parse with the
+block checksums left to the caller, each block given as where it lies in
+the segment (``BlockSpan``), so a reader can check and decode the blocks
+in parallel on views of the segment bytes.
+
 All values little-endian (spec "Endianness" section).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Union
+from typing import List, NamedTuple, Union
 
 from ..ops.checksum import checksum
-from .stream import Reader, Writer
+from .stream import Reader, StreamUnderflowError, Writer
 
 SEGMENT_HEADER_BYTES = 16
 FIELD_HEADER_BYTES = 16
@@ -58,8 +63,9 @@ class WireField:
     field_code: int
     algo_code: int
     version: int
-    # bytes or StoredBlock; None marks a corrupt block after read
-    blocks: List[Union[bytes, StoredBlock, None]]
+    # bytes or StoredBlock; None marks a corrupt block after read; a
+    # BlockSpan in ``layout``'s parse
+    blocks: List[Union[bytes, StoredBlock, "BlockSpan", None]]
 
 
 def serialize_parts(fields: List[WireField], particle_num: int) -> list:
@@ -143,3 +149,51 @@ def deserialize(data: bytes, verify: bool = True) -> ParsedSegment:
                 f.blocks[j] = raw
     return ParsedSegment(particle_num=particle_num, fields=fields,
                          header_valid=header_valid)
+
+
+class BlockSpan(NamedTuple):
+    """Where a stored block lies in its segment's bytes, and the checksum
+    its block header states for it."""
+
+    offset: int
+    length: int
+    checksum: int
+
+
+def layout(data) -> ParsedSegment:
+    """``deserialize``'s parse of a segment (any buffer) that takes no
+    block checksum and copies no block: each field's blocks come back as
+    their ``BlockSpan``s, for the caller to check.  A corrupt header, or
+    blocks that run past the end of ``data``, raise ValueError, as there."""
+    r = Reader(data)
+    hdr_checksum = r.u32()
+    block_num = r.i32()
+    field_num = r.i32()
+    particle_num = r.i32()
+    hdr_span = 12 + FIELD_HEADER_BYTES * field_num + \
+        BLOCK_HEADER_BYTES * block_num
+    if block_num < 0 or field_num < 0 or particle_num < 0 or \
+            hdr_span > len(r):
+        raise ValueError(
+            f"implausible segment header counts: blocks={block_num} "
+            f"fields={field_num} particles={particle_num} "
+            f"for {len(r)} bytes")
+    if checksum(memoryview(data)[4:4 + hdr_span]) != hdr_checksum:
+        raise ValueError(
+            f"segment header checksum mismatch ({hdr_checksum:#x})")
+    fields = [WireField(r.u32(), r.u32(), r.u32(), [None] * r.i32())
+              for _ in range(field_num)]
+    block_meta = [(r.u32(), r.u32()) for _ in range(block_num)]
+    bi, offset = 0, r.offset
+    for f in fields:
+        for j in range(len(f.blocks)):
+            length, bsum = block_meta[bi]
+            bi += 1
+            if offset + length > len(r):
+                raise StreamUnderflowError(
+                    f"stream underflow: need {length} bytes at offset "
+                    f"{offset}, only {len(r) - offset} remain")
+            f.blocks[j] = BlockSpan(offset, length, bsum)
+            offset += length
+    return ParsedSegment(particle_num=particle_num, fields=fields,
+                         header_valid=True)

@@ -18,7 +18,9 @@
   every field's packed bins before LZ4, ``depth_room``, the fields that
   the room rule of ``quant.engine.delta_to_depth`` made deeper, and
   ``pooled_sum_bytes``, the stored block bytes whose checksum a pool task
-  took (``parallel.snapshot._entropy``).
+  took (``parallel.snapshot._entropy``); a batched read counts
+  ``pooled_decode_bytes``, the stored payload block bytes that a pool
+  task decoded into their row (``parallel.snapshot._payload_words``).
 
 With ``MINNOW_PROFILE`` set, closing a record prints one line to standard
 error, e.g. ``[minnow] g2.compress: 1712.3 ms  packed_bits 2302.9 Mbit

@@ -100,15 +100,25 @@ def decompress(packed: bytes, device="cpu") -> bytes:
     return out.getvalue()
 
 
-def block_bytes(packed: bytes):
-    """A snapshot file's stored block bytes: those of its payload blocks
-    (every block of a field but its first, the meta block), and of all."""
+def block_bytes(packed: bytes, start: int = 0):
+    """A snapshot file's stored block bytes (its segments from offset
+    ``start``): those of its payload blocks (every block of a field but its
+    first, the meta block), and of all."""
     payload = every = 0
-    for _, seg in seg_io.iter_segments(io.BytesIO(packed)):
+    fp = io.BytesIO(packed)
+    fp.seek(start)
+    for _, seg in seg_io.iter_segments(fp):
         for f in wire.deserialize(seg).fields:
             payload += sum(map(len, f.blocks[1:]))
             every += sum(map(len, f.blocks))
     return payload, every
+
+
+def driver_block_bytes(packed: bytes):
+    """``block_bytes`` of a driver's file, past its Gadget-2 header."""
+    fp = io.BytesIO(packed)
+    gadget2._read_record(fp)
+    return block_bytes(packed, fp.tell())
 
 
 @pytest.fixture(scope="module")
@@ -154,14 +164,15 @@ def test_one_record_per_driver_operation(files, op):
     assert rec.start < rec.end
     # no copy crosses to a card on the CPU; a read's file lands in
     # ordinary memory; a write counts its packed bins and the blocks its
-    # pool tasks took, and in a 64-wide box the room rule makes no field
-    # deeper
+    # pool tasks took (a read, those its pool tasks decoded), and in a
+    # 64-wide box the room rule makes no field deeper
     c = dict(rec.counters)
     if op == "write":
         assert c.pop("packed_bits") > 0 and c.pop("depth_room") == 0
         assert c.pop("pooled_sum_bytes") > 0
     assert c == ({"h2d": 0, "d2h": 0} if op == "write" else
-                 {"h2d": 0, "d2h": 0, "d2h_pinned": 0})
+                 {"h2d": 0, "d2h": 0, "d2h_pinned": 0,
+                  "pooled_decode_bytes": driver_block_bytes(packed)[0]})
 
 
 def test_one_record_per_snapshot_operation():
@@ -183,7 +194,9 @@ def test_one_record_per_snapshot_operation():
                                                            device="cpu"))
     assert [r.name for r in recs] == ["snapshot.decompress"]
     # a read that leaves its fields where they were decoded still says so
-    assert recs[0].counters == {"h2d": 0, "d2h": 0}
+    assert recs[0].counters == {
+        "h2d": 0, "d2h": 0,
+        "pooled_decode_bytes": block_bytes(fp.getvalue())[0]}
     assert torch.equal(out["ids"], torch.from_numpy(ids.view(np.int64)))
     recs, _ = new_records(lambda: snapshot.compress_snapshot_streaming(
         io.BytesIO(), iter([{"pos": pos}]), spec, device="cpu"))
@@ -246,6 +259,38 @@ def test_pooled_sum_bytes_are_the_payload_blocks(writer):
         io.BytesIO(), pos, None, None, deltas, num_blocks=BLOCKS,
         device="cpu"))
     assert recs[0].counters["pooled_sum_bytes"] == 0
+
+
+@pytest.mark.parametrize("read", ["batched", "per_segment", "deltas"])
+def test_pooled_decode_bytes_are_the_payload_blocks(read):
+    """A batched read's ``pooled_decode_bytes``, on its record from the
+    start, are the stored bytes of every payload block: at least 0.999 of
+    the file's block bytes, the meta blocks the rest.  A read that runs
+    per segment, asked to or on a Deltas-mode file, takes no pool task
+    and reads 0."""
+    n = 1 << 16
+    rng = np.random.default_rng(7)
+    pos = rng.uniform(0, BOX, (3, n)).astype(np.float32)
+    vel = rng.normal(0, 150, (3, n)).astype(np.float32)
+    ids = rng.permutation(64 ** 3)[:n].astype(np.uint64)
+    spec = mt.SnapshotSpec(pos=mt.PositionAccuracy(
+        delta=1e-3, width=BOX,
+        deltas=np.full(n, 1e-3, np.float32) if read == "deltas" else None),
+        vel=mt.VelocityAccuracy(delta=1.0), ids=mt.IDAccuracy(width=64))
+    fp = io.BytesIO()
+    mt.compress_snapshot(fp, pos, vel, ids, spec, num_blocks=4,
+                         device="cpu")
+    fp.seek(0)
+    recs, _ = new_records(lambda: mt.decompress_snapshot(
+        fp, batched=read != "per_segment", device="cpu"))
+    c = recs[0].counters
+    assert list(c)[:3] == ["h2d", "d2h", "pooled_decode_bytes"]
+    payload, every = block_bytes(fp.getvalue())
+    if read == "batched":
+        assert c["pooled_decode_bytes"] == payload
+        assert payload / every >= 0.999
+    else:
+        assert c["pooled_decode_bytes"] == 0
 
 
 @pytest.mark.parametrize("box, deeper", [(64.0, 0), (256.0, 1)])
@@ -346,7 +391,10 @@ def test_decompress_lands_nothing_in_pinned_memory_on_the_cpu(
     assert recs[0].counters["d2h_pinned"] == 0
     line, = capsys.readouterr().err.splitlines()
     assert line.startswith("[minnow] g2.decompress: ")
-    assert line.endswith(" ms  h2d 0.0 MB  d2h 0.0 MB  d2h_pinned 0.0 MB")
+    pooled = recs[0].counters["pooled_decode_bytes"]
+    assert pooled == driver_block_bytes(packed)[0]
+    assert line.endswith(" ms  h2d 0.0 MB  d2h 0.0 MB  pooled_decode_bytes "
+                         f"{pooled / 1e6:.1f} MB  d2h_pinned 0.0 MB")
 
 
 @pytest.mark.cuda
