@@ -148,9 +148,12 @@ def _open_counters(*keys: str) -> None:
     ``depth_room`` (fields the room rule made deeper) and
     ``pooled_sum_bytes`` (stored block bytes whose checksum a pool task
     took, ``_entropy``), a read's ``h2d`` and ``d2h`` (a read that leaves
-    its fields on the card downloads nothing) and ``pooled_decode_bytes``
+    its fields on the card downloads nothing), ``pooled_decode_bytes``
     (stored payload block bytes that a pool task decoded into their row,
-    ``_payload_words``; 0 when the read ran per segment)."""
+    ``_payload_words``; 0 when the read ran per segment) and
+    ``viewed_segment_bytes`` (segment body bytes taken as views of the
+    whole file's bytes that the caller's stream held,
+    ``seg_io.iter_segment_views``; 0 when they were read as copies)."""
     for key in keys:
         count(key, 0)
 
@@ -790,24 +793,27 @@ def decompress_snapshot(fp: BinaryIO, batched: bool = True, box=None,
 
     ``fields``: optional subset of {"pos", "vel", "ids", "mass"} (or
     FieldCodes) to decode; the rest are skipped entirely and absent from
-    the result.  Selected fields are bit-identical to a full read."""
-    _open_counters("h2d", "d2h", "pooled_decode_bytes")
+    the result.  Selected fields are bit-identical to a full read.
+
+    From an ``io.BytesIO`` the segment bodies are views of the bytes it
+    holds (``seg_io.iter_segment_views``); no returned tensor shares them,
+    and nothing holds them once the read returns."""
+    _open_counters("h2d", "d2h", "pooled_decode_bytes",
+                   "viewed_segment_bytes")
     want = _parse_want(fields)
     with phase("decode.read"):
-        if box is not None:
-            origin, width = box
-            segments = [s for _, s in seg_io.iter_segments_intersecting(
-                fp, origin, width, periodic)]
-        else:
-            segments = [s for _, s in seg_io.iter_segments(fp)]
+        segments = [s for _, s in seg_io.iter_segment_views(fp, box,
+                                                            periodic)]
+    count("viewed_segment_bytes",
+          sum(len(s) for s in segments if isinstance(s, memoryview)))
     return decode_segments(segments, batched, want, device)
 
 
 def decode_segments(segments, batched: bool = True, want=None,
                     device="cuda") -> dict:
-    """Decode a list of serialized segments (``want``: a set of FieldCodes,
-    or None for all) into concatenated field tensors on ``device``, as
-    ``decompress_snapshot`` returns them."""
+    """Decode a list of serialized segments (bytes or views of them;
+    ``want``: a set of FieldCodes, or None for all) into concatenated
+    field tensors on ``device``, as ``decompress_snapshot`` returns them."""
     device = torch.device(device)
     if not segments:
         return {}

@@ -344,6 +344,57 @@ def iter_segments_selected(fp: BinaryIO, indices
         idx += 1
 
 
+class _HeldBytes:
+    """``read``/``seek``/``tell`` over a whole file's bytes, whose ``read``
+    gives a ``memoryview`` slice of them, not a copy: the chain readers run
+    on it unchanged and yield views."""
+
+    def __init__(self, whole, pos: int):
+        self._buf = memoryview(whole)
+        self._pos = pos
+
+    def read(self, n: int) -> memoryview:
+        view = self._buf[self._pos:self._pos + n]
+        self._pos += len(view)
+        return view
+
+    def seek(self, offset: int) -> int:
+        self._pos = offset
+        return offset
+
+    def tell(self) -> int:
+        return self._pos
+
+
+def _held_bytes(fp: BinaryIO):
+    """The whole file as bytes the stream already holds, or None.  An
+    ``io.BytesIO`` gives ``getvalue()``: the caller's ``bytes`` object
+    itself while the stream shares it, no copy (``getbuffer()`` would
+    unshare, and so copy, it)."""
+    return fp.getvalue() if isinstance(fp, _io.BytesIO) else None
+
+
+def iter_segment_views(fp: BinaryIO, box=None, periodic=None
+                       ) -> Iterator[Tuple[IOHeader, memoryview | bytes]]:
+    """``iter_segments`` (``iter_segments_intersecting`` for a query
+    ``box=(origin, width)``, ``periodic`` as there), with each body a
+    ``memoryview`` of the bytes the stream already holds
+    (``_held_bytes``) instead of a copy; any other stream is read by those
+    readers as it is, and its bodies are ``bytes``.  The checks, the
+    ValueErrors and where ``fp`` is left are theirs."""
+    whole = _held_bytes(fp)
+    src = fp if whole is None else _HeldBytes(whole, fp.tell())
+    try:
+        if box is None:
+            yield from iter_segments(src)
+        else:
+            yield from iter_segments_intersecting(src, box[0], box[1],
+                                                  periodic)
+    finally:
+        if src is not fp:
+            fp.seek(src.tell())
+
+
 def count_segments(fp: BinaryIO) -> int:
     """Number of segments in the chain at the current position (headers
     only; no body reads)."""

@@ -20,7 +20,10 @@
   ``pooled_sum_bytes``, the stored block bytes whose checksum a pool task
   took (``parallel.snapshot._entropy``); a batched read counts
   ``pooled_decode_bytes``, the stored payload block bytes that a pool
-  task decoded into their row (``parallel.snapshot._payload_words``).
+  task decoded into their row (``parallel.snapshot._payload_words``), and
+  a read ``viewed_segment_bytes``, the segment body bytes it took as views
+  of the whole file's bytes that the caller's stream held
+  (``segment.io.iter_segment_views``).
 
 With ``MINNOW_PROFILE`` set, closing a record prints one line to standard
 error, e.g. ``[minnow] g2.compress: 1712.3 ms  packed_bits 2302.9 Mbit

@@ -121,6 +121,15 @@ def driver_block_bytes(packed: bytes):
     return block_bytes(packed, fp.tell())
 
 
+def segment_bytes(packed: bytes, driver: bool = False) -> int:
+    """The bytes of a snapshot file's segment bodies (a driver's file: past
+    its Gadget-2 header)."""
+    fp = io.BytesIO(packed)
+    if driver:
+        gadget2._read_record(fp)
+    return sum(len(seg) for _, seg in seg_io.iter_segments(fp))
+
+
 @pytest.fixture(scope="module")
 def files():
     raw = gadget2_file()
@@ -164,7 +173,8 @@ def test_one_record_per_driver_operation(files, op):
     assert rec.start < rec.end
     # no copy crosses to a card on the CPU; a read's file lands in
     # ordinary memory; a write counts its packed bins and the blocks its
-    # pool tasks took (a read, those its pool tasks decoded), and in a
+    # pool tasks took (a read, those its pool tasks decoded, and the
+    # segment bodies it took as views of the caller's bytes), and in a
     # 64-wide box the room rule makes no field deeper
     c = dict(rec.counters)
     if op == "write":
@@ -172,7 +182,8 @@ def test_one_record_per_driver_operation(files, op):
         assert c.pop("pooled_sum_bytes") > 0
     assert c == ({"h2d": 0, "d2h": 0} if op == "write" else
                  {"h2d": 0, "d2h": 0, "d2h_pinned": 0,
-                  "pooled_decode_bytes": driver_block_bytes(packed)[0]})
+                  "pooled_decode_bytes": driver_block_bytes(packed)[0],
+                  "viewed_segment_bytes": segment_bytes(packed, True)})
 
 
 def test_one_record_per_snapshot_operation():
@@ -196,7 +207,8 @@ def test_one_record_per_snapshot_operation():
     # a read that leaves its fields where they were decoded still says so
     assert recs[0].counters == {
         "h2d": 0, "d2h": 0,
-        "pooled_decode_bytes": block_bytes(fp.getvalue())[0]}
+        "pooled_decode_bytes": block_bytes(fp.getvalue())[0],
+        "viewed_segment_bytes": segment_bytes(fp.getvalue())}
     assert torch.equal(out["ids"], torch.from_numpy(ids.view(np.int64)))
     recs, _ = new_records(lambda: snapshot.compress_snapshot_streaming(
         io.BytesIO(), iter([{"pos": pos}]), spec, device="cpu"))
@@ -284,7 +296,8 @@ def test_pooled_decode_bytes_are_the_payload_blocks(read):
     recs, _ = new_records(lambda: mt.decompress_snapshot(
         fp, batched=read != "per_segment", device="cpu"))
     c = recs[0].counters
-    assert list(c)[:3] == ["h2d", "d2h", "pooled_decode_bytes"]
+    assert list(c)[:4] == ["h2d", "d2h", "pooled_decode_bytes",
+                           "viewed_segment_bytes"]
     payload, every = block_bytes(fp.getvalue())
     if read == "batched":
         assert c["pooled_decode_bytes"] == payload
@@ -384,7 +397,9 @@ def test_profile_line_only_with_the_variable(files, monkeypatch, capsys):
 def test_decompress_lands_nothing_in_pinned_memory_on_the_cpu(
         files, monkeypatch, capsys):
     """On the CPU the driver lays the read's file out in ordinary memory:
-    its record and its ``MINNOW_PROFILE`` line read ``d2h_pinned`` 0."""
+    its record and its ``MINNOW_PROFILE`` line read ``d2h_pinned`` 0, and
+    the line shows the segment bodies the read took as views beside the
+    payload blocks its pool decoded."""
     _, packed = files
     monkeypatch.setenv("MINNOW_PROFILE", "1")
     recs, _ = new_records(lambda: decompress(packed))
@@ -393,8 +408,11 @@ def test_decompress_lands_nothing_in_pinned_memory_on_the_cpu(
     assert line.startswith("[minnow] g2.decompress: ")
     pooled = recs[0].counters["pooled_decode_bytes"]
     assert pooled == driver_block_bytes(packed)[0]
+    viewed = recs[0].counters["viewed_segment_bytes"]
+    assert viewed == segment_bytes(packed, True)
     assert line.endswith(" ms  h2d 0.0 MB  d2h 0.0 MB  pooled_decode_bytes "
-                         f"{pooled / 1e6:.1f} MB  d2h_pinned 0.0 MB")
+                         f"{pooled / 1e6:.1f} MB  viewed_segment_bytes "
+                         f"{viewed / 1e6:.1f} MB  d2h_pinned 0.0 MB")
 
 
 @pytest.mark.cuda
